@@ -1,0 +1,9 @@
+from svnet_tpu_torch.nn.sv_layers import (  # noqa: F401
+    BatchNorm,
+    Linear,
+    SVBlock,
+    SVFuse,
+    Vector2Scalar,
+    VectorBN,
+    binary_matmul,
+)

@@ -1,0 +1,66 @@
+"""Edge features and SV-pair pooling (counterpart of svnet_tpu/ops/graph.py).
+
+Layouts are channels-last, as in the JAX package:
+  scalars s: (B, N, [k,] S)    vectors v: (B, N, [k,] 3, V)    points: (B, N, 3)
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from svnet_tpu_torch.ops.knn import knn
+
+SVPair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, ...), idx (B, N, k) -> (B, N, k, ...)."""
+    B = x.shape[0]
+    bidx = torch.arange(B, device=x.device)[:, None, None]
+    return x[bidx, idx]
+
+
+def get_graph_feature(points: torch.Tensor, k: int,
+                      idx: torch.Tensor | None = None) -> torch.Tensor:
+    """First-round edges ``[nbr - ctr, ctr]``: (B, N, 3) -> (B, N, k, 3, 2)."""
+    if idx is None:
+        idx = knn(points, k)
+    nbr = gather_neighbors(points, idx)
+    ctr = points[:, :, None, :].expand_as(nbr)
+    return torch.stack([nbr - ctr, ctr], dim=-1)
+
+
+def get_graph_feature_sv(x: SVPair, k: int,
+                         idx: torch.Tensor | None = None) -> SVPair:
+    """Edges over an (s, v) pair, kNN in the joint [s, flat(v)] space.
+
+    Returns s_feat (B, N, k, 2S) = [nbr - ctr, ctr] and
+    v_feat (B, N, k, 3, 2V) = [nbr - ctr, ctr].
+    """
+    s, v = x
+    B, N, S = s.shape
+    V = v.shape[-1]
+    joint = torch.cat([s, v.reshape(B, N, -1)], dim=-1)
+    if idx is None:
+        idx = knn(joint, k)
+    nbr = gather_neighbors(joint, idx)  # (B, N, k, S + 3V)
+    ctr = joint[:, :, None, :].expand_as(nbr)
+    s_feat = torch.cat([nbr[..., :S] - ctr[..., :S], ctr[..., :S]], dim=-1)
+    kk = idx.shape[-1]
+    v_nbr = nbr[..., S:].reshape(B, N, kk, 3, V)
+    v_ctr = ctr[..., S:].reshape(B, N, kk, 3, V)
+    return s_feat, torch.cat([v_nbr - v_ctr, v_ctr], dim=-1)
+
+
+def svpool(x: SVPair, dim: int = 2) -> SVPair:
+    """Scalar max and vector mean over ``dim`` (the k axis by default)."""
+    s, v = x
+    return torch.amax(s, dim=dim), torch.mean(v, dim=dim)
+
+
+def svcat(xlist: Sequence[SVPair]) -> SVPair:
+    """Channel-concat SV pairs."""
+    return (torch.cat([x[0] for x in xlist], dim=-1),
+            torch.cat([x[1] for x in xlist], dim=-1))

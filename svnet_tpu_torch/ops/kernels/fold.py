@@ -1,0 +1,108 @@
+"""Host-side weight folding for the fused kernels (counterparts of
+svnet_tpu/ops/pallas/sv_edge.py:230-283, sv_edge_first.py:169-208 and
+sv_point.py:332-391).
+
+Each fold turns one block's weight tree into the kernel's constants:
+BatchNorm and the binarized layers' scales become per-channel affines,
+and linear1's rows are permuted from the reference's c-major order of
+the Vector2Scalar invariants (row c*3 + j) to the kernels' j-major order
+(row j*V + c). Shapes keep the JAX package's orientation, ``(in, out)``
+kernels and ``(1, C)`` affines.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from svnet_tpu_torch.config import BN_EPS
+
+Folded = Dict[str, torch.Tensor]
+
+
+def _jmajor(offset: int, n: int) -> List[int]:
+    """Rows ``offset + c*3 + j`` listed j-major: j outer, c inner."""
+    return [offset + c * 3 + j for j in range(3) for c in range(n)]
+
+
+def _bn_affine(p: dict, st: dict):
+    inv = p["scale"] / torch.sqrt(st["var"] + BN_EPS)
+    return inv, p["bias"] - st["mean"] * inv
+
+
+def _fold_block(p: dict, st: dict, perm: List[int], binary: bool) -> Folded:
+    """Shared fold of an SVBlock's linear1/bn1/linear2/bn2/v2s."""
+    w1 = p["linear1"]["kernel"][perm, :]
+    if binary:
+        beta = p["linear1"]["beta"][perm][None, :]
+        w1 = torch.sign(w1)
+        scale1 = p["linear1"]["scale"]
+    else:
+        beta = torch.zeros((1, w1.shape[0]), dtype=w1.dtype, device=w1.device)
+        scale1 = torch.ones(w1.shape[1], dtype=w1.dtype, device=w1.device)
+    inv1, shift1 = _bn_affine(p["bn1"]["bn"], st["bn1"]["bn"])
+
+    w2 = p["linear2"]["kernel"]
+    if binary:
+        scale2 = p["linear2"]["scale"][None, :]
+        w2 = torch.sign(w2)
+    else:
+        scale2 = torch.ones((1, w2.shape[1]), dtype=w2.dtype, device=w2.device)
+    inv2, shift2 = _bn_affine(p["bn2"]["bn"], st["bn2"]["bn"])
+
+    wz = p["v2s"]["linear"]["kernel"]
+    if binary:
+        wz = torch.sign(wz) * p["v2s"]["linear"]["scale"][None, :]
+    return {
+        "wz": wz, "w1": w1, "beta": beta,
+        "a1": (scale1 * inv1)[None, :], "b1": shift1[None, :],
+        "w2": w2, "scale2": scale2, "a2": inv2[None, :], "b2": shift2[None, :],
+    }
+
+
+def fold_svblock_params(params: dict, stats: dict, S: int, V: int,
+                        binary: bool) -> Folded:
+    """An edge round's SVBlock. linear1 consumes [s_e (2S) | v2s (6V)]:
+    the first 2S rows stay, the 3*2V invariant rows go j-major."""
+    perm = list(range(2 * S)) + _jmajor(2 * S, 2 * V)
+    return _fold_block(params, stats, perm, binary)
+
+
+def fold_first_params(init_scalar: dict, conv1: dict, stats_conv1: dict,
+                      n_ch: int = 2) -> Folded:
+    """init_scalar + conv1 (always full precision). linear1's rows are
+    [init_scalar (3*n_ch) | v2s (3*n_ch)], each half permuted j-major;
+    linear2 has no scale."""
+    perm = _jmajor(0, n_ch) + _jmajor(3 * n_ch, n_ch)
+    inv1, shift1 = _bn_affine(conv1["bn1"]["bn"], stats_conv1["bn1"]["bn"])
+    inv2, shift2 = _bn_affine(conv1["bn2"]["bn"], stats_conv1["bn2"]["bn"])
+    return {
+        "wz0": init_scalar["linear"]["kernel"],
+        "wz1": conv1["v2s"]["linear"]["kernel"],
+        "w1": conv1["linear1"]["kernel"][perm, :],
+        "a1": inv1[None, :], "b1": shift1[None, :],
+        "w2": conv1["linear2"]["kernel"],
+        "a2": inv2[None, :], "b2": shift2[None, :],
+    }
+
+
+def fold_point_params(conv5_p: dict, conv5_bs: dict, svfuse_p: dict, S: int,
+                      V: int, binary: bool) -> Folded:
+    """conv5 + SVFuse: linear1 consumes [s (S) | v2s (3V)], the invariant
+    rows permuted j-major; ``wzf`` is SVFuse's frame."""
+    perm = list(range(S)) + _jmajor(S, V)
+    out = _fold_block(conv5_p, conv5_bs, perm, binary)
+    wzf = svfuse_p["v2s"]["linear"]["kernel"]
+    if binary:
+        wzf = torch.sign(wzf) * svfuse_p["v2s"]["linear"]["scale"][None, :]
+    out["wzf"] = wzf
+    return out
+
+
+def head_perm(S_out: int, V_out: int) -> torch.Tensor:
+    """Rows of the head's first linear for [max(x), mean(x)] whose SVFuse
+    channels come j-major: ``x_jmajor @ W[perm] == x_cmajor @ W``."""
+    block = list(range(S_out)) + _jmajor(S_out, V_out)
+    width = S_out + 3 * V_out
+    return torch.tensor(block + [width + r for r in block], dtype=torch.int64)
