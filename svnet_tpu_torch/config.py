@@ -34,6 +34,15 @@ def require_cuda(device) -> torch.device:
     return device
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """An entry point's device: a CUDA device (``require_cuda``) unless the
+    caller asks for the CPU; never a fallback."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return device
+    return require_cuda(device)
+
+
 def set_full_fp32() -> None:
     """Full-f32 matmuls and convolutions on the card.
 

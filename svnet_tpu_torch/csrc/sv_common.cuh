@@ -109,7 +109,7 @@ static size_t sv_select_smem(int N, int C) {
 static __global__ void __launch_bounds__(SEL_WARPS * 32)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
-                     int N, int C, int k) {
+                     int N, int C, int k, int rs, int ps) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
   float* ctr = (float*)sv_smem;  // (SEL_TP, C)
   unsigned* keys =
@@ -161,7 +161,7 @@ sv_knn_select_kernel(const float* __restrict__ src,
     for (int r = 0; r < k; ++r) {
       const sv_u64 w = sv_warp_max_u64(best);
       const int row = N - 1 - (int)(unsigned)(w & 0xffffffffull);
-      if (lane == 0) wins[((size_t)b * k + r) * N + n] = row;
+      if (lane == 0) wins[(size_t)b * k * N + (size_t)r * rs + (size_t)n * ps] = row;
       if ((row & 31) == lane) {  // the winner's owner drops it and rescans
         kt[row] = 0u;
         best = 0ull;
@@ -175,10 +175,11 @@ sv_knn_select_kernel(const float* __restrict__ src,
 }
 
 // Squared norms + selection for a channel-major (B, C, N) source. aa is a
-// (B, N) scratch buffer the wrapper allocated.
+// (B, N) scratch buffer the wrapper allocated. wins is (B, k, N), or
+// (B, N, k) when point_major.
 static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
                                  int B, int N, int C, int k,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, bool point_major = false) {
   const size_t smem = sv_select_smem(N, C);
   if (smem > SV_SMEM_LIMIT || k > N || k < 1) return cudaErrorInvalidValue;
   const long long BN = (long long)B * N;
@@ -191,8 +192,8 @@ static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
                              (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TP - 1) / SEL_TP, B);
-  sv_knn_select_kernel<<<grid, SEL_WARPS * 32, smem, stream>>>(src, aa, wins,
-                                                               N, C, k);
+  sv_knn_select_kernel<<<grid, SEL_WARPS * 32, smem, stream>>>(
+      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1);
   return cudaGetLastError();
 }
 

@@ -93,14 +93,15 @@ def se_gate(p: dict, s_mean: torch.Tensor) -> torch.Tensor:
 class SVDGCNNClsEngine:
     """Build from a weight tree ({'params', 'batch_stats'}, e.g. from
     ``init_params`` or ``utils.convert.from_flax``); call on (B, N, 3)
-    float32 points on ``device``.
+    float32 points on ``device``: the card unless the caller passes
+    ``device="cpu"``.
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
     card (chip_smoke.py). It is never chosen for the caller."""
 
     def __init__(self, weights: dict, num_classes: int = 40, k: int = 20,
-                 binary: bool = True, mode: str = "exact", device="cpu",
+                 binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False):
         self.mode = config.check_mode(mode)
         if oracle:
@@ -109,9 +110,8 @@ class SVDGCNNClsEngine:
         else:
             self._first, self._round, self._point = (
                 sv_round3_first, sv_round3, sv_point_block_cm)
-        self.device = torch.device(device)
+        self.device = config.resolve_device(device)
         if self.device.type == "cuda":
-            self.device = config.require_cuda(self.device)
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
             config.set_full_fp32()
         self.num_classes, self.k, self.binary = num_classes, k, binary

@@ -25,6 +25,27 @@ def binary_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+CLIP = 1.2  # the STE passes the sign's gradient where |x| <= CLIP
+
+
+class _SteSign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.sign(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (torch.abs(x) <= CLIP).to(g.dtype)
+
+
+def ste_sign(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through sign for training: forward ``sign(x)`` (0 at 0),
+    backward the gradient of ``clip(x, -1.2, 1.2)``."""
+    return _SteSign.apply(x)
+
+
 def _uniform(shape, bound, generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 

@@ -5,5 +5,10 @@ from svnet_tpu_torch.ops.graph import (  # noqa: F401
     svcat,
     svpool,
 )
-from svnet_tpu_torch.ops.knn import knn, pairwise_neg_sqdist  # noqa: F401
-from svnet_tpu_torch.ops.rotations import random_rotations, rotate_points  # noqa: F401
+from svnet_tpu_torch.ops.knn import knn, knn_plain, pairwise_neg_sqdist  # noqa: F401
+from svnet_tpu_torch.ops.rotations import (  # noqa: F401
+    apply_rotation_aug,
+    random_rotations,
+    random_z_rotations,
+    rotate_points,
+)

@@ -4,7 +4,9 @@ ctypes.
 The library exposes a plain C interface (no PyTorch headers), so one
 build takes seconds. It is built at first use into ``build/kernels/`` at
 the repository root, under a name keyed by a hash of the sources and the
-flags, and loaded once per process.
+flags, and loaded once per process. Each source compiles in its own nvcc
+process, all started together, and the objects are linked into the
+library.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # every product and sum rounded on its own, as in the plain versions,
     # which accumulate in the kernels' order: kernel and plain version agree
     # bitwise, so no binarized sign can flip between them
@@ -41,6 +43,11 @@ SIGNATURES = {
     # src, gate, vrow, 10 weights, x_out, smax, vsum; B N S V S_out V_out
     # binary; stream
     "sv_point_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # x, aa, ids; B N C k; stream
+    "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # phase, pointer slots (void**), dims (int*), stream
+    "sv_first_train_launch": [_I, _P, _P, _P],
+    "sv_round3_train_launch": [_I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -78,16 +85,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
             f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
+    for _, obj, _ in jobs:
+        obj.unlink()
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -75,7 +75,7 @@ def _point_sums(x: torch.Tensor) -> torch.Tensor:
     return rank_sum(x).transpose(1, 2).contiguous()
 
 
-def _first_perm(n_ch: int = 2) -> list[int]:
+def first_perm(n_ch: int = 2) -> list[int]:
     """j-major (j*n_ch + c) -> the reference's c-major (c*3 + j) order."""
     return [j * n_ch + c for c in range(n_ch) for j in range(3)]
 
@@ -90,7 +90,7 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
     """Plain version of the first round; same outputs as the kernel, with
     the neighbour ids (B, k, N) int32 last."""
     B, N, _ = points.shape
-    idx = ops.knn(points, k)
+    idx = ops.knn_plain(points, k)
     v = ops.get_graph_feature(points, k, idx)  # (B, N, k, 3, 2)
     sva = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz0"])))
     svb = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz1"])))
@@ -100,7 +100,7 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
     vb = wl * vector_bn_scale(wl, folded["a2"], folded["b2"])
     s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
     vm = _rank_mean(vb)  # (B, N, 3, V_out)
-    s_mean = _point_sums(sva).sum(dim=2)[:, _first_perm()] / (N * k)
+    s_mean = _point_sums(sva).sum(dim=2)[:, first_perm()] / (N * k)
     return (s.transpose(1, 2), vm.reshape(B, N, 3 * V_out).transpose(1, 2),
             s_mean, idx.transpose(1, 2).to(torch.int32))
 
@@ -142,7 +142,7 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
         _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
-    s_mean = ssum.sum(dim=2)[:, _first_perm()] / (N * k)
+    s_mean = ssum.sum(dim=2)[:, first_perm()] / (N * k)
     out = (s, v, s_mean, wins)
     return out if emit_wins else out[:3]
 
@@ -161,7 +161,7 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     same outputs as the kernel, with the neighbour ids last."""
     B, _, N = src.shape
     x = src.transpose(1, 2)  # (B, N, S + 3V): the joint kNN features
-    idx = ops.knn(x, k)
+    idx = ops.knn_plain(x, k)
     s_e, v_e = ops.get_graph_feature_sv(
         (x[..., :S], x[..., S:].reshape(B, N, 3, V)), k, idx)
     sv = jmajor(v2s_invariants(v_e, ordered_matmul(v_e, folded["wz"])))

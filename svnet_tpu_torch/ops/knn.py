@@ -55,7 +55,15 @@ def topk_rows(neg: torch.Tensor, k: int) -> torch.Tensor:
     return (M - 1) - (top & 0xFFFFFFFF)
 
 
-def knn(x: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, N, C) -> (B, N, k) int64 neighbour ids, nearest first (self
+def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N, C) -> (B, N, k) int32 neighbour ids, nearest first (self
     included: its distance is ~0, the maximum of the negated distances)."""
-    return topk_rows(pairwise_neg_sqdist(x), k)
+    return topk_rows(pairwise_neg_sqdist(x), k).to(torch.int32)
+
+
+def knn(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``knn_plain``'s ids; on a CUDA tensor they come from kernel B4
+    (``ops/kernels/knn.py``)."""
+    from svnet_tpu_torch.ops.kernels.knn import knn as knn_kernel
+
+    return knn_kernel(x, k)

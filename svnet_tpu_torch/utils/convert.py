@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 
-def _nest(flat: dict) -> dict:
+def nest(flat: dict) -> dict:
+    """{'a.b.c': leaf} -> {'a': {'b': {'c': leaf}}}."""
     out: dict = {}
     for path, val in flat.items():
         node = out
@@ -25,12 +26,13 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> {'a.b.c': leaf}, the inverse of ``nest``."""
     out = {}
     for name, val in tree.items():
         path = f"{prefix}{name}"
         if isinstance(val, dict):
-            out.update(_flatten(val, path + "."))
+            out.update(flatten(val, path + "."))
         else:
             out[path] = val
     return out
@@ -39,23 +41,27 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 def module_tree(module: nn.Module) -> dict:
     """A module's weights as a detached ``{'params', 'batch_stats'}`` tree."""
     return {
-        "params": _nest({n: p.detach().clone()
-                         for n, p in module.named_parameters()}),
-        "batch_stats": _nest({n: b.detach().clone()
-                              for n, b in module.named_buffers()}),
+        "params": nest({n: p.detach().clone()
+                        for n, p in module.named_parameters()}),
+        "batch_stats": nest({n: b.detach().clone()
+                             for n, b in module.named_buffers()}),
     }
 
 
 def load_tree(module: nn.Module, tree: dict) -> None:
     """Copy a weight tree into ``module``; every key must match."""
-    flat = _flatten(tree["params"])
-    flat.update(_flatten(tree["batch_stats"]))
+    flat = flatten(tree["params"])
+    flat.update(flatten(tree["batch_stats"]))
     module.load_state_dict(flat, strict=True)
 
 
-def from_flax(variables: dict) -> dict:
-    """flax ``{'params', 'batch_stats'}`` (numpy or array-like leaves) ->
-    the port's weight tree of float32 CPU tensors."""
+def from_flax(variables) -> dict:
+    """flax ``{'params', 'batch_stats'}`` (numpy or array-like leaves), or a
+    JAX ``TrainState`` (its ``.params`` and ``.batch_stats``) -> the port's
+    weight tree of float32 CPU tensors, the trainer's starting state."""
+    if not isinstance(variables, dict):
+        variables = {"params": variables.params,
+                     "batch_stats": variables.batch_stats}
 
     def conv(d):
         return {
@@ -66,3 +72,11 @@ def from_flax(variables: dict) -> dict:
 
     return {"params": conv(variables["params"]),
             "batch_stats": conv(variables["batch_stats"])}
+
+
+def to_flax(tree: dict) -> dict:
+    """A tree of tensors (weights, or gradients such as ``tree_map(lambda
+    p: p.grad, state.params)``) -> nested dicts of numpy arrays keyed like
+    flax's, to compare leaf by leaf with a flax tree."""
+    return {n: to_flax(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy().copy() for n, v in tree.items()}

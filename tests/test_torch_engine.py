@@ -49,7 +49,8 @@ def test_engine_matches_jax_engine(setup):
     jeng = JaxEngine(var, num_classes=CLASSES, k=K, binary=binary,
                      knn_impl="xla", exact=True, interpret=True)
     want = np.asarray(jeng(jnp.asarray(points)))
-    got = SVDGCNNClsEngine(weights, CLASSES, K, binary)(torch.from_numpy(points))
+    got = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu")(
+        torch.from_numpy(points))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
@@ -65,9 +66,11 @@ def test_engine_matches_eager_model(setup):
     """The fused path (folds, j-major layouts, head_perm) and the un-fused
     oracle agree on the model's own output."""
     binary, points, _, weights, want = setup
-    got = SVDGCNNClsEngine(weights, CLASSES, K, binary)(torch.from_numpy(points))
+    got = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu")(
+        torch.from_numpy(points))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, oracle=True)
+    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
+                              oracle=True)
     assert torch.equal(oracle(torch.from_numpy(points)), got)
 
 
@@ -76,7 +79,7 @@ def test_engine_rotation_invariant():
     tests/test_infer_engine.py)."""
     gen = torch.Generator().manual_seed(2)
     eng = SVDGCNNClsEngine(init_params(CLASSES, K, False, gen), CLASSES, K,
-                           False)
+                           False, device="cpu")
     points = torch.randn(B, N, 3, generator=gen)
     rot = ops.random_rotations(B, gen)
     out = eng(points)
@@ -87,4 +90,4 @@ def test_engine_rotation_invariant():
 def test_engine_rejects_other_modes():
     with pytest.raises(ValueError):
         SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
-                         mode="fast")
+                         mode="fast", device="cpu")
