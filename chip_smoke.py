@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from svnet_tpu_torch/csrc and drives the
-port's two paths at the full model width (40 classes, k=20, seeded random
-weights): binary SV-DGCNN classification serving, exact mode (B=128,
-N=1024), through SVDGCNNClsEngine, and fused binary training (B=32,
-N=1024) through the trainer. Phases; any failure raises and the script
-exits non-zero:
+port's paths at full model width and depth (seeded random weights):
+binary SV-DGCNN classification serving, exact mode (B=128, N=1024, k=20,
+40 classes), through SVDGCNNClsEngine; fused binary training (B=32,
+N=1024) through the trainer; binary SV-PointNet classification serving
+(B=128, N=1024, k=20) through SVPointNetClsEngine and part segmentation
+(B=32, N=2048, k=40, 50 parts) through SVPointNetPsegEngine. Phases; any
+failure raises and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -41,6 +43,14 @@ exits non-zero:
      BN running statistics within 1e-4 relative (the forward passes are
      equal), gradients within the bars of phase 2, parameter update
      cosine >= 0.999
+  7  SV-PointNet cls: serve 5 requests of (128, 1024, 3); each launches
+     sv_round3_first once and sv_block_point 7 times; logits finite,
+     (128, 40); top-1 agrees with the plain engine on >= 99%; SO(3)
+     invariance of the FP engine as in phase 4
+  8  SV-PointNet partseg: serve 5 requests of (32, 2048, 3) with one-hot
+     categories; each launches sv_round3_first once and sv_block_point 8
+     times; logits finite, (32, 2048, 50); per-point top-1 agrees with the
+     plain engine on >= 99%
 
 The last lines of output are the card line, one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -62,6 +72,9 @@ RTOL, ATOL = 1e-4, 1e-5
 NEAR_TIE = 1e-5
 REQUESTS = 5
 SEED = 0
+# SV-PointNet part segmentation: the JAX bench's shapes (bench.py:177-182)
+B_PSEG, N_PSEG, K_PSEG, PARTS = 32, 2048, 40, 50
+N_RAGGED_POINT = 1001  # divides by neither block size of B8 (16, 8)
 # the least time of a kernel's work: bytes over the HBM rate; real-valued
 # operations over the f32 rate outside the tensor cores, and the products of
 # +-1 by +-1 (a binary round's linear1, exact in bf16, as the TPU kernels
@@ -137,18 +150,35 @@ def knn_flops(b, n, c):
     return b * n * n * (2.0 * c + 3.0)
 
 
-def edge_flops(S, V, S_out, V_out, first=False, binary=False):
+def edge_flops(S, V, S_out, V_out, first=False, binary=False, cross=False):
     """Operations of one edge of an SV round, as (real-valued, +-1 by +-1):
-    Vector2Scalar frames and invariants (two streams in the first round),
-    linear1 over [scalars | invariants] (signs by signs when binary),
-    linear2 over the 3 x 2V vector rows, BN, leaky, norms and pooling."""
-    twoV = 2 * V
+    Vector2Scalar frames and invariants (two streams in the first round,
+    over 2 or, with the cross product, 3 edge channels), linear1 over
+    [scalars | invariants] (signs by signs when binary), linear2 over the
+    3 x 2V vector rows, BN, leaky, norms and pooling."""
+    twoV = (3 if cross else 2) if first else 2 * V
     IN1 = (3 * twoV if first else 2 * S) + 3 * twoV
     streams = 2 if first else 1
     linear1 = 2.0 * IN1 * S_out
     rest = (streams * (9 * twoV * 2 + 3 * twoV * 5) + 3 * twoV * V_out * 2
-            + 6 * S_out + 14 * V_out)
+            + 6 * S_out + 14 * V_out + (9 if cross else 0))
     return (rest, linear1) if binary else (rest + linear1, 0.0)
+
+
+def point_cost(b, n, S, V, S_out, V_out, binary):
+    """(real-valued operations, bytes, +-1 by +-1 operations) of one B8
+    call: frames and invariants, linear1 (signs by signs when binary, after
+    x + beta and sign), BN and leaky, linear2 * scale2, VectorBN and gate;
+    src read, s and v written once, weights read once."""
+    Cin = S + 3 * V
+    real = (9 * V * 2 + 3 * V * 5 + 3 * S_out + 3 * V * V_out * 2
+            + 3 * V_out + 14 * V_out)
+    linear1 = 2.0 * Cin * S_out
+    weights = 3 * V + Cin * S_out + Cin + 2 * S_out + V * V_out + 3 * V_out
+    nbytes = 4.0 * (b * n * (Cin + S_out + 3 * V_out) + b * V_out + weights)
+    if binary:
+        return b * n * (real + 2 * Cin), nbytes, b * n * linear1
+    return b * n * (real + linear1), nbytes, 0.0
 
 
 def check_ids(tag, wk, wp, feats):
@@ -305,6 +335,254 @@ def phase2(rep, eng, eng_fp, gen, dev, b=B, n=N, k=K, time_it=True):
     src = torch.cat([po[0], gated(eng.p["conv1"], po)], dim=1).contiguous()
     conv(src, eng, "conv2", 7, f"sv_round3 conv2 ragged B=8 N={n_r} k=7",
          False)
+
+
+def check_equal(tag, got, want):
+    """Kernel outputs bitwise equal to the plain version's."""
+    import torch
+
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            err = ((g.double() - w.double()).abs().max().item()
+                   if g.shape == w.shape else float("inf"))
+            raise AssertionError(f"{tag}: kernel and plain version differ "
+                                 f"(max abs err {err})")
+
+
+class Tap:
+    """Stands in for an SV-PointNet engine's per-point block function: it
+    calls that function, adds the B8 launches each call made to the tally
+    of the call's widths (S, V, S_out, V_out), and keeps the call's inputs
+    when ``keep``."""
+
+    def __init__(self, eng, keep=False):
+        from svnet_tpu_torch.ops.kernels import sv_block_point as kb
+
+        self.eng, self.fn, self.keep, self.kb = eng, eng._block, keep, kb
+        self.calls, self.launches = [], {}
+        eng._block = self
+
+    def __call__(self, src, gate, folded, **kw):
+        before = self.kb.sv_block_point.launches
+        out = self.fn(src, gate, folded, **kw)
+        key = (kw["S"], kw["V"], kw["S_out"], kw["V_out"])
+        self.launches[key] = (self.launches.get(key, 0)
+                              + self.kb.sv_block_point.launches - before)
+        if self.keep:
+            self.calls.append((src, gate, folded, kw))
+        return out
+
+    def close(self):
+        self.eng._block = self.fn
+
+
+def b8_name(tag, key):
+    return f"sv_block_point {tag} {key[0]},{key[1]}->{key[2]},{key[3]}"
+
+
+def phase2_pointnet(rep, pn, gen, dev):
+    """B1 with cross and B8 against their plain versions at the SV-PointNet
+    engines' shapes: B8 on the block inputs of one request through each
+    plain engine (binary and FP), then a ragged N at the widest blocks."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_block_point as kb
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for tag, (b, n, k) in (("cls", (B, N, K)), ("pseg", (B_PSEG, N_PSEG, K_PSEG))):
+        engs = pn[tag]
+        pts = cloud(b, n, gen, dev)
+        args = (pts,) if tag == "cls" else (pts, pn["labels"](b, gen))
+        f = engs["kernel"].folded_first
+        kw = dict(S_out=32, V_out=10, k=k, cross=True)
+
+        def kern():
+            return kr.sv_round3_first(pts, f, emit_wins=True, **kw)
+
+        def plain():
+            return kr.sv_round3_first_plain(pts, f, **kw)
+
+        ko, po = kern(), plain()
+        sync(dev)
+        check_equal(f"sv_round3_first cross {tag}", ko, po)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        ef, _ = edge_flops(0, 1, 32, 10, first=True, cross=True)
+        cost = bound(knn_flops(b, n, 3) + b * n * k * ef,
+                     4.0 * b * n * (3 + 32 + 30 + 9 + k))
+        log(f"  sv_round3_first cross B={b} N={n} k={k}: ids and outputs "
+            f"bitwise; kernel {ms} ms, plain {plain_ms} ms, bound {cost}")
+        rep.add(f"sv_round3_first cross {tag}", 0.0, ms, plain_ms, cost)
+
+        for binary in (True, False):
+            oracle = engs["oracle" if binary else "oracle_fp"]
+            tap = Tap(oracle, keep=True)
+            oracle(*args)
+            tap.close()
+            for src, gate, folded, bkw in tap.calls:
+                key = (bkw["S"], bkw["V"], bkw["S_out"], bkw["V_out"])
+
+                def kern():
+                    return kb.sv_block_point(src, gate, folded, **bkw)
+
+                def plain():
+                    return kb.sv_block_point_plain(src, gate, folded, **bkw)
+
+                label = (f"{b8_name(tag, key)} {'binary' if binary else 'fp'}"
+                         f" B={b} N={n}")
+                ko, po = kern(), plain()
+                sync(dev)
+                check_equal(label, ko, po)
+                if not binary:
+                    log(f"  {label}: bitwise")
+                    continue
+                ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+                cost = bound(*point_cost(b, n, *key, binary))
+                log(f"  {label} ({kb.points_per_block(*key)} points per "
+                    f"block): bitwise; kernel {ms} ms, plain {plain_ms} ms, "
+                    f"bound {cost}")
+                rep.add(b8_name(tag, key), 0.0, ms, plain_ms, cost)
+            del tap
+
+        # ragged: N divides by neither block size
+        name = "conv_fuse" if tag == "cls" else "conv5"
+        for binary in (True, False):
+            (S, V, S_out, V_out), folded, _ = engs[
+                "oracle" if binary else "oracle_fp"].blocks[name]
+            src = torch.randn(8, N_RAGGED_POINT, S + 3 * V, generator=gen).to(dev)
+            gate = torch.rand(8, V_out, generator=gen).to(dev)
+            bkw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+            label = (f"sv_block_point {name} {'binary' if binary else 'fp'} "
+                     f"ragged B=8 N={N_RAGGED_POINT}")
+            check_equal(label, kb.sv_block_point(src, gate, folded, **bkw),
+                        kb.sv_block_point_plain(src, gate, folded, **bkw))
+            log(f"  {label} ({kb.points_per_block(S, V, S_out, V_out)} points "
+                "per block): bitwise")
+
+
+def serve(tag, eng, oracle, requests, counters, want_per, card):
+    """Serve the requests through ``eng`` with the launch counts checked
+    per request, then through the plain engine; returns (outputs, plain
+    outputs, the B8 tally by widths, launches by counter)."""
+    import torch
+
+    eng(*requests[0])  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    tap = Tap(eng)
+    for fn in counters:
+        fn.launches = 0
+    outs, lat = [], []
+    for req in requests:
+        before = [fn.launches for fn in counters]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = eng(*req)
+        e1.record()
+        torch.cuda.synchronize()
+        lat.append(e0.elapsed_time(e1))
+        per = {fn.__name__: fn.launches - b0 for fn, b0 in zip(counters, before)}
+        want = {name: want_per.get(name, 0) for name in per}
+        if per != want:
+            raise AssertionError(f"{tag}: launches per request {per} != {want}")
+        outs.append(out)
+    tap.close()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want, plain_lat = [], []
+    for req in requests:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want.append(oracle(*req))
+        e1.record()
+        torch.cuda.synchronize()
+        plain_lat.append(e0.elapsed_time(e1))
+    log(f"{tag}: {REQUESTS} requests of {tuple(requests[0][0].shape)}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; B8 launches by widths "
+        f"{tap.launches}")
+    log(f"{tag}: latency per request (CUDA events, ms) kernels "
+        f"{[round(t, 3) for t in lat]} median {sorted(lat)[len(lat) // 2]:.3f}; "
+        f"plain {[round(t, 3) for t in plain_lat]} | {card}")
+    return torch.cat(outs), torch.cat(want), tap.launches, launches
+
+
+def phase7(pn, gen, dev, counters, card):
+    import torch
+
+    from svnet_tpu_torch.ops import rotations
+
+    engs = pn["cls"]
+    requests = [(cloud(B, N, gen, dev),) for _ in range(REQUESTS)]
+    got, want, tally, launches = serve(
+        "phase 7", engs["kernel"], engs["oracle"], requests, counters,
+        {"sv_round3_first": 1, "sv_block_point": 7}, card)
+    if got.shape != (REQUESTS * B, CLASSES) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"phase 7: logits {tuple(got.shape)} not finite "
+                             f"({REQUESTS * B}, {CLASSES})")
+    top1 = (got.argmax(1) == want.argmax(1)).float().mean().item()
+    log(f"phase 7: top-1 agreement with the plain engine {top1:.4f}; max "
+        f"|dlogit| {(got - want).abs().max().item():.4g} (logit scale "
+        f"{want.abs().max().item():.4g})")
+    if top1 < 0.99:
+        raise AssertionError(f"phase 7: top-1 agreement {top1} < 0.99")
+    pts = cloud(16, N, gen, dev)
+    rot = rotations.random_rotations(16, gen).to(dev)
+    out = engs["kernel_fp"](pts)
+    out_r = engs["kernel_fp"](rotations.rotate_points(pts, rot))
+    log(f"phase 7: SO(3) invariance (FP engine, kernels): max |dlogit| "
+        f"{(out_r - out).abs().max().item():.3g} (logit scale "
+        f"{out.abs().max().item():.3g})")
+    if not torch.allclose(out_r, out, rtol=2e-2, atol=2e-3):
+        raise AssertionError("phase 7: logits not rotation invariant")
+    return tally, launches
+
+
+def phase8(pn, gen, dev, counters, card):
+    import torch
+
+    engs = pn["pseg"]
+    requests = [(cloud(B_PSEG, N_PSEG, gen, dev), pn["labels"](B_PSEG, gen))
+                for _ in range(REQUESTS)]
+    got, want, tally, launches = serve(
+        "phase 8", engs["kernel"], engs["oracle"], requests, counters,
+        {"sv_round3_first": 1, "sv_block_point": 8}, card)
+    if (got.shape != (REQUESTS * B_PSEG, N_PSEG, PARTS)
+            or not bool(torch.isfinite(got).all())):
+        raise AssertionError(f"phase 8: logits {tuple(got.shape)} not finite")
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"phase 8: per-point top-1 agreement with the plain engine "
+        f"{agree:.6f}; max |dlogit| {(got - want).abs().max().item():.4g} "
+        f"(logit scale {want.abs().max().item():.4g})")
+    if agree < 0.99:
+        raise AssertionError(f"phase 8: per-point agreement {agree} < 0.99")
+    return tally, launches
+
+
+def pointnet_engines(dev):
+    """The SV-PointNet engines of phases 2, 7 and 8, on seeded weights:
+    binary with kernels and plain, FP with kernels and plain, per task."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVPointNetClsEngine, SVPointNetPsegEngine
+    from svnet_tpu_torch.models import sv_pointnet
+
+    def labels(b, gen):
+        cat = torch.randint(0, 16, (b,), generator=gen)
+        return torch.nn.functional.one_hot(cat, 16).float().to(dev)
+
+    out = {"labels": labels}
+    for tag, engine, init, args in (
+            ("cls", SVPointNetClsEngine, sv_pointnet.init_params, (CLASSES, K)),
+            ("pseg", SVPointNetPsegEngine, sv_pointnet.init_params_pseg,
+             (PARTS, K_PSEG))):
+        w_bin = init(*args, True, torch.Generator().manual_seed(SEED + 5))
+        w_fp = init(*args, False, torch.Generator().manual_seed(SEED + 6))
+        out[tag] = {
+            "kernel": engine(w_bin, *args, True, device=dev),
+            "oracle": engine(w_bin, *args, True, device=dev, oracle=True),
+            "kernel_fp": engine(w_fp, *args, False, device=dev),
+            "oracle_fp": engine(w_fp, *args, False, device=dev, oracle=True),
+        }
+    return out
 
 
 def cos(a, b) -> float:
@@ -611,6 +889,7 @@ def main() -> int:
     from svnet_tpu_torch.ops import rotations
     from svnet_tpu_torch.ops.kernels import _build
     from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_block_point as kb
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
     from svnet_tpu_torch.ops.kernels import sv_point as kp
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
@@ -651,11 +930,14 @@ def main() -> int:
     phase2_train(rep, p_bin, p_fp, gen, dev)
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
                  rounds=("conv2",))
+    pn = pointnet_engines(dev)
+    phase2_pointnet(rep, pn, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
                 kf.sv_first_train_fwd, kf.sv_first_train_bwd,
-                krt.sv_round3_train_fwd, krt.sv_round3_train_bwd)
+                krt.sv_round3_train_fwd, krt.sv_round3_train_bwd,
+                kb.sv_block_point)
     requests = [cloud(B, N, gen, dev) for _ in range(REQUESTS)]
     eng(requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -672,9 +954,9 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(e0.elapsed_time(e1))
         per = [fn.launches - b0 for fn, b0 in zip(counters, before)]
-        if per != [1, 3, 1, 0, 0, 0, 0, 0]:
+        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0]:
             raise AssertionError(f"phase 3: launches per request {per} != "
-                                 "[1, 3, 1] serving, 0 training")
+                                 "[1, 3, 1] serving, 0 training, 0 B8")
         logits.append(out)
     launches = {fn.__name__: fn.launches for fn in counters}
     got = torch.cat(logits)
@@ -717,10 +999,17 @@ def main() -> int:
     train_launches, step_ms, peak, loader = phase5(dev, gen, counters, card)
     # each kernel's launches are those of the path that runs it
     launches.update({fn.__name__: train_launches[fn.__name__]
-                     for fn in counters[3:]})
+                     for fn in counters[3:8]})
 
     # phase 6
     phase6(dev, loader)
+
+    # phases 7 and 8: SV-PointNet serving
+    b8_tally = {}
+    for tag, phase in (("cls", phase7), ("pseg", phase8)):
+        tally, pn_launches = phase(pn, gen, dev, counters, card)
+        launches[f"sv_round3_first cross {tag}"] = pn_launches["sv_round3_first"]
+        b8_tally.update({b8_name(tag, key): c for key, c in tally.items()})
 
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
@@ -738,6 +1027,13 @@ def main() -> int:
                                       "svnet_tpu/ops/pallas/sv_round3_train.py:522"),
               "sv_round3_train_bwd": ("svnet_tpu_torch/csrc/sv_round3_train.cu",
                                       "svnet_tpu/ops/pallas/sv_round3_train.py:522")}
+    for name in rep.ms:
+        if name.startswith("sv_round3_first cross"):
+            src_of[name] = src_of["sv_round3_first"]
+        elif name.startswith("sv_block_point"):
+            src_of[name] = ("svnet_tpu_torch/csrc/sv_block_point.cu",
+                            "svnet_tpu/ops/pallas/sv_block_point.py:84")
+            launches[name] = b8_tally[name]
     kernels = []
     for name, (source, replaces) in src_of.items():
         times = rep.ms[name]

@@ -1,5 +1,5 @@
 """SV (scalar/vector) layer library, eval mode (counterpart of
-svnet_tpu/nn/sv_layers.py:77-357).
+svnet_tpu/nn/sv_layers.py:77-380).
 
 Parameter and buffer names follow the flax tree exactly, so a module's
 ``state_dict`` key is the flax path joined by dots (``linear1.kernel``,
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from svnet_tpu_torch.config import BN_EPS, EPS
+from svnet_tpu_torch.ops.graph import svpool
 
 
 def binary_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -124,16 +125,21 @@ class VectorBN(nn.Module):
 
 class Vector2Scalar(nn.Module):
     """Invariants ``s = v^T z`` with the frame ``z = Linear(v)``; output
-    flattened channel-major (..., V * multi)."""
+    flattened channel-major (..., V * multi). ``trans_back`` also returns
+    the frame z (..., 3, multi), to un-project vectors later."""
 
     def __init__(self, d_in: int, multi: int, bw: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 trans_back: bool = False):
         super().__init__()
+        self.trans_back = trans_back
         self.linear = Linear(d_in, multi, use_bias=False, bw=bw,
                              generator=generator)
 
-    def forward(self, v: torch.Tensor) -> torch.Tensor:
-        return v2s_invariants(v, self.linear(v))
+    def forward(self, v: torch.Tensor):
+        z = self.linear(v)
+        s = v2s_invariants(v, z)
+        return (s, z) if self.trans_back else s
 
 
 def v2s_invariants(v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -177,13 +183,45 @@ class SVBlock(nn.Module):
 
 
 class SVFuse(nn.Module):
-    """Terminal fusion: ``[s, Vector2Scalar(v)]``."""
+    """Terminal fusion: ``[s, Vector2Scalar(v)]``; with ``trans_back`` also
+    the frame (..., 3, multi)."""
 
     def __init__(self, in_v: int, multi: int = 3, binary: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 trans_back: bool = False):
         super().__init__()
-        self.v2s = Vector2Scalar(in_v, multi, bw=binary, generator=generator)
+        self.trans_back = trans_back
+        self.v2s = Vector2Scalar(in_v, multi, bw=binary, generator=generator,
+                                 trans_back=trans_back)
 
     def forward(self, x):
         s, v = x
+        if self.trans_back:
+            sv, z = self.v2s(v)
+            return torch.cat([s, sv], dim=-1), z
         return torch.cat([s, self.v2s(v)], dim=-1)
+
+
+# (out_s, out_v) of SV_STNkd's blocks before its last, which returns the
+# input's widths
+STN_BLOCKS = {"conv1": (64 // 2, 64 // 6), "conv2": (128 // 2, 128 // 6),
+              "conv3": (1024 // 2, 1024 // 6), "fc1": (512 // 2, 512 // 6),
+              "fc2": (256 // 2, 256 // 6)}
+
+
+class SV_STNkd(nn.Module):
+    """SV spatial transformer: three per-point SVBlocks, pool over the
+    points (scalar max, vector mean), three more on the pooled token.
+    (B, N, S), (B, N, 3, V) -> a token (B, S), (B, 3, V)."""
+
+    def __init__(self, in_s: int, in_v: int, binary: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        widths = [(in_s, in_v), *STN_BLOCKS.values(), (in_s, in_v)]
+        names = [*STN_BLOCKS, "fc3"]
+        for name, (i_s, i_v), (o_s, o_v) in zip(names, widths, widths[1:]):
+            self.add_module(name, SVBlock(i_s, i_v, o_s, o_v, binary, generator))
+
+    def forward(self, x):
+        x = self.conv3(self.conv2(self.conv1(x)))
+        return self.fc3(self.fc2(self.fc1(svpool(x, dim=1))))

@@ -1,6 +1,7 @@
 from svnet_tpu_torch.ops.graph import (  # noqa: F401
     gather_neighbors,
     get_graph_feature,
+    get_graph_feature_cross,
     get_graph_feature_sv,
     svcat,
     svpool,

@@ -32,6 +32,27 @@ def get_graph_feature(points: torch.Tensor, k: int,
     return torch.stack([nbr - ctr, ctr], dim=-1)
 
 
+def _cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a x b`` over the last axis (size 3), each component two rounded
+    products and one subtraction, as kernel B1 computes it with ``cross``
+    (``torch.linalg.cross`` may contract or reorder and differ by an ulp)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def get_graph_feature_cross(points: torch.Tensor, k: int,
+                            idx: torch.Tensor | None = None) -> torch.Tensor:
+    """First-round edges with a cross-product channel
+    ``[nbr - ctr, ctr, nbr x ctr]``: (B, N, 3) -> (B, N, k, 3, 3)."""
+    if idx is None:
+        idx = knn(points, k)
+    nbr = gather_neighbors(points, idx)
+    ctr = points[:, :, None, :].expand_as(nbr)
+    return torch.stack([nbr - ctr, ctr, _cross3(nbr, ctr)], dim=-1)
+
+
 def get_graph_feature_sv(x: SVPair, k: int,
                          idx: torch.Tensor | None = None) -> SVPair:
     """Edges over an (s, v) pair, kNN in the joint [s, flat(v)] space.
@@ -54,10 +75,18 @@ def get_graph_feature_sv(x: SVPair, k: int,
     return s_feat, torch.cat([v_nbr - v_ctr, v_ctr], dim=-1)
 
 
-def svpool(x: SVPair, dim: int = 2) -> SVPair:
-    """Scalar max and vector mean over ``dim`` (the k axis by default)."""
+def svpool(x: SVPair, dim: int = 2, keepdim: bool = False,
+           spool: str = "max") -> SVPair:
+    """Scalar max (or mean, ``spool="mean"``) and vector mean over ``dim``
+    (the k axis by default; ``dim=1`` pools over the points)."""
     s, v = x
-    return torch.amax(s, dim=dim), torch.mean(v, dim=dim)
+    if spool == "max":
+        s = torch.amax(s, dim=dim, keepdim=keepdim)
+    elif spool == "mean":
+        s = torch.mean(s, dim=dim, keepdim=keepdim)
+    else:
+        raise ValueError(f"unrecognized scalar pooling {spool!r}")
+    return s, torch.mean(v, dim=dim, keepdim=keepdim)
 
 
 def svcat(xlist: Sequence[SVPair]) -> SVPair:

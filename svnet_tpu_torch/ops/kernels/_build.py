@@ -33,16 +33,22 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of every entry point: (argtypes), all return cudaError_t (int)
+# C signature of every entry point: (argtypes), all return an int (a
+# cudaError_t, but for sv_block_point_ppb)
 SIGNATURES = {
-    # pts, aa, 8 weights, s_out, v_out, ssum, wins; B N k S_out V_out; stream
-    "sv_round3_first_launch": [_P] * 14 + [_I] * 5 + [_P],
+    # pts, aa, 8 weights, s_out, v_out, ssum, wins; B N k S_out V_out cross;
+    # stream
+    "sv_round3_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     # src, aa, 9 weights, s_out, v_out, ssum, wins; B N S V S_out V_out k
     # binary; stream
     "sv_round3_launch": [_P] * 15 + [_I] * 8 + [_P],
     # src, gate, vrow, 10 weights, x_out, smax, vsum; B N S V S_out V_out
     # binary; stream
     "sv_point_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # src, gate, 9 weights, s_out, v_out; B N S V S_out V_out binary; stream
+    "sv_block_point_launch": [_P] * 13 + [_I] * 7 + [_P],
+    # S V S_out V_out -> points per block
+    "sv_block_point_ppb": [_I] * 4,
     # x, aa, ids; B N C k; stream
     "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
     # phase, pointer slots (void**), dims (int*), stream

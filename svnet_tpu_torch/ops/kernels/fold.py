@@ -1,6 +1,6 @@
 """Host-side weight folding for the fused kernels (counterparts of
-svnet_tpu/ops/pallas/sv_edge.py:230-283, sv_edge_first.py:169-208 and
-sv_point.py:332-391).
+svnet_tpu/ops/pallas/sv_edge.py:230-283, sv_edge_first.py:169-208,
+sv_point.py:332-391 and sv_block_point.py:135-179).
 
 Each fold turns one block's weight tree into the kernel's constants:
 BatchNorm and the binarized layers' scales become per-channel affines,
@@ -87,12 +87,18 @@ def fold_first_params(init_scalar: dict, conv1: dict, stats_conv1: dict,
     }
 
 
+def fold_point_like_params(params: dict, stats: dict, S: int, V: int,
+                           binary: bool) -> Folded:
+    """A per-point SVBlock (no edge doubling): linear1 consumes
+    [s (S) | v2s (3V)], the invariant rows permuted j-major."""
+    return _fold_block(params, stats, list(range(S)) + _jmajor(S, V), binary)
+
+
 def fold_point_params(conv5_p: dict, conv5_bs: dict, svfuse_p: dict, S: int,
                       V: int, binary: bool) -> Folded:
-    """conv5 + SVFuse: linear1 consumes [s (S) | v2s (3V)], the invariant
-    rows permuted j-major; ``wzf`` is SVFuse's frame."""
-    perm = list(range(S)) + _jmajor(S, V)
-    out = _fold_block(conv5_p, conv5_bs, perm, binary)
+    """conv5 + SVFuse: ``fold_point_like_params`` of conv5 plus ``wzf``,
+    SVFuse's frame."""
+    out = fold_point_like_params(conv5_p, conv5_bs, S, V, binary)
     wzf = svfuse_p["v2s"]["linear"]["kernel"]
     if binary:
         wzf = torch.sign(wzf) * svfuse_p["v2s"]["linear"]["scale"][None, :]

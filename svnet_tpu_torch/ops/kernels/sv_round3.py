@@ -86,12 +86,13 @@ def first_perm(n_ch: int = 2) -> list[int]:
 
 
 def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
-                          S_out: int, V_out: int, k: int):
+                          S_out: int, V_out: int, k: int, cross: bool = False):
     """Plain version of the first round; same outputs as the kernel, with
     the neighbour ids (B, k, N) int32 last."""
     B, N, _ = points.shape
     idx = ops.knn_plain(points, k)
-    v = ops.get_graph_feature(points, k, idx)  # (B, N, k, 3, 2)
+    edges = ops.get_graph_feature_cross if cross else ops.get_graph_feature
+    v = edges(points, k, idx)  # (B, N, k, 3, n_ch)
     sva = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz0"])))
     svb = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz1"])))
     h = ordered_matmul(torch.cat([sva, svb], dim=-1), folded["w1"])
@@ -100,15 +101,17 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
     vb = wl * vector_bn_scale(wl, folded["a2"], folded["b2"])
     s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
     vm = _rank_mean(vb)  # (B, N, 3, V_out)
-    s_mean = _point_sums(sva).sum(dim=2)[:, first_perm()] / (N * k)
+    s_mean = _point_sums(sva).sum(dim=2)[:, first_perm(v.shape[-1])] / (N * k)
     return (s.transpose(1, 2), vm.reshape(B, N, 3 * V_out).transpose(1, 2),
             s_mean, idx.transpose(1, 2).to(torch.int32))
 
 
 def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
-                    V_out: int, k: int, emit_wins: bool = False):
+                    V_out: int, k: int, cross: bool = False,
+                    emit_wins: bool = False):
     """points (B, N, 3) -> (s (B, S_out, N), v (B, 3*V_out, N) ungated,
-    s_mean (B, 6) c-major[, wins (B, k, N) int32])."""
+    s_mean (B, 3*n_ch) c-major[, wins (B, k, N) int32]); the edges carry
+    n_ch = 3 channels with ``cross`` (SV-PointNet), else 2."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
@@ -116,17 +119,17 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
         raise ValueError(f"k={k} must lie in [1, N={N}]")
     if points.device.type == "cpu":
         out = sv_round3_first_plain(points, folded, S_out=S_out,
-                                    V_out=V_out, k=k)
+                                    V_out=V_out, k=k, cross=cross)
         return out if emit_wins else out[:3]
     dev = require_cuda(points.device)
     _build.check_arg(points, "points", (B, N, 3), dev)
-    f = folded
-    w = [_build.check_arg(f["wz0"], "wz0", (2, 3), dev),
-         _build.check_arg(f["wz1"], "wz1", (2, 3), dev),
-         _build.check_arg(f["w1"], "w1", (12, S_out), dev),
+    f, n_ch = folded, 3 if cross else 2
+    w = [_build.check_arg(f["wz0"], "wz0", (n_ch, 3), dev),
+         _build.check_arg(f["wz1"], "wz1", (n_ch, 3), dev),
+         _build.check_arg(f["w1"], "w1", (6 * n_ch, S_out), dev),
          _build.check_arg(f["a1"], "a1", (1, S_out), dev),
          _build.check_arg(f["b1"], "b1", (1, S_out), dev),
-         _build.check_arg(f["w2"], "w2", (2, V_out), dev),
+         _build.check_arg(f["w2"], "w2", (n_ch, V_out), dev),
          _build.check_arg(f["a2"], "a2", (1, V_out), dev),
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
@@ -134,15 +137,15 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
-    ssum = torch.empty((B, 6, N), device=dev)
+    ssum = torch.empty((B, 3 * n_ch, N), device=dev)
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_first_launch(
         pts.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), B, N, k, S_out, V_out,
+        ssum.data_ptr(), wins.data_ptr(), B, N, k, S_out, V_out, int(cross),
         _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
-    s_mean = ssum.sum(dim=2)[:, first_perm()] / (N * k)
+    s_mean = ssum.sum(dim=2)[:, first_perm(n_ch)] / (N * k)
     out = (s, v, s_mean, wins)
     return out if emit_wins else out[:3]
 

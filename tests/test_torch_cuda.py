@@ -56,6 +56,46 @@ def test_kernels_match_plain_on_card():
     assert torch.equal(got[0], want[0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+def test_pointnet_kernels_match_plain_on_card(binary):
+    """B1 with cross (ids and outputs) and B8 bitwise against their plain
+    versions: B8 at a narrow, a 512-wide and the conv_fuse-wide shape (8
+    points per block there, 16 elsewhere), N ragged for both block sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.infer import SVPointNetClsEngine
+    from svnet_tpu_torch.models.sv_pointnet import init_params
+    from svnet_tpu_torch.ops.kernels.sv_block_point import (
+        points_per_block,
+        sv_block_point,
+        sv_block_point_plain,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(4)
+    eng = SVPointNetClsEngine(init_params(40, 7, binary, gen), 40, 7, binary,
+                              device=dev)
+    pts = torch.randn(2, 203, 3, generator=gen).to(dev)
+    kw = dict(S_out=32, V_out=10, k=7, cross=True)
+    got = sv_round3_first(pts, eng.folded_first, emit_wins=True, **kw)
+    want = sv_round3_first_plain(pts, eng.folded_first, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for name, ppb in (("conv1", 16), ("conv3", 16), ("conv_fuse", 8)):
+        (S, V, S_out, V_out), folded, _ = eng.blocks[name]
+        assert points_per_block(S, V, S_out, V_out) == ppb
+        src = torch.randn(2, 203, S + 3 * V, generator=gen).to(dev)
+        gate = torch.rand(2, V_out, generator=gen).to(dev)
+        kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+        got = sv_block_point(src, gate, folded, **kw)
+        want = sv_block_point_plain(src, gate, folded, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
 def _cos(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
