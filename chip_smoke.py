@@ -9,8 +9,9 @@ binary SV-DGCNN classification serving, exact mode (B=128, N=1024, k=20,
 40 classes), through SVDGCNNClsEngine; fused binary training (B=32,
 N=1024) through the trainer; binary SV-PointNet classification serving
 (B=128, N=1024, k=20) through SVPointNetClsEngine and part segmentation
-(B=32, N=2048, k=40, 50 parts) through SVPointNetPsegEngine. Phases; any
-failure raises and the script exits non-zero:
+(B=32, N=2048, k=40, 50 parts) through SVPointNetPsegEngine; binary
+SV-PointNet classification training (B=32, N=1024, k=20) through the
+trainer, and binary SV-DGCNN training through the un-fused path. Phases; any failure raises and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -28,6 +29,10 @@ failure raises and the script exits non-zero:
      each gradient of 8 or more entries) and, tighter than their 5e-2 /
      2e-1, all gradients together within 1e-3 relative (parameter
      gradients are summed in another order, d(src) with atomics)
+     B7 (edge_gather, forward and scatter-add backward) at the slice's
+     shape (32, 1024, 20, C=3), at C=62 and C=127 and at a ragged
+     (8, 1000, 7, C=5): forward and backward bitwise, two backward launches
+     identical
   3  serve 5 requests; each launches sv_round3_first once, sv_round3
      three times and sv_point_block_cm once; logits finite, (128, 40);
      top-1 agrees with the plain-version engine on >= 99% of clouds
@@ -37,7 +42,8 @@ failure raises and the script exits non-zero:
      z) on seeded surface clouds through train_epoch; each step launches
      knn 4 times, the first-round passes once forward and once backward
      and the conv-round passes three times each way; the loss is finite;
-     then one BN re-estimation batch and one eval batch (eager model)
+     then one BN re-estimation batch and one eval batch (eager model,
+     whose four rounds gather through edge_gather_fwd)
   6  one train step through the kernels against the same step through
      their plain versions, from the same weights and batch: loss and new
      BN running statistics within 1e-4 relative (the forward passes are
@@ -51,6 +57,20 @@ failure raises and the script exits non-zero:
      categories; each launches sv_round3_first once and sv_block_point 8
      times; logits finite, (32, 2048, 50); per-point top-1 agrees with the
      plain engine on >= 99%
+  9  SV-PointNet cls training: 1 warm-up + 10 timed steps of the binary
+     model (pointnet_cls Adam, --rot z) on phase 5's clouds through
+     train_epoch; each step launches knn once and edge_gather_fwd (B7) once
+     and the scatter-add backward never (the step differentiates the
+     weights, not the points, as the JAX step does); the loss is finite;
+     then one BN re-estimation batch and one eval batch (eager
+     SVPointNetCls), each launching knn and edge_gather_fwd once
+ 10  one SV-PointNet train step through the kernels against the same step
+     through the oracle twin (plain kNN and gather): the bars of phase 6
+ 11  SV-DGCNN training through the un-fused flax-equivalent path
+     (train/dgcnn.py): 1 warm-up + 10 timed steps, each launching knn 4
+     times, edge_gather_fwd 4 times and edge_gather_bwd 3 times (conv2-4's
+     gathers); the loss is finite; then one step through the kernels
+     against the oracle twin with the bars of phase 6
 
 The last lines of output are the card line, one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -718,7 +738,8 @@ def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
     from svnet_tpu_torch.ops.kernels import sv_round3_train as kr
     from svnet_tpu_torch.ops.kernels.sv_round3 import first_perm
-    from svnet_tpu_torch.train.fused import ROUNDS, SUB, _gate
+    from svnet_tpu_torch.nn.sv_train import gate
+    from svnet_tpu_torch.train.fused import ROUNDS, SUB
 
     first_names = ("sv_first_train_fwd", "sv_first_train_bwd")
     round_names = ("sv_round3_train_fwd", "sv_round3_train_bwd")
@@ -730,7 +751,7 @@ def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
                        (kf.sv_first_train_fwd, kf.sv_first_train_bwd), pts, idx,
                        kr.kernel_params(sub, d), d, gen, time_it, 1e-3)
     s_mean = (po[2] / (n * k)).float()[:, first_perm()]
-    x = (po[0], po[1].reshape(b, n, 3, 10) * _gate(p_bin["conv1"], s_mean)[:, None, None, :])
+    x = (po[0], po[1].reshape(b, n, 3, 10) * gate(p_bin["conv1"], s_mean)[:, None, None, :])
     for name in rounds:
         S, V, So, Vo = ROUNDS[name]
         joint = torch.cat([x[0], x[1].reshape(b, n, -1)], dim=-1).contiguous()
@@ -747,38 +768,25 @@ def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
             if binary:
                 po = out
         s_mean = (po[2] / (n * k)).float()
-        x = (po[0], po[1].reshape(b, n, 3, Vo) * _gate(p_bin[name], s_mean)[:, None, None, :])
+        x = (po[0], po[1].reshape(b, n, 3, Vo) * gate(p_bin[name], s_mean)[:, None, None, :])
 
 
-def phase5(dev, gen, counters, log_card):
-    """Train 1 + TRAIN_STEPS steps through train_epoch; returns the launch
-    counts of the run, the median step ms and the state."""
+def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
+              log_card):
+    """1 + TRAIN_STEPS binary train steps of ``apply`` (the recipe's Adam,
+    rot z) through train_epoch, from ``weights``; each launches the counted
+    kernels ``per_step`` times (the others never). Returns the launch counts,
+    the median step ms, the peak device memory and the state."""
     import numpy as np
     import torch
 
-    from svnet_tpu_torch.data import ArrayDataset, Loader
-    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, init_params
-    from svnet_tpu_torch.train.fused import make_fused_train_apply
-    from svnet_tpu_torch.train.loop import bn_reestimate, train_epoch
+    from svnet_tpu_torch.train.loop import train_epoch
     from svnet_tpu_torch.train.losses import cal_loss
-    from svnet_tpu_torch.train.steps import (
-        create_state,
-        make_eval_step,
-        make_recal_step,
-        make_train_step,
-    )
-    from svnet_tpu_torch.utils.convert import load_tree
-    from svnet_tpu_torch.utils.synth import surface_clouds
+    from svnet_tpu_torch.train.steps import create_state, make_train_step
 
-    steps = TRAIN_STEPS + 1
-    clouds = surface_clouds(SEED, steps * B_TRAIN, N)
-    labels = np.random.default_rng(SEED).integers(0, CLASSES, steps * B_TRAIN)
-    loader = Loader(ArrayDataset(clouds, labels, train=True, seed=SEED), B_TRAIN,
-                    shuffle=True, drop_last=True, seed=SEED, device=dev)
-    weights = init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 2))
+    dev, steps = loader.device, len(loader)
     state = create_state(weights, binary=True, lr=1e-3, epochs=1,
-                         steps_per_epoch=len(loader), device=dev)
-    apply = make_fused_train_apply(CLASSES, K, binary=True)
+                         steps_per_epoch=steps, recipe=recipe, device=dev)
     step = make_train_step(apply, cal_loss, rot="z")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -786,29 +794,41 @@ def phase5(dev, gen, counters, log_card):
         fn.launches = 0
     out = train_epoch(state, step, loader, gen, lambda m: log("  " + m))
     launches = {fn.__name__: fn.launches for fn in counters}
-    per_step = {"knn": 4, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
-                "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3}
     want = {name: per_step.get(name, 0) * steps for name in launches}
     if launches != want:
-        raise AssertionError(f"phase 5: launches {launches} != {want}")
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
     if not np.isfinite(out["loss"]):
-        raise AssertionError(f"phase 5: loss {out['loss']} not finite")
+        raise AssertionError(f"{tag}: loss {out['loss']} not finite")
     timed = out["step_ms"][1:]
     median = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"phase 5: {steps} train steps of ({B_TRAIN}, {N}, 3), binary, Adam, "
-        f"rot z; launches {launches}; loss {out['loss']:.6f}")
-    log(f"phase 5: step time (CUDA events, ms) median of {len(timed)} "
+    log(f"{tag}: {steps} train steps of ({B_TRAIN}, {N}, 3), binary, {recipe} "
+        f"Adam, rot z; launches { {n: c for n, c in launches.items() if c} }; "
+        f"loss {out['loss']:.6f}")
+    log(f"{tag}: step time (CUDA events, ms) median of {len(timed)} "
         f"{median:.3f}, all {[round(t, 3) for t in timed]}; warm-up "
         f"{out['step_ms'][0]:.3f}; peak device memory {peak / 2**30:.3f} GiB | "
         f"{log_card}")
+    return launches, median, peak, state
+
+
+def recal_and_eval(tag, apply, state, model, loader, gen, counters):
+    """One BN re-estimation batch through ``apply`` and one eval batch
+    through the eager ``model`` (loaded with the state's weights); returns
+    the launch counts of each."""
+    import torch
+
+    from svnet_tpu_torch.train.loop import bn_reestimate
+    from svnet_tpu_torch.train.losses import cal_loss
+    from svnet_tpu_torch.train.steps import make_eval_step, make_recal_step
+    from svnet_tpu_torch.utils.convert import load_tree
 
     for fn in counters:
         fn.launches = 0
     state.batch_stats = bn_reestimate(make_recal_step(apply, "z"), state, loader,
                                       gen, 1)
     recal = {fn.__name__: fn.launches for fn in counters}
-    model = SVDGCNNCls(CLASSES, K, True).to(dev).eval()
+    model = model.to(loader.device).eval()
     load_tree(model, state.tree())
     for fn in counters:
         fn.launches = 0
@@ -816,36 +836,32 @@ def phase5(dev, gen, counters, log_card):
     evals = {fn.__name__: fn.launches for fn in counters}
     torch.cuda.synchronize()
     if not bool(torch.isfinite(loss)) or preds.shape != (B_TRAIN,):
-        raise AssertionError(f"phase 5: eval loss {loss} / preds {preds.shape}")
-    want_recal = {n: {"knn": 4, "sv_first_train_fwd": 1,
-                      "sv_round3_train_fwd": 3}.get(n, 0) for n in recal}
-    if recal != want_recal or evals["knn"] != 4:
-        raise AssertionError(f"phase 5: recal launches {recal}, eval {evals}")
-    log(f"phase 5: BN re-estimation batch launches {recal}; eval batch (eager "
-        f"model) loss {loss.item():.6f}, knn launches {evals['knn']}")
-    return launches, median, peak, loader
+        raise AssertionError(f"{tag}: eval loss {loss} / preds {preds.shape}")
+    log(f"{tag}: BN re-estimation batch launches "
+        f"{ {n: c for n, c in recal.items() if c} }; eval batch (eager model) "
+        f"loss {loss.item():.6f}, launches { {n: c for n, c in evals.items() if c} }")
+    return recal, evals
 
 
-def phase6(dev, loader):
-    """One train step through the kernels against the plain twin."""
+def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed):
+    """One train step through the kernels (``make_apply(False)``) against
+    the same step through the plain twin (``make_apply(True)``), from the
+    same weights and batch: loss and new BN running statistics within 1e-4
+    relative, gradients within the bars of phase 2, parameter update cosine
+    >= 0.999."""
     import torch
 
-    from svnet_tpu_torch.models.sv_dgcnn import init_params
-    from svnet_tpu_torch.train.fused import make_fused_train_apply
     from svnet_tpu_torch.train.losses import cal_loss
     from svnet_tpu_torch.train.steps import create_state, make_train_step, tree_map
     from svnet_tpu_torch.utils.convert import flatten as flat
     from svnet_tpu_torch.utils.convert import to_flax
 
-    weights = init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 3))
-    batch = next(iter(loader))
     res = []
     for oracle in (False, True):
         state = create_state(weights, binary=True, lr=1e-3, epochs=1,
-                             steps_per_epoch=1, device=dev)
-        step = make_train_step(make_fused_train_apply(CLASSES, K, True, oracle=oracle),
-                               cal_loss, rot="z")
-        loss, _ = step(state, batch, torch.Generator().manual_seed(SEED + 4))
+                             steps_per_epoch=1, recipe=recipe, device=dev)
+        step = make_train_step(make_apply(oracle), cal_loss, rot="z")
+        loss, _ = step(state, batch, torch.Generator().manual_seed(seed))
         res.append((loss.item(), tree_map(lambda t: t.grad, state.params),
                     state.batch_stats, tree_map(lambda t: t.detach(), state.params)))
     (lk, gk, sk, pk), (lp, gp, sp, pp) = res
@@ -858,16 +874,173 @@ def phase6(dev, loader):
     dw = torch.cat([(v.cpu() - torch.from_numpy(w0[n])).flatten()
                     for n, v in sorted(flat(pp).items())])
     c = cos(du, dw)
-    log(f"phase 6: one step, kernels vs plain twin: loss {lk:.6f} vs {lp:.6f}; "
+    log(f"{tag}: one step, kernels vs plain twin: loss {lk:.6f} vs {lp:.6f}; "
         f"BN running stats worst relative error {worst:.3g}; parameter update "
         f"cosine {c:.6f}")
     if abs(lk - lp) > 1e-4 * abs(lp):
-        raise AssertionError(f"phase 6: loss {lk} vs plain {lp}")
-    check_grads("phase 6 gradients", flat(gk), flat(gp), 1e-3)
+        raise AssertionError(f"{tag}: loss {lk} vs plain {lp}")
+    check_grads(f"{tag} gradients", flat(gk), flat(gp), 1e-3)
     if worst > 1e-4:
-        raise AssertionError(f"phase 6: BN running stats off by {worst}")
+        raise AssertionError(f"{tag}: BN running stats off by {worst}")
     if c < 0.999:
-        raise AssertionError(f"phase 6: parameter update cosine {c} < 0.999")
+        raise AssertionError(f"{tag}: parameter update cosine {c} < 0.999")
+
+
+def phase5(dev, gen, counters, log_card):
+    """The fused SV-DGCNN train path (phases 5 and 6); returns the launch
+    counts of the steps, the median step ms, the peak device memory and
+    the loader of seeded surface clouds the later training phases reuse."""
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.data import ArrayDataset, Loader
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, init_params
+    from svnet_tpu_torch.train.fused import make_fused_train_apply
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    steps = TRAIN_STEPS + 1
+    clouds = surface_clouds(SEED, steps * B_TRAIN, N)
+    labels = np.random.default_rng(SEED).integers(0, CLASSES, steps * B_TRAIN)
+    loader = Loader(ArrayDataset(clouds, labels, train=True, seed=SEED), B_TRAIN,
+                    shuffle=True, drop_last=True, seed=SEED, device=dev)
+    weights = init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 2))
+    apply = make_fused_train_apply(CLASSES, K, binary=True)
+    launches, median, peak, state = train_run(
+        "phase 5", apply, weights, "dgcnn", loader, gen, counters,
+        {"knn": 4, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
+         "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3}, log_card)
+    recal, evals = recal_and_eval("phase 5", apply, state,
+                                  SVDGCNNCls(CLASSES, K, True), loader, gen,
+                                  counters)
+    want_recal = {n: {"knn": 4, "sv_first_train_fwd": 1,
+                      "sv_round3_train_fwd": 3}.get(n, 0) for n in recal}
+    # the eager model gathers the neighbours of each of its four rounds
+    # through B7's forward
+    want_eval = {n: {"knn": 4, "edge_gather_fwd": 4}.get(n, 0) for n in evals}
+    if recal != want_recal or evals != want_eval:
+        raise AssertionError(f"phase 5: recal launches {recal}, eval {evals}")
+
+    step_vs_plain("phase 6",
+                  lambda oracle: make_fused_train_apply(CLASSES, K, True,
+                                                        oracle=oracle),
+                  init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 3)),
+                  "dgcnn", next(iter(loader)), dev, SEED + 4)
+    return launches, median, peak, loader
+
+
+def phase2_gather(rep, gen, dev):
+    """B7 forward and backward against their plain versions on the same
+    seeded inputs, ids from kNN (B4) of seeded clouds: the slice's shape
+    (C=3, the points), the joint widths of get_graph_feature_sv (C=62,
+    127) and a ragged (8, 1000, 7, 5). Both bitwise, and two backward
+    launches identical. torch.gather and index_add_ (float atomics) are
+    the library yardsticks."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    for b, n, k, c in ((B_TRAIN, N, K, 3), (B_TRAIN, N, K, 62),
+                       (B_TRAIN, N, K, 127), (8, N - 24, 7, 5)):
+        tag = f"edge_gather B={b} N={n} k={k} C={c}"
+        pts = cloud(b, n, gen, dev)
+        idx = knn(pts, k)
+        src = pts if c == 3 else torch.randn(b, n, c, generator=gen).to(dev)
+        g = torch.randn(b, n, k, c, generator=gen).to(dev)
+        fk, fp = eg.edge_gather_fwd(src, idx), eg.edge_gather_fwd_plain(src, idx)
+        bk, bk2 = eg.edge_gather_bwd(g, idx, n), eg.edge_gather_bwd(g, idx, n)
+        bp = eg.edge_gather_bwd_plain(g, idx, n)
+        sync(dev)
+        check_equal(tag + " forward", (fk,), (fp,))
+        check_equal(tag + " backward", (bk,), (bp,))
+        check_equal(tag + " backward, two launches", (bk,), (bk2,))
+        flat = (idx.long() + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+        hub = int(torch.bincount(flat, minlength=b * n).max())
+
+        def lib_fwd():
+            return torch.gather(src, 1, idx.long().reshape(b, -1, 1)
+                                .expand(-1, -1, c)).reshape(b, n, k, c)
+
+        def lib_bwd():
+            return torch.zeros(b * n, c, device=dev).index_add_(
+                0, flat, g.reshape(-1, c))
+
+        t = [cuda_ms(fn, reps=20) for fn in (
+            lambda: eg.edge_gather_fwd(src, idx),
+            lambda: eg.edge_gather_fwd_plain(src, idx), lib_fwd,
+            lambda: eg.edge_gather_bwd(g, idx, n),
+            lambda: eg.edge_gather_bwd_plain(g, idx, n), lib_bwd)]
+        e = b * n * k
+        fwd_cost = bound(0.0, 4.0 * (b * n * c + e + e * c))
+        bwd_cost = bound(float(e * c), 4.0 * (e * c + e + b * n * c))
+        log(f"  {tag}: forward and backward bitwise, two backward launches "
+            f"identical (largest in-degree {hub}); forward kernel {t[0]} ms, "
+            f"plain {t[1]} ms, torch.gather {t[2]} ms, bound {fwd_cost}; "
+            f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
+            f"bound {bwd_cost}")
+        # the kernels line times each pass at its main path's shapes: the
+        # forward at C=3 (phase 9 gathers the points), the backward at the
+        # joint widths (phase 11: conv2 and conv3 at C=62, conv4 at C=127)
+        main = (b, n, k) == (B_TRAIN, N, K)
+        rep.add("edge_gather_fwd", 0.0, *((t[0], t[1], fwd_cost, t[2])
+                                          if main and c == 3 else ()))
+        rep.add("edge_gather_bwd", 0.0, *((t[3], t[4], bwd_cost, t[5])
+                                          if main and c != 3 else ()))
+
+
+def phase9(dev, gen, counters, loader, log_card):
+    """SV-PointNet cls training (phases 9 and 10) on phase 5's clouds;
+    returns the launch counts of the steps, the median step ms and the
+    peak device memory."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls, init_params
+    from svnet_tpu_torch.train.pointnet import make_train_apply_cls
+
+    apply = make_train_apply_cls(CLASSES, K, True)
+    weights = init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 7))
+    # the step differentiates the weights, not the points: the gather of
+    # the points' neighbours runs forward only (so does the JAX step; see
+    # tests/test_torch_pointnet_train.py)
+    one = {"knn": 1, "edge_gather_fwd": 1}
+    launches, median, peak, state = train_run(
+        "phase 9", apply, weights, "pointnet_cls", loader, gen, counters, one,
+        log_card)
+    recal, evals = recal_and_eval("phase 9", apply, state,
+                                  SVPointNetCls(CLASSES, K, True), loader, gen,
+                                  counters)
+    want = {n: one.get(n, 0) for n in recal}
+    if recal != want or evals != want:
+        raise AssertionError(f"phase 9: recal launches {recal}, eval {evals}")
+
+    step_vs_plain("phase 10",
+                  lambda oracle: make_train_apply_cls(CLASSES, K, True,
+                                                      oracle=oracle),
+                  init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 8)),
+                  "pointnet_cls", next(iter(loader)), dev, SEED + 9)
+    return launches, median, peak
+
+
+def phase11(dev, gen, counters, loader, log_card):
+    """SV-DGCNN training through the un-fused path (train/dgcnn.py), where
+    B7's scatter-add backward runs: conv2-4's joint features depend on the
+    weights, the points do not. Returns the launch counts of the steps and
+    the median step ms."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.train.dgcnn import make_train_apply_cls
+
+    weights = init_params(CLASSES, K, True, torch.Generator().manual_seed(SEED + 10))
+    launches, median, _, _ = train_run(
+        "phase 11", make_train_apply_cls(CLASSES, K, True), weights, "dgcnn",
+        loader, gen, counters, {"knn": 4, "edge_gather_fwd": 4,
+                                "edge_gather_bwd": 3}, log_card)
+    step_vs_plain("phase 11",
+                  lambda oracle: make_train_apply_cls(CLASSES, K, True,
+                                                      oracle=oracle),
+                  weights, "dgcnn", next(iter(loader)), dev, SEED + 11)
+    return launches, median
 
 
 def main() -> int:
@@ -888,6 +1061,7 @@ def main() -> int:
     from svnet_tpu_torch.models.sv_dgcnn import init_params
     from svnet_tpu_torch.ops import rotations
     from svnet_tpu_torch.ops.kernels import _build
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
     from svnet_tpu_torch.ops.kernels import knn as kk
     from svnet_tpu_torch.ops.kernels import sv_block_point as kb
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
@@ -932,12 +1106,13 @@ def main() -> int:
                  rounds=("conv2",))
     pn = pointnet_engines(dev)
     phase2_pointnet(rep, pn, gen, dev)
+    phase2_gather(rep, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
                 kf.sv_first_train_fwd, kf.sv_first_train_bwd,
                 krt.sv_round3_train_fwd, krt.sv_round3_train_bwd,
-                kb.sv_block_point)
+                kb.sv_block_point, eg.edge_gather_fwd, eg.edge_gather_bwd)
     requests = [cloud(B, N, gen, dev) for _ in range(REQUESTS)]
     eng(requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -954,9 +1129,9 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(e0.elapsed_time(e1))
         per = [fn.launches - b0 for fn, b0 in zip(counters, before)]
-        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0]:
+        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0]:
             raise AssertionError(f"phase 3: launches per request {per} != "
-                                 "[1, 3, 1] serving, 0 training, 0 B8")
+                                 "[1, 3, 1] serving, 0 training, 0 B8, 0 B7")
         logits.append(out)
     launches = {fn.__name__: fn.launches for fn in counters}
     got = torch.cat(logits)
@@ -995,14 +1170,11 @@ def main() -> int:
     if not torch.allclose(out_r, out, rtol=2e-2, atol=2e-3):
         raise AssertionError("phase 4: logits not rotation invariant")
 
-    # phase 5
+    # phases 5 and 6
     train_launches, step_ms, peak, loader = phase5(dev, gen, counters, card)
     # each kernel's launches are those of the path that runs it
     launches.update({fn.__name__: train_launches[fn.__name__]
                      for fn in counters[3:8]})
-
-    # phase 6
-    phase6(dev, loader)
 
     # phases 7 and 8: SV-PointNet serving
     b8_tally = {}
@@ -1010,6 +1182,14 @@ def main() -> int:
         tally, pn_launches = phase(pn, gen, dev, counters, card)
         launches[f"sv_round3_first cross {tag}"] = pn_launches["sv_round3_first"]
         b8_tally.update({b8_name(tag, key): c for key, c in tally.items()})
+
+    # phases 9 and 10: SV-PointNet cls training
+    pn_launches, pn_step_ms, pn_peak = phase9(dev, gen, counters, loader, card)
+    launches["edge_gather_fwd"] = pn_launches["edge_gather_fwd"]
+
+    # phase 11: the un-fused SV-DGCNN train path, which runs B7's backward
+    dg_launches, dg_step_ms = phase11(dev, gen, counters, loader, card)
+    launches["edge_gather_bwd"] = dg_launches["edge_gather_bwd"]
 
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
@@ -1026,7 +1206,11 @@ def main() -> int:
               "sv_round3_train_fwd": ("svnet_tpu_torch/csrc/sv_round3_train.cu",
                                       "svnet_tpu/ops/pallas/sv_round3_train.py:522"),
               "sv_round3_train_bwd": ("svnet_tpu_torch/csrc/sv_round3_train.cu",
-                                      "svnet_tpu/ops/pallas/sv_round3_train.py:522")}
+                                      "svnet_tpu/ops/pallas/sv_round3_train.py:522"),
+              "edge_gather_fwd": ("svnet_tpu_torch/csrc/edge_gather.cu",
+                                  "svnet_tpu/ops/pallas/edge_gather.py:92"),
+              "edge_gather_bwd": ("svnet_tpu_torch/csrc/edge_gather.cu",
+                                  "svnet_tpu/ops/pallas/edge_gather.py:92")}
     for name in rep.ms:
         if name.startswith("sv_round3_first cross"):
             src_of[name] = src_of["sv_round3_first"]
@@ -1055,7 +1239,9 @@ def main() -> int:
             "library_ms": mean(lib) if lib else None,
         })
     log(f"train step median {step_ms:.3f} ms (B={B_TRAIN}, N={N}, k={K}), peak "
-        f"device memory {peak / 2**30:.3f} GiB")
+        f"device memory {peak / 2**30:.3f} GiB; SV-PointNet train step median "
+        f"{pn_step_ms:.3f} ms, peak {pn_peak / 2**30:.3f} GiB; un-fused SV-DGCNN "
+        f"train step median {dg_step_ms:.3f} ms")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ against. The layout mirrors it module for module:
   ops/rotations.py       random rotations and the rotation augmentation
   nn/sv_layers.py        eval-mode SV layer library (nn.Modules, SV_STNkd),
                          ste_sign
+  nn/sv_train.py         train-mode SV layers on the flax weight trees
   models/sv_dgcnn.py     SV-DGCNN classifier, eager (the un-fused oracle)
   models/sv_pointnet.py  SV-PointNet classifier and part segmenter, eager
   utils/convert.py       flax variables <-> this package's weight tree
@@ -17,12 +18,16 @@ against. The layout mirrors it module for module:
   ops/kernels/_build.py  nvcc build + ctypes binding of csrc/*.cu
   ops/kernels/sv_round3.py, sv_point.py, sv_block_point.py
                          serving kernels + plain versions
-  ops/kernels/knn.py, sv_first_train.py, sv_round3_train.py
-                         training kernels + plain versions, autograd
+  ops/kernels/knn.py, sv_first_train.py, sv_round3_train.py,
+  edge_gather.py         training kernels + plain versions, autograd
   infer.py               SVDGCNNClsEngine (round3 path), SVPointNetClsEngine,
                          SVPointNetPsegEngine (exact mode)
-  train/                 fused train forward, steps, optimizer, loop
-  data/, cli/            ModelNet40 / in-memory datasets, Loader, the CLI
+  train/                 train forwards (fused.py: SV-DGCNN on B5/B6;
+                         dgcnn.py, pointnet.py: the flax-equivalent
+                         SV-DGCNN and SV-PointNet paths), steps,
+                         optimizer, loop
+  data/, cli/            ModelNet40 / in-memory datasets, Loader, the
+                         CLIs, profile_train_step
 
 This package imports torch and never jax.
 """

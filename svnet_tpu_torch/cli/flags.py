@@ -1,5 +1,5 @@
-"""The cls/dgcnn flag surface of the JAX CLI (counterpart of
-svnet_tpu/cli/flags.py::build_parser('cls', 'dgcnn')) plus ``--device``.
+"""The classification flag surface of the JAX CLI (counterpart of
+svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
 Every flag of the JAX surface parses; ``check_ported`` raises for a flag
 whose feature the port does not have yet (KD, the mesh, profiling, the
@@ -21,35 +21,45 @@ _NOT_PORTED = {
 }
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Point cloud classification using the DGCNN backbone "
-                    "(PyTorch / CUDA)")
-    p.add_argument("--model", type=str, default="svnet",
-                   choices=["original", "vn", "svnet"])
+        description=f"Point cloud {task} using the {backbone.upper()} "
+                    "backbone (PyTorch / CUDA)")
+    if backbone == "dgcnn":
+        model_choices = ["original", "vn", "svnet"]
+    else:
+        model_choices = ["original", "vn", "svnet", "bipointnet"]
+    p.add_argument("--model", type=str, default="svnet", choices=model_choices)
     p.add_argument("--binary", action="store_true", help="build binary nn")
-    p.add_argument("--dataset", type=str, default="modelnet40",
-                   choices=["modelnet40", "scanobjectnn"])
-    p.add_argument("--subset", type=str, default="hard", choices=["easy", "hard"],
-                   help="only for scanobjectnn")
+    if task == "cls":
+        p.add_argument("--dataset", type=str, default="modelnet40",
+                       choices=["modelnet40", "scanobjectnn"])
+        p.add_argument("--subset", type=str, default="hard",
+                       choices=["easy", "hard"], help="only for scanobjectnn")
+    else:
+        p.add_argument("--dataset", type=str, default="shapenetpart")
+        p.add_argument("--class-choice", type=str, default=None)
+        p.add_argument("--subset", type=str, default="hard")
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--epochs", type=int, default=250)
+    p.add_argument("--epochs", type=int, default=250 if task == "cls" else 200)
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--wd", type=float, default=1e-4)
-    p.add_argument("--num-points", type=int, default=1024)
+    p.add_argument("--num-points", type=int,
+                   default=1024 if task == "cls" else 2048)
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--opt", choices=["auto", "adam", "sgd"], default="auto",
-                   help="'auto': Adam if --binary, SGD lr x 100 otherwise")
+                   help="DGCNN: 'auto' is Adam if --binary, SGD lr x 100 "
+                        "otherwise; the PointNet recipes always take Adam")
     p.add_argument("--emb-dims", type=int, default=1024)
-    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--k", type=int, default=20 if task == "cls" else 40)
     p.add_argument("--rot", type=str, default="z", choices=["aligned", "z", "so3"])
     p.add_argument("--rot-test", type=str, default="so3",
                    choices=["aligned", "z", "so3"])
     p.add_argument("--pooling", type=str, default="mean", choices=["mean", "max"],
                    help="VNN only: pooling method")
     p.add_argument("--num-workers", type=int, default=8)
-    p.add_argument("--smoothing", action="store_true", default=True,
+    p.add_argument("--smoothing", action="store_true", default=(task == "cls"),
                    help="label smoothing in the train loss")
     p.add_argument("--test", metavar="PATH", default=None)
     p.add_argument("--resume-from", metavar="PATH", default=None)
@@ -84,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default: the card, required) or 'cpu'")
-    p.set_defaults(backbone="dgcnn")
+    p.set_defaults(backbone=backbone)
     return p
 
 

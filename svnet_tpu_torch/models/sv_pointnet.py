@@ -57,10 +57,6 @@ def _first(module: nn.Module, points: torch.Tensor):
     return ops.svpool(module.conv_pos((module.init_scalar(v), v)))
 
 
-def _broadcast(x, like):
-    return tuple(t.expand_as(r) for t, r in zip(x, like))
-
-
 class SVPointNetEncoder(nn.Module):
     """The classifier's trunk: (B, N, 3) -> (B, 1022)."""
 
@@ -79,9 +75,9 @@ class SVPointNetEncoder(nn.Module):
     def forward(self, points: torch.Tensor) -> torch.Tensor:
         x = self.conv1(_first(self, points))
         tok = self.fstn(x)  # (B, S), (B, 3, V)
-        x = ops.svcat([x, _broadcast((tok[0][:, None], tok[1][:, None]), x)])
+        x = ops.svcat([x, ops.svexpand((tok[0][:, None], tok[1][:, None]), x)])
         x = self.conv3(self.conv2(x))
-        x = ops.svcat([x, _broadcast(ops.svpool(x, dim=1, keepdim=True), x)])
+        x = ops.svcat([x, ops.svexpand(ops.svpool(x, dim=1, keepdim=True), x)])
         return self.svfuse(ops.svpool(self.conv_fuse(x), dim=1))
 
 
@@ -171,11 +167,11 @@ class SVPointNetPseg(nn.Module):
         out2 = self.conv2(out1)
         out3 = self.conv3(out2)
         tok = self.fstn(out3)
-        out4 = self.conv4(ops.svcat([out3, _broadcast(
+        out4 = self.conv4(ops.svcat([out3, ops.svexpand(
             (tok[0][:, None], tok[1][:, None]), out3)]))
         out5 = self.conv5(out4)
         mean = ops.svpool(out5, dim=1, keepdim=True, spool="mean")
-        x, trans = self.svfuse(ops.svcat([out5, _broadcast(mean, out5)]))
+        x, trans = self.svfuse(ops.svcat([out5, ops.svexpand(mean, out5)]))
         x = _conv_bn_relu(self, "conv_fuse2", _conv_bn_relu(self, "conv_fuse1", x))
         x = torch.mean(x, dim=1) if self.binary else torch.amax(x, dim=1)
         x_l = torch.cat([x, label], dim=-1)[:, None, :].expand(B, N, -1)

@@ -4,6 +4,7 @@ from svnet_tpu_torch.ops.graph import (  # noqa: F401
     get_graph_feature_cross,
     get_graph_feature_sv,
     svcat,
+    svexpand,
     svpool,
 )
 from svnet_tpu_torch.ops.knn import knn, knn_plain, pairwise_neg_sqdist  # noqa: F401

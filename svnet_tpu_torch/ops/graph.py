@@ -10,24 +10,40 @@ from typing import Sequence, Tuple
 
 import torch
 
-from svnet_tpu_torch.ops.knn import knn
+from svnet_tpu_torch.ops.kernels.edge_gather import edge_gather
+from svnet_tpu_torch.ops.knn import knn, knn_plain
 
 SVPair = Tuple[torch.Tensor, torch.Tensor]
 
 
-def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, ...), idx (B, N, k) -> (B, N, k, ...)."""
-    B = x.shape[0]
-    bidx = torch.arange(B, device=x.device)[:, None, None]
-    return x[bidx, idx]
+def gather_neighbors(x: torch.Tensor, idx: torch.Tensor,
+                     plain: bool = False) -> torch.Tensor:
+    """x (B, N, ...), idx (B, N, k) -> (B, N, k, ...), differentiable in x.
+
+    Every gather goes through ``ops.kernels.edge_gather`` (kernel B7,
+    forward and scatter-add backward): on a CPU tensor its plain versions,
+    on a CUDA tensor the kernel, on any other device an error.
+    ``plain=True`` takes the plain versions on any device, as the kernels'
+    plain versions and the ``oracle`` twins do."""
+    B, N = x.shape[:2]
+    out = edge_gather(x.reshape(B, N, -1), idx, plain)
+    return out.reshape(idx.shape + x.shape[2:])
+
+
+def _ids(x, k, idx, plain):
+    """idx, or the kNN ids of x (which carry no gradient)."""
+    if idx is not None:
+        return idx
+    return (knn_plain if plain else knn)(x.detach(), k)
 
 
 def get_graph_feature(points: torch.Tensor, k: int,
-                      idx: torch.Tensor | None = None) -> torch.Tensor:
-    """First-round edges ``[nbr - ctr, ctr]``: (B, N, 3) -> (B, N, k, 3, 2)."""
-    if idx is None:
-        idx = knn(points, k)
-    nbr = gather_neighbors(points, idx)
+                      idx: torch.Tensor | None = None,
+                      plain: bool = False) -> torch.Tensor:
+    """First-round edges ``[nbr - ctr, ctr]``: (B, N, 3) -> (B, N, k, 3, 2).
+    ``plain`` runs the kNN and the gather's plain versions on any device."""
+    idx = _ids(points, k, idx, plain)
+    nbr = gather_neighbors(points, idx, plain)
     ctr = points[:, :, None, :].expand_as(nbr)
     return torch.stack([nbr - ctr, ctr], dim=-1)
 
@@ -43,18 +59,18 @@ def _cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def get_graph_feature_cross(points: torch.Tensor, k: int,
-                            idx: torch.Tensor | None = None) -> torch.Tensor:
+                            idx: torch.Tensor | None = None,
+                            plain: bool = False) -> torch.Tensor:
     """First-round edges with a cross-product channel
     ``[nbr - ctr, ctr, nbr x ctr]``: (B, N, 3) -> (B, N, k, 3, 3)."""
-    if idx is None:
-        idx = knn(points, k)
-    nbr = gather_neighbors(points, idx)
+    idx = _ids(points, k, idx, plain)
+    nbr = gather_neighbors(points, idx, plain)
     ctr = points[:, :, None, :].expand_as(nbr)
     return torch.stack([nbr - ctr, ctr, _cross3(nbr, ctr)], dim=-1)
 
 
-def get_graph_feature_sv(x: SVPair, k: int,
-                         idx: torch.Tensor | None = None) -> SVPair:
+def get_graph_feature_sv(x: SVPair, k: int, idx: torch.Tensor | None = None,
+                         plain: bool = False) -> SVPair:
     """Edges over an (s, v) pair, kNN in the joint [s, flat(v)] space.
 
     Returns s_feat (B, N, k, 2S) = [nbr - ctr, ctr] and
@@ -64,9 +80,8 @@ def get_graph_feature_sv(x: SVPair, k: int,
     B, N, S = s.shape
     V = v.shape[-1]
     joint = torch.cat([s, v.reshape(B, N, -1)], dim=-1)
-    if idx is None:
-        idx = knn(joint, k)
-    nbr = gather_neighbors(joint, idx)  # (B, N, k, S + 3V)
+    idx = _ids(joint, k, idx, plain)
+    nbr = gather_neighbors(joint, idx, plain)  # (B, N, k, S + 3V)
     ctr = joint[:, :, None, :].expand_as(nbr)
     s_feat = torch.cat([nbr[..., :S] - ctr[..., :S], ctr[..., :S]], dim=-1)
     kk = idx.shape[-1]
@@ -87,6 +102,11 @@ def svpool(x: SVPair, dim: int = 2, keepdim: bool = False,
     else:
         raise ValueError(f"unrecognized scalar pooling {spool!r}")
     return s, torch.mean(v, dim=dim, keepdim=keepdim)
+
+
+def svexpand(x: SVPair, like: SVPair) -> SVPair:
+    """An SV pair with size-1 axes (a pooled token) broadcast to like's."""
+    return tuple(t.expand_as(r) for t, r in zip(x, like))
 
 
 def svcat(xlist: Sequence[SVPair]) -> SVPair:

@@ -51,6 +51,10 @@ SIGNATURES = {
     "sv_block_point_ppb": [_I] * 4,
     # x, aa, ids; B N C k; stream
     "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # src, idx, out; B n_src M k C; stream
+    "sv_edge_gather_fwd_launch": [_P] * 3 + [_I] * 5 + [_P],
+    # g, idx, dsrc, scratch; B n_src M k C; stream
+    "sv_edge_gather_bwd_launch": [_P] * 4 + [_I] * 5 + [_P],
     # phase, pointer slots (void**), dims (int*), stream
     "sv_first_train_launch": [_I, _P, _P, _P],
     "sv_round3_train_launch": [_I, _P, _P, _P],

@@ -92,7 +92,7 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
     B, N, _ = points.shape
     idx = ops.knn_plain(points, k)
     edges = ops.get_graph_feature_cross if cross else ops.get_graph_feature
-    v = edges(points, k, idx)  # (B, N, k, 3, n_ch)
+    v = edges(points, k, idx, plain=True)  # (B, N, k, 3, n_ch)
     sva = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz0"])))
     svb = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz1"])))
     h = ordered_matmul(torch.cat([sva, svb], dim=-1), folded["w1"])
@@ -166,7 +166,7 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     x = src.transpose(1, 2)  # (B, N, S + 3V): the joint kNN features
     idx = ops.knn_plain(x, k)
     s_e, v_e = ops.get_graph_feature_sv(
-        (x[..., :S], x[..., S:].reshape(B, N, 3, V)), k, idx)
+        (x[..., :S], x[..., S:].reshape(B, N, 3, V)), k, idx, plain=True)
     sv = jmajor(v2s_invariants(v_e, ordered_matmul(v_e, folded["wz"])))
     xc = torch.cat([s_e, sv], dim=-1)  # (B, N, k, 2S + 6V)
     if binary:  # +-1 products: exact in any order

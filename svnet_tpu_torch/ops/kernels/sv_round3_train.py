@@ -164,7 +164,7 @@ def _edges(src, idx, kp, d: RoundDims):
     """Recompute a round's edge quantities from src (B, N, C) + idx."""
     B, N, _ = src.shape
     S, V = d.S, d.V
-    nbr = gather_neighbors(src, idx)  # (B, N, k, C)
+    nbr = gather_neighbors(src, idx, plain=True)  # (B, N, k, C)
     ctr = src[:, :, None, :].expand_as(nbr)
     e = nbr - ctr
     kk = idx.shape[-1]

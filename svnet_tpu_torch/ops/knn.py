@@ -57,8 +57,9 @@ def topk_rows(neg: torch.Tensor, k: int) -> torch.Tensor:
 
 def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     """(B, N, C) -> (B, N, k) int32 neighbour ids, nearest first (self
-    included: its distance is ~0, the maximum of the negated distances)."""
-    return topk_rows(pairwise_neg_sqdist(x), k).to(torch.int32)
+    included: its distance is ~0, the maximum of the negated distances).
+    The ranking key is that of the f32 distances whatever the dtype of x."""
+    return topk_rows(pairwise_neg_sqdist(x.float()), k).to(torch.int32)
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Classification training driver (counterpart of
-svnet_tpu/train/loop.py::run_cls, SV-DGCNN on ModelNet40, train path).
+svnet_tpu/train/loop.py::run_cls, SV-DGCNN and SV-PointNet on ModelNet40,
+train path).
 
-Epochs of fused train steps; before each eval, BN re-estimation over
-``--bn-reestimate`` train batches (60 by default for binary nets, whose
-running statistics lag the weight-sign flips); eval through the eager
-model with ``--rot-test``; checkpoints with the reference's file
-management. ``train_epoch`` is the epoch body on its own, so a caller can
-drive it with any dataset the Loader accepts.
+Epochs of train steps (SV-DGCNN: the fused train forward; SV-PointNet:
+the flax-equivalent train forward of ``train/pointnet.py``); before each
+eval, BN re-estimation over ``--bn-reestimate`` train batches (60 by
+default for binary nets, whose running statistics lag the weight-sign
+flips); eval through the eager model with ``--rot-test``; checkpoints
+with the reference's file management. ``train_epoch`` is the epoch body
+on its own, so a caller can drive it with any dataset the Loader accepts.
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ from svnet_tpu_torch import config
 from svnet_tpu_torch.cli.flags import check_ported
 from svnet_tpu_torch.data import Loader, ModelNet40
 from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls
+from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls
 from svnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from svnet_tpu_torch.train.fused import make_fused_train_apply
 from svnet_tpu_torch.train.logs import configure_logging
 from svnet_tpu_torch.train.losses import cal_loss
 from svnet_tpu_torch.train.metrics import accuracy, balanced_accuracy
+from svnet_tpu_torch.train.pointnet import make_train_apply_cls
 from svnet_tpu_torch.train.steps import (
     create_state,
     make_eval_step,
@@ -40,9 +44,22 @@ def _weighted_loss(losses, counts) -> float:
     return float((torch.stack(losses).float().cpu() * w).sum() / w.sum())
 
 
+def _build_cls_model(args, num_classes: int):
+    """(seeded eager eval model, train forward, optimizer recipe) of
+    ``args.backbone``."""
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.backbone == "pointnet":
+        model = SVPointNetCls(num_classes, args.k, args.binary, gen)
+        return (model, make_train_apply_cls(num_classes, args.k, args.binary),
+                "pointnet_cls")
+    model = SVDGCNNCls(num_classes, args.k, args.binary, gen)
+    return (model, make_fused_train_apply(num_classes, args.k, binary=args.binary,
+                                          dropout=args.dropout), "dgcnn")
+
+
 def train_epoch(state, train_step, loader, generator, log_string=print,
                 epoch: int = 0, epochs: int = 1) -> dict:
-    """One pass of fused train steps over ``loader``. Returns the epoch's
+    """One pass of train steps over ``loader``. Returns the epoch's
     loss, accuracy, balanced accuracy, wall seconds and the time of each
     step in ms (CUDA events on the card, the host clock on the CPU)."""
     t0 = time.time()
@@ -129,15 +146,15 @@ def eval_cls(eval_step, model, state, loader, generator, log_string=print):
 
 
 def run_cls(args) -> Optional[float]:
-    """Classification driver: ModelNet40, binary or FP SV-DGCNN."""
+    """Classification driver: ModelNet40, binary or FP SV-DGCNN or
+    SV-PointNet (``args.backbone``)."""
     check_ported(args)
     dev = config.resolve_device(args.device)
     log_string = configure_logging(args.save_dir, "cls")
     epoch_string = configure_logging(args.save_dir, "cls", "log")
     epoch_string(str(vars(args)))
     num_classes = 40
-    model = SVDGCNNCls(num_classes, args.k, args.binary,
-                       torch.Generator().manual_seed(args.seed))
+    model, apply, recipe = _build_cls_model(args, num_classes)
     if args.checkinfo:
         n = sum(p.numel() for p in model.parameters())
         print(f"Number of Parameters: {n / 1e6:.6f}M")
@@ -156,9 +173,7 @@ def run_cls(args) -> Optional[float]:
     state = create_state(weights, binary=args.binary, lr=args.lr,
                          epochs=args.epochs, steps_per_epoch=len(train_loader),
                          momentum=args.momentum, weight_decay=args.wd,
-                         opt=args.opt, device=dev)
-    apply = make_fused_train_apply(num_classes, args.k, binary=args.binary,
-                                   dropout=args.dropout)
+                         opt=args.opt, recipe=recipe, device=dev)
     train_step = make_train_step(apply, cal_loss, rot=args.rot)
     eval_step = make_eval_step(model, cal_loss, rot_test=args.rot_test)
     recal_n = resolve_recal_n(args)

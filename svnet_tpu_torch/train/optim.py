@@ -1,12 +1,14 @@
-"""Optimizer and LR schedule of the DGCNN recipe (counterpart of
-svnet_tpu/train/optim.py::make_optimizer, recipe 'dgcnn').
+"""Optimizers and LR schedules of the DGCNN and SV-PointNet cls recipes
+(counterpart of svnet_tpu/train/optim.py::make_optimizer, recipes 'dgcnn'
+and 'pointnet_cls').
 
-Binary: Adam with L2 weight decay added to the gradient before the
-moments (torch ``Adam(weight_decay=...)``, optax ``add_decayed_weights``
-before ``scale_by_adam``) and a per-epoch cosine from lr to 0. FP: SGD
-with momentum 0.9, lr x 100, cosine to ``eta_min = lr``. ``opt`` forces
-'adam' or 'sgd' ('auto' keeps the recipe's choice). The schedule is a
-function of the optimizer step, applied by the train step.
+Adam adds the L2 weight decay to the gradient before the moments (torch
+``Adam(weight_decay=...)``, optax ``add_decayed_weights`` before
+``scale_by_adam``). 'dgcnn': binary, Adam and a per-epoch cosine from lr
+to 0; FP, SGD with momentum 0.9, lr x 100, cosine to ``eta_min = lr``;
+``opt`` forces 'adam' or 'sgd' ('auto' keeps the recipe's choice).
+'pointnet_cls': always Adam and StepLR(20, 0.7) per epoch. The schedule
+is a function of the optimizer step, applied by the train step.
 """
 
 from __future__ import annotations
@@ -28,15 +30,29 @@ def cosine_schedule(lr0: float, epochs: int, steps_per_epoch: int,
     return schedule
 
 
+def step_schedule(lr0: float, steps_per_epoch: int, step_size: int = 20,
+                  gamma: float = 0.7) -> Callable[[int], float]:
+    """torch StepLR stepped per epoch, as a function of the step."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return lr0 * gamma ** (epoch // step_size)
+
+    return schedule
+
+
 def make_optimizer(params: Iterable[torch.Tensor], *, binary: bool, lr: float,
                    epochs: int, steps_per_epoch: int, momentum: float = 0.9,
                    weight_decay: float = 1e-4, recipe: str = "dgcnn",
                    opt: str = "auto"):
     """Returns (optimizer, schedule(step) -> lr)."""
-    if recipe != "dgcnn":
-        raise NotImplementedError(f"optimizer recipe {recipe!r} is not ported")
     if opt not in ("auto", "adam", "sgd"):
         raise ValueError(f"unknown optimizer {opt!r}")
+    if recipe == "pointnet_cls":
+        sched = step_schedule(lr, steps_per_epoch)
+        return torch.optim.Adam(params, lr=sched(0), weight_decay=weight_decay), sched
+    if recipe != "dgcnn":
+        raise NotImplementedError(f"optimizer recipe {recipe!r} is not ported")
     use_adam = binary if opt == "auto" else opt == "adam"
     if use_adam:
         sched = cosine_schedule(lr, epochs, steps_per_epoch, eta_min=0.0)

@@ -44,9 +44,10 @@ class TrainState:
 def create_state(weights: dict, *, binary: bool, lr: float, epochs: int,
                  steps_per_epoch: int, momentum: float = 0.9,
                  weight_decay: float = 1e-4, opt: str = "auto",
-                 device="cuda") -> TrainState:
+                 recipe: str = "dgcnn", device="cuda") -> TrainState:
     """A train state from a weight tree (``init_params``, ``from_flax`` or a
-    checkpoint), on the card unless ``device="cpu"``."""
+    checkpoint) and the optimizer ``recipe`` ('dgcnn', 'pointnet_cls'), on
+    the card unless ``device="cpu"``."""
     dev = config.resolve_device(device)
     if dev.type == "cuda":
         config.set_full_fp32()
@@ -58,14 +59,15 @@ def create_state(weights: dict, *, binary: bool, lr: float, epochs: int,
     optimizer, sched = make_optimizer(
         leaves, binary=binary, lr=lr, epochs=epochs,
         steps_per_epoch=steps_per_epoch, momentum=momentum,
-        weight_decay=weight_decay, opt=opt)
+        weight_decay=weight_decay, recipe=recipe, opt=opt)
     return TrainState(params, stats, optimizer, sched)
 
 
 def make_train_step(apply, loss_fn, rot: str = "aligned"):
     """``step(state, batch, generator) -> (loss, preds)``: rotation
-    augmentation, the fused train forward, the loss, its gradients and one
-    optimizer update at the schedule's rate for this step."""
+    augmentation, the train forward ``apply`` (``make_fused_train_apply``
+    or ``train.pointnet.make_train_apply_cls``), the loss, its gradients
+    and one optimizer update at the schedule's rate for this step."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         points = apply_rotation_aug(batch["points"], rot, generator)
@@ -99,8 +101,10 @@ def make_recal_step(apply, rot: str = "aligned"):
 
 def make_eval_step(model, loss_fn, rot_test: str = "so3"):
     """``step(batch, generator) -> (loss, preds)`` through the eager eval
-    model (``models.sv_dgcnn.SVDGCNNCls``, whose kNN launches kernel B4 on
-    the card); load the weights into ``model`` first."""
+    model (``models.sv_dgcnn.SVDGCNNCls`` or
+    ``models.sv_pointnet.SVPointNetCls``, whose kNN and neighbour gathers
+    launch kernels B4 and B7 on the card); load the weights into ``model``
+    first."""
 
     @torch.no_grad()
     def step(batch, generator):
