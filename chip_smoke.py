@@ -11,13 +11,21 @@ N=1024) through the trainer; binary SV-PointNet classification serving
 (B=128, N=1024, k=20) through SVPointNetClsEngine and part segmentation
 (B=32, N=2048, k=40, 50 parts) through SVPointNetPsegEngine; binary
 SV-PointNet classification training (B=32, N=1024, k=20) through the
-trainer, and binary SV-DGCNN training through the un-fused path. Phases; any failure raises and the script exits non-zero:
+trainer, and binary SV-DGCNN training through the un-fused path; binary
+SV-DGCNN part segmentation serving (B=32, N=2048, k=40, 50 parts) through
+SVDGCNNPsegEngine, and both SV-DGCNN engines' legacy row-major trunk
+(rounds_impl="round2"). Phases; any failure raises and the script exits
+non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
   2  each kernel against its plain PyTorch version on the card, on the
      same inputs, at the paths' shapes (plus a ragged B=8, N=1000, k=7
-     case). Serving rounds: neighbour ids agree on >= 99.99% of
+     case). The SV-DGCNN trunks: B1, B2 x3, B3 (round3) and B10b's first
+     and conv rounds x3 and B3r (round2), each at the classifier's shapes
+     (B=128, N=1024, k=20) and the part segmenter's (B=32, N=2048, k=40;
+     V_out=16 in the first round, (32,16)->(32,16), (32,16)->(64,24),
+     (64,24)->(128,40), then (256,96)->(512,168)). Serving rounds: neighbour ids agree on >= 99.99% of
      (b, rank, n) and every mismatch is a near-tie (true distances within
      1e-5 relative); on centre points whose neighbour sets agree, outputs
      within rtol=1e-4, atol=1e-5. kNN (B4): the same id check.
@@ -29,6 +37,8 @@ trainer, and binary SV-DGCNN training through the un-fused path. Phases; any fai
      each gradient of 8 or more entries) and, tighter than their 5e-2 /
      2e-1, all gradients together within 1e-3 relative (parameter
      gradients are summed in another order, d(src) with atomics)
+     B3/B3r: x within rtol=1e-4, atol=1e-5 of the plain version, and
+     whether x and the pooled outputs are bitwise equal is printed.
      B7 (edge_gather, forward and scatter-add backward) at the slice's
      shape (32, 1024, 20, C=3), at C=62 and C=127 and at a ragged
      (8, 1000, 7, C=5): forward and backward bitwise, two backward launches
@@ -71,6 +81,17 @@ trainer, and binary SV-DGCNN training through the un-fused path. Phases; any fai
      times, edge_gather_fwd 4 times and edge_gather_bwd 3 times (conv2-4's
      gathers); the loss is finite; then one step through the kernels
      against the oracle twin with the bars of phase 6
+ 12  SV-DGCNN partseg: serve 5 requests of (32, 2048, 3) with one-hot
+     categories through SVDGCNNPsegEngine (round3); each launches
+     sv_round3_first once (V_out=16), sv_round3 three times and
+     sv_point_block_cm once; logits finite, (32, 2048, 50); per-point
+     top-1 agrees with the plain engine on >= 99%; the peak device memory
+     of one request; SO(3) invariance of the FP engine as in phase 4
+ 13  the round2 trunk of both SV-DGCNN engines: 5 cls requests of
+     (128, 1024, 3) and 5 partseg requests of (32, 2048, 3); each launches
+     sv_round2_first once, sv_round2 three times and sv_point_block (B3r)
+     once; top-1 (per cloud, per point) agrees with the plain engine and
+     with the round3 engine on the same weights on >= 99%
 
 The last lines of output are the card line, one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -95,6 +116,7 @@ SEED = 0
 # SV-PointNet part segmentation: the JAX bench's shapes (bench.py:177-182)
 B_PSEG, N_PSEG, K_PSEG, PARTS = 32, 2048, 40, 50
 N_RAGGED_POINT = 1001  # divides by neither block size of B8 (16, 8)
+N_RAGGED = 1000  # the SV-DGCNN kernels' ragged case: no tile divides it
 # the least time of a kernel's work: bytes over the HBM rate; real-valued
 # operations over the f32 rate outside the tensor cores, and the products of
 # +-1 by +-1 (a binary round's linear1, exact in bf16, as the TPU kernels
@@ -246,20 +268,21 @@ def check_close(tag, got, want, cols=None):
     return err.max().item() if err.numel() else 0.0
 
 
-def compare_round(rep, tag, name, kern, plain, feats, time_it, cost):
+def compare_round(rep, tag, name, kern, plain, feats, time_it, cost,
+                  view=lambda out: out):
     """Kernel outputs (s, v, gate stats, wins) against the plain version's;
-    cost = (flops, bytes) of the call."""
-    import torch
-
+    cost = (flops, bytes) of the call; ``view`` shows a row-major round's
+    outputs channel-major, ids (B, k, N). Returns the plain outputs."""
     ko, po = kern(), plain()
     sync(ko[0].device)
-    agree = check_ids(tag, ko[3], po[3], feats)
-    err = max(check_close(tag + " s", ko[0], po[0], agree),
-              check_close(tag + " v", ko[1], po[1], agree))
+    kv, pv = view(ko), view(po)
+    agree = check_ids(tag, kv[3], pv[3], feats)
+    err = max(check_close(tag + " s", kv[0], pv[0], agree),
+              check_close(tag + " v", kv[1], pv[1], agree))
     whole = agree.all(dim=1)  # batches whose every neighbour set agrees
     if bool(whole.any()):
-        err = max(err, check_close(tag + " gate stats", ko[2][whole],
-                                   po[2][whole]))
+        err = max(err, check_close(tag + " gate stats", kv[2][whole],
+                                   pv[2][whole]))
     ms = plain_ms = None
     if time_it:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
@@ -270,91 +293,150 @@ def compare_round(rep, tag, name, kern, plain, feats, time_it, cost):
     return po
 
 
-def phase2(rep, eng, eng_fp, gen, dev, b=B, n=N, k=K, time_it=True):
-    """Phase 2 at (b, n, k); the ragged case runs at (8, n - 24, 7)."""
-    import torch
+def as_cm(out):
+    """A row-major round's outputs as channel-major views, ids (B, k, N)."""
+    return (out[0].transpose(1, 2), out[1].transpose(1, 2), out[2],
+            out[3].transpose(1, 2))
 
-    from svnet_tpu_torch.infer import POINT_V_OFF, ROUNDS, se_gate
+
+def dgcnn_kernels(row_major: bool):
+    """(first, its plain version, conv round, plain, point block, plain) of
+    the round3 trunk (B1, B2, B3) or the round2 trunk (B10b, B3r)."""
     from svnet_tpu_torch.ops.kernels import sv_point as kp
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
 
-    def first(pts, kk, tag, time_it):
-        f = eng.folded_first
-        kw = dict(S_out=32, V_out=10, k=kk)
-        bb, nn = pts.shape[:2]
-        ef, pm1 = edge_flops(0, 1, 32, 10, True)
-        cost = (knn_flops(bb, nn, 3) + bb * nn * kk * ef,
-                4.0 * bb * nn * (3 + 32 + 30 + 6 + kk), bb * nn * kk * pm1)
-        return compare_round(
-            rep, tag, "sv_round3_first",
-            lambda: kr.sv_round3_first(pts, f, emit_wins=True, **kw),
-            lambda: kr.sv_round3_first_plain(pts, f, **kw), pts, time_it, cost)
+    if row_major:
+        return (k2.sv_round2_first, k2.sv_round2_first_plain, k2.sv_round2,
+                k2.sv_round2_plain, kp.sv_point_block, kp.sv_point_block_plain)
+    return (kr.sv_round3_first, kr.sv_round3_first_plain, kr.sv_round3,
+            kr.sv_round3_plain, kp.sv_point_block_cm, kp.sv_point_block_cm_plain)
 
-    def conv(src, e, name, kk, tag, time_it):
-        S, V, S_out, V_out = ROUNDS[name]
+
+def kernel_name(fn, tag, row_major):
+    """The kernels line's name: the classifier's round3 kernels keep their
+    bare names, every other (trunk, model) pair is tagged."""
+    return fn.__name__ if tag == "cls" and not row_major else f"{fn.__name__} {tag}"
+
+
+def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
+    """An SV-DGCNN engine's trunk kernels against their plain versions at
+    (b, n, k): B1, B2 x3 and B3 for a round3 engine, B10b (first and x3)
+    and B3r for a round2 one, inputs chained through the plain versions;
+    then a ragged (8, 1000, 7) case."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+
+    rm = eng.row_major
+    f_k, f_p, r_k, r_p, p_k, p_p = dgcnn_kernels(rm)
+    names = [kernel_name(fn, tag, rm) for fn in (f_k, r_k, p_k)]
+    view = as_cm if rm else (lambda out: out)
+    dim = -1 if rm else 1  # the channel axis
+    S1, V1 = eng.dims["conv1"]
+
+    def first(pts, kk, label, time_it):
+        f = eng.folded_first
+        kw = dict(S_out=S1, V_out=V1, k=kk)
+        bb, nn = pts.shape[:2]
+        ef, pm1 = edge_flops(0, 1, S1, V1, True)
+        cost = (knn_flops(bb, nn, 3) + bb * nn * kk * ef,
+                4.0 * bb * nn * (3 + S1 + 3 * V1 + 6 + kk), bb * nn * kk * pm1)
+        return compare_round(
+            rep, label, names[0],
+            lambda: f_k(pts, f, emit_wins=True, **kw),
+            lambda: f_p(pts, f, **kw), pts, time_it, cost, view)
+
+    def conv(src, e, name, kk, label, time_it):
+        S, V, S_out, V_out = e.rounds[name]
         kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=kk, binary=e.binary)
         f = e.folded[name]
-        bb, C, nn = src.shape
+        feats = src if rm else src.transpose(1, 2)
+        bb, nn, C = feats.shape
         ef, pm1 = edge_flops(S, V, S_out, V_out, binary=e.binary)
         cost = (knn_flops(bb, nn, C) + bb * nn * kk * ef,
                 4.0 * bb * nn * (C + S_out + 3 * V_out + 2 * S + kk),
                 bb * nn * kk * pm1)
         return compare_round(
-            rep, tag, "sv_round3",
-            lambda: kr.sv_round3(src, f, emit_wins=True, **kw),
-            lambda: kr.sv_round3_plain(src, f, **kw),
-            src.transpose(1, 2), time_it, cost)
+            rep, label, names[1],
+            lambda: r_k(src, f, emit_wins=True, **kw),
+            lambda: r_p(src, f, **kw), feats, time_it, cost, view)
 
     def gated(p, out):
-        return out[1] * se_gate(p, out[2]).repeat(1, 3)[:, :, None]
+        g = se_gate(p, out[2]).repeat(1, 3)
+        return out[1] * (g[:, None, :] if rm else g[:, :, None])
+
+    def point(src5, g5, label, time_it):
+        kw = dict(S=eng.S_c, V=eng.V_c, S_out=eng.S5, V_out=eng.V5,
+                  binary=True)
+        if not rm:
+            kw["v_off"] = eng.v_off
+        fp_ = eng.folded_point
+
+        def kern():
+            return p_k(src5, g5, fp_, **kw)
+
+        def plain():
+            return p_p(src5, g5, fp_, **kw)
+
+        ko, pl = kern(), plain()
+        sync(dev)
+        x_k, x_p = (ko[0].transpose(1, 2), pl[0].transpose(1, 2)) if rm else (
+            ko[0], pl[0])
+        err = max(check_close(f"{label} x", x_k, x_p),
+                  check_close(f"{label} s5_max", ko[1], pl[1]),
+                  check_close(f"{label} v5_mean", ko[2], pl[2]))
+        same = [bool(torch.equal(g, w)) for g, w in zip(ko, pl)]
+        ms = plain_ms = None
+        if time_it:
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        bb = src5.shape[0]
+        nn = src5.shape[1] if rm else src5.shape[2]
+        S, V, S5, V5 = eng.S_c, eng.V_c, eng.S5, eng.V5
+        # linear1 takes signs by signs; the rest is real-valued
+        per_point = (2.0 * 3 * V * V5 + 9 * V * 2 + 3 * V * 5 + 9 * V5 * 2
+                     + 3 * V5 * 5 + 6 * S5 + 14 * V5)
+        cost = bound(bb * nn * per_point,
+                     4.0 * bb * nn * (S + 3 * V + S5 + 3 * V5),
+                     bb * nn * 2.0 * (S + 3 * V) * S5)
+        log(f"  {label}: max abs err {err:.3g}; bitwise x, s5_max, v5_mean "
+            f"{same}; kernel {ms} ms, plain {plain_ms} ms, bound {cost}")
+        rep.add(names[2], err, ms, plain_ms, cost if time_it else None)
 
     # main shapes, inputs chained through the plain versions
+    trunk = f"{tag} {eng.rounds_impl}"
     pts = cloud(b, n, gen, dev)
-    po = first(pts, k, f"sv_round3_first B={b} N={n} k={k}", time_it)
+    po = first(pts, k, f"{names[0]} B={b} N={n} k={k}", True)
     outs = [(po[0], gated(eng.p["conv1"], po))]
-    for name in ROUNDS:
-        src = torch.cat(outs[-1], dim=1).contiguous()
-        po = conv(src, eng, name, k, f"sv_round3 {name} binary", time_it)
-        conv(src, eng_fp, name, k, f"sv_round3 {name} fp", False)
+    for name in eng.rounds:
+        src = torch.cat(outs[-1], dim=dim).contiguous()
+        po = conv(src, eng, name, k, f"{names[1]} {name} binary", True)
+        conv(src, eng_fp, name, k, f"{names[1]} {name} fp", False)
         outs.append((po[0], gated(eng.p[name], po)))
-    s_cm = torch.cat([o[0] for o in outs], dim=1)
-    v_cm = torch.cat([o[1] for o in outs], dim=1)
-    src5 = torch.cat([s_cm, v_cm], dim=1).contiguous()
-    g5 = se_gate(eng.p["conv5"], s_cm.mean(dim=2)).contiguous()
-    kw = dict(S=256, V=83, S_out=512, V_out=170, v_off=POINT_V_OFF,
-              binary=True)
-    fp_ = eng.folded_point
+    s = torch.cat([o[0] for o in outs], dim=dim)
+    if rm:
+        v = torch.cat([o[1].reshape(b, n, 3, -1) for o in outs], dim=-1)
+        src5 = torch.cat([s, v.flatten(2)], dim=-1).contiguous()
+        g5 = se_gate(eng.p["conv5"], s.transpose(1, 2).contiguous().mean(dim=2))
+    else:
+        v = torch.cat([o[1] for o in outs], dim=1)
+        src5 = torch.cat([s, v], dim=1).contiguous()
+        g5 = se_gate(eng.p["conv5"], s.mean(dim=2))
+    point(src5, g5.contiguous(), f"{p_k.__name__} {trunk} B={b} N={n}", True)
 
-    def kern():
-        return kp.sv_point_block_cm(src5, g5, fp_, **kw)
-
-    def plain():
-        return kp.sv_point_block_cm_plain(src5, g5, fp_, **kw)
-
-    ko, pl = kern(), plain()
-    sync(dev)
-    err = max(check_close("sv_point_block_cm x", ko[0], pl[0]),
-              check_close("sv_point_block_cm s5_max", ko[1], pl[1]),
-              check_close("sv_point_block_cm v5_mean", ko[2], pl[2]))
-    ms = plain_ms = None
-    if time_it:
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-    log(f"  sv_point_block_cm B={b} N={n}: max abs err {err:.3g}; "
-        f"kernel {ms} ms, plain {plain_ms} ms")  # bound: see the kernels line
-    # linear1 (505 x 512) takes signs by signs; the rest is real-valued
-    per_point = (2.0 * 3 * 83 * 170 + 9 * 83 * 2 + 3 * 83 * 5
-                 + 9 * 170 * 2 + 3 * 170 * 5 + 6 * 512 + 14 * 170)
-    rep.add("sv_point_block_cm", err, ms, plain_ms,
-            bound(b * n * per_point, 4.0 * b * n * (505 + 1022),
-                  b * n * 2.0 * 505 * 512))
-
-    # ragged: N and k divide no tile
-    n_r = n - 24
-    pts = cloud(8, n_r, gen, dev)
-    po = first(pts, 7, f"sv_round3_first ragged B=8 N={n_r} k=7", False)
-    src = torch.cat([po[0], gated(eng.p["conv1"], po)], dim=1).contiguous()
-    conv(src, eng, "conv2", 7, f"sv_round3 conv2 ragged B=8 N={n_r} k=7",
+    # ragged: N and k divide no tile, N no block of the point kernel
+    b_r, n_r = 8, N_RAGGED
+    pts = cloud(b_r, n_r, gen, dev)
+    po = first(pts, 7, f"{names[0]} ragged B={b_r} N={n_r} k=7", False)
+    src = torch.cat([po[0], gated(eng.p["conv1"], po)], dim=dim).contiguous()
+    conv(src, eng, "conv2", 7, f"{names[1]} conv2 ragged B={b_r} N={n_r} k=7",
          False)
+    C5 = eng.S_c + 3 * eng.V_c
+    src5 = torch.randn(b_r, n_r, C5, generator=gen).to(dev)
+    if not rm:
+        src5 = src5.transpose(1, 2).contiguous()
+    g5 = torch.rand(b_r, eng.V5, generator=gen).to(dev)
+    point(src5, g5, f"{p_k.__name__} {trunk} ragged B={b_r} N={n_r}", False)
 
 
 def check_equal(tag, got, want):
@@ -487,7 +569,7 @@ def serve(tag, eng, oracle, requests, counters, want_per, card):
 
     eng(*requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
-    tap = Tap(eng)
+    tap = Tap(eng) if hasattr(eng, "_block") else None
     for fn in counters:
         fn.launches = 0
     outs, lat = [], []
@@ -505,7 +587,10 @@ def serve(tag, eng, oracle, requests, counters, want_per, card):
         if per != want:
             raise AssertionError(f"{tag}: launches per request {per} != {want}")
         outs.append(out)
-    tap.close()
+    tally = {}
+    if tap is not None:
+        tap.close()
+        tally = tap.launches
     launches = {fn.__name__: fn.launches for fn in counters}
     want, plain_lat = [], []
     for req in requests:
@@ -516,13 +601,13 @@ def serve(tag, eng, oracle, requests, counters, want_per, card):
         e1.record()
         torch.cuda.synchronize()
         plain_lat.append(e0.elapsed_time(e1))
-    log(f"{tag}: {REQUESTS} requests of {tuple(requests[0][0].shape)}; launches "
-        f"{ {n: c for n, c in launches.items() if c} }; B8 launches by widths "
-        f"{tap.launches}")
+    log(f"{tag}: {len(requests)} requests of {tuple(requests[0][0].shape)}; "
+        f"launches { {n: c for n, c in launches.items() if c} }"
+        + (f"; B8 launches by widths {tally}" if tap is not None else ""))
     log(f"{tag}: latency per request (CUDA events, ms) kernels "
         f"{[round(t, 3) for t in lat]} median {sorted(lat)[len(lat) // 2]:.3f}; "
         f"plain {[round(t, 3) for t in plain_lat]} | {card}")
-    return torch.cat(outs), torch.cat(want), tap.launches, launches
+    return torch.cat(outs), torch.cat(want), tally, launches
 
 
 def phase7(pn, gen, dev, counters, card):
@@ -577,6 +662,129 @@ def phase8(pn, gen, dev, counters, card):
     return tally, launches
 
 
+def dgcnn_engines(dev, w_bin, w_fp):
+    """The SV-DGCNN engines of phases 2, 12 and 13 besides phase 3's:
+    partseg on seeded weights, both trunks, binary with kernels and plain
+    and FP with kernels; the classifier's round2 trunk on phase 3's
+    weights."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+
+    p_bin = init_params_pseg(PARTS, K_PSEG, True,
+                             torch.Generator().manual_seed(SEED + 12))
+    p_fp = init_params_pseg(PARTS, K_PSEG, False,
+                            torch.Generator().manual_seed(SEED + 13))
+    out = {}
+    for impl in ("round3", "round2"):
+        out[f"pseg {impl}"] = {
+            "kernel": SVDGCNNPsegEngine(p_bin, PARTS, K_PSEG, True, device=dev,
+                                        rounds_impl=impl),
+            "oracle": SVDGCNNPsegEngine(p_bin, PARTS, K_PSEG, True, device=dev,
+                                        rounds_impl=impl, oracle=True),
+            "kernel_fp": SVDGCNNPsegEngine(p_fp, PARTS, K_PSEG, False,
+                                           device=dev, rounds_impl=impl)}
+    out["cls round2"] = {
+        "kernel": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
+                                   rounds_impl="round2"),
+        "oracle": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
+                                   rounds_impl="round2", oracle=True),
+        "kernel_fp": SVDGCNNClsEngine(w_fp, CLASSES, K, False, device=dev,
+                                      rounds_impl="round2")}
+    return out
+
+
+def labels(b, gen, dev):
+    """Seeded one-hot object categories (B, 16)."""
+    import torch
+
+    cat = torch.randint(0, 16, (b,), generator=gen)
+    return torch.nn.functional.one_hot(cat, 16).float().to(dev)
+
+
+def agreement(tag, got, want):
+    """Top-1 agreement over the last axis (clouds or points), required
+    >= 0.99; returns it."""
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"{tag}: top-1 agreement {top1:.6f}; max |dlogit| "
+        f"{(got - want).abs().max().item():.4g} (logit scale "
+        f"{want.abs().max().item():.4g}); bitwise {bool(torch_equal(got, want))}")
+    if top1 < 0.99:
+        raise AssertionError(f"{tag}: top-1 agreement {top1} < 0.99")
+    return top1
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def phase12(dg, gen, dev, counters, card):
+    """SV-DGCNN part segmentation serving through the round3 trunk."""
+    import torch
+
+    from svnet_tpu_torch.ops import rotations
+
+    engs = dg["pseg round3"]
+    requests = [(cloud(B_PSEG, N_PSEG, gen, dev), labels(B_PSEG, gen, dev))
+                for _ in range(REQUESTS)]
+    got, want, _, launches = serve(
+        "phase 12", engs["kernel"], engs["oracle"], requests, counters,
+        {"sv_round3_first": 1, "sv_round3": 3, "sv_point_block_cm": 1}, card)
+    if (got.shape != (REQUESTS * B_PSEG, N_PSEG, PARTS)
+            or not bool(torch.isfinite(got).all())):
+        raise AssertionError(f"phase 12: logits {tuple(got.shape)} not finite")
+    agreement("phase 12: per-point, vs the plain engine", got, want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    engs["kernel"](*requests[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"phase 12: peak device memory of a request {peak / 2**30:.3f} GiB "
+        "above the engine's weights")
+    pts, lab = cloud(4, N_PSEG, gen, dev), labels(4, gen, dev)
+    rot = rotations.random_rotations(4, gen).to(dev)
+    out = engs["kernel_fp"](pts, lab)
+    out_r = engs["kernel_fp"](rotations.rotate_points(pts, rot), lab)
+    log(f"phase 12: SO(3) invariance (FP engine, kernels): max |dlogit| "
+        f"{(out_r - out).abs().max().item():.3g} (logit scale "
+        f"{out.abs().max().item():.3g})")
+    if not torch.allclose(out_r, out, rtol=2e-2, atol=2e-3):
+        raise AssertionError("phase 12: logits not rotation invariant")
+    return launches, peak
+
+
+def phase13(dg, eng3, gen, dev, counters, card):
+    """The round2 trunk of both SV-DGCNN engines at their full shapes:
+    against its plain twin and against the round3 engine on the same
+    weights (the same function, the same arithmetic)."""
+    import torch
+
+    want_per = {"sv_round2_first": 1, "sv_round2": 3, "sv_point_block": 1}
+    out = {}
+    for tag, shape, round3 in (
+            ("cls", (B, N), eng3),
+            ("pseg", (B_PSEG, N_PSEG), dg["pseg round3"]["kernel"])):
+        engs = dg[f"{tag} round2"]
+        b, n = shape
+        requests = [(cloud(b, n, gen, dev),) + (
+            (labels(b, gen, dev),) if tag == "pseg" else ())
+            for _ in range(REQUESTS)]
+        got, want, _, launches = serve(
+            f"phase 13 {tag}", engs["kernel"], engs["oracle"], requests,
+            counters, want_per, card)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"phase 13 {tag}: logits not finite")
+        agreement(f"phase 13 {tag}: round2 vs its plain engine", got, want)
+        r3 = torch.cat([round3(*req) for req in requests])
+        agreement(f"phase 13 {tag}: round2 vs the round3 engine", got, r3)
+        out[tag] = launches
+    return out
+
+
 def pointnet_engines(dev):
     """The SV-PointNet engines of phases 2, 7 and 8, on seeded weights:
     binary with kernels and plain, FP with kernels and plain, per task."""
@@ -585,11 +793,7 @@ def pointnet_engines(dev):
     from svnet_tpu_torch.infer import SVPointNetClsEngine, SVPointNetPsegEngine
     from svnet_tpu_torch.models import sv_pointnet
 
-    def labels(b, gen):
-        cat = torch.randint(0, 16, (b,), generator=gen)
-        return torch.nn.functional.one_hot(cat, 16).float().to(dev)
-
-    out = {"labels": labels}
+    out = {"labels": lambda b, gen: labels(b, gen, dev)}
     for tag, engine, init, args in (
             ("cls", SVPointNetClsEngine, sv_pointnet.init_params, (CLASSES, K)),
             ("pseg", SVPointNetPsegEngine, sv_pointnet.init_params_pseg,
@@ -1066,6 +1270,7 @@ def main() -> int:
     from svnet_tpu_torch.ops.kernels import sv_block_point as kb
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
     from svnet_tpu_torch.ops.kernels import sv_point as kp
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
     from svnet_tpu_torch.ops.kernels import sv_round3_train as krt
     from svnet_tpu_torch.train.steps import tree_map
@@ -1095,10 +1300,17 @@ def main() -> int:
     oracle = SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
                               oracle=True)
 
+    dg = dgcnn_engines(dev, w_bin, w_fp)
+
     # phase 2
     log("phase 2: kernels vs plain versions")
     rep = Report()
-    phase2(rep, eng, eng_fp, gen, dev)
+    phase2(rep, "cls", eng, eng_fp, gen, dev, B, N, K)
+    for name, (b, n, k) in (("cls round2", (B, N, K)),
+                            ("pseg round3", (B_PSEG, N_PSEG, K_PSEG)),
+                            ("pseg round2", (B_PSEG, N_PSEG, K_PSEG))):
+        phase2(rep, name.split()[0], dg[name]["kernel"], dg[name]["kernel_fp"],
+               gen, dev, b, n, k)
     p_bin = tree_map(lambda t: t.to(dev), w_bin["params"])
     p_fp = tree_map(lambda t: t.to(dev), w_fp["params"])
     phase2_train(rep, p_bin, p_fp, gen, dev)
@@ -1112,7 +1324,8 @@ def main() -> int:
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
                 kf.sv_first_train_fwd, kf.sv_first_train_bwd,
                 krt.sv_round3_train_fwd, krt.sv_round3_train_bwd,
-                kb.sv_block_point, eg.edge_gather_fwd, eg.edge_gather_bwd)
+                kb.sv_block_point, eg.edge_gather_fwd, eg.edge_gather_bwd,
+                k2.sv_round2_first, k2.sv_round2, kp.sv_point_block)
     requests = [cloud(B, N, gen, dev) for _ in range(REQUESTS)]
     eng(requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -1129,9 +1342,10 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(e0.elapsed_time(e1))
         per = [fn.launches - b0 for fn, b0 in zip(counters, before)]
-        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0]:
+        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]:
             raise AssertionError(f"phase 3: launches per request {per} != "
-                                 "[1, 3, 1] serving, 0 training, 0 B8, 0 B7")
+                                 "[1, 3, 1] serving, 0 training, 0 B8, 0 B7, "
+                                 "0 round2")
         logits.append(out)
     launches = {fn.__name__: fn.launches for fn in counters}
     got = torch.cat(logits)
@@ -1191,6 +1405,16 @@ def main() -> int:
     dg_launches, dg_step_ms = phase11(dev, gen, counters, loader, card)
     launches["edge_gather_bwd"] = dg_launches["edge_gather_bwd"]
 
+    # phase 12: SV-DGCNN part segmentation serving (round3)
+    pseg_launches, pseg_peak = phase12(dg, gen, dev, counters, card)
+    for fn in (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm):
+        launches[kernel_name(fn, "pseg", False)] = pseg_launches[fn.__name__]
+
+    # phase 13: the round2 trunks of both SV-DGCNN engines
+    for tag, r2_launches in phase13(dg, eng, gen, dev, counters, card).items():
+        for fn in (k2.sv_round2_first, k2.sv_round2, kp.sv_point_block):
+            launches[kernel_name(fn, tag, True)] = r2_launches[fn.__name__]
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -1211,6 +1435,16 @@ def main() -> int:
                                   "svnet_tpu/ops/pallas/edge_gather.py:92"),
               "edge_gather_bwd": ("svnet_tpu_torch/csrc/edge_gather.cu",
                                   "svnet_tpu/ops/pallas/edge_gather.py:92")}
+    for tag in ("cls", "pseg"):
+        src_of[f"sv_round2_first {tag}"] = (
+            "svnet_tpu_torch/csrc/sv_round2.cu",
+            "svnet_tpu/ops/pallas/sv_round2.py:564")
+        src_of[f"sv_round2 {tag}"] = ("svnet_tpu_torch/csrc/sv_round2.cu",
+                                      "svnet_tpu/ops/pallas/sv_round2.py:378")
+        src_of[f"sv_point_block {tag}"] = ("svnet_tpu_torch/csrc/sv_point.cu",
+                                           "svnet_tpu/ops/pallas/sv_point.py:274")
+    for name in ("sv_round3_first", "sv_round3", "sv_point_block_cm"):
+        src_of[f"{name} pseg"] = src_of[name]
     for name in rep.ms:
         if name.startswith("sv_round3_first cross"):
             src_of[name] = src_of["sv_round3_first"]
@@ -1241,7 +1475,8 @@ def main() -> int:
     log(f"train step median {step_ms:.3f} ms (B={B_TRAIN}, N={N}, k={K}), peak "
         f"device memory {peak / 2**30:.3f} GiB; SV-PointNet train step median "
         f"{pn_step_ms:.3f} ms, peak {pn_peak / 2**30:.3f} GiB; un-fused SV-DGCNN "
-        f"train step median {dg_step_ms:.3f} ms")
+        f"train step median {dg_step_ms:.3f} ms; SV-DGCNN partseg request peak "
+        f"{pseg_peak / 2**30:.3f} GiB")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

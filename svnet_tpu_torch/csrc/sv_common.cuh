@@ -1,6 +1,8 @@
-// Shared device code of the exact-mode round kernels (sv_round3_first.cu,
-// sv_round3.cu) and the point block (sv_point.cu): the exact-mode kNN
-// selection kernel, a shared-memory block GEMM, and small helpers.
+// Shared device code of the exact-mode round kernels (sv_rounds.cuh, for
+// sv_round3_first.cu, sv_round3.cu and sv_round2.cu) and the point block
+// (sv_point.cu): the exact-mode kNN selection kernel over a channel-major
+// (B, C, N) or a row-major (B, N, C) source, a shared-memory block GEMM,
+// and small helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,18 +72,21 @@ static __device__ __forceinline__ sv_u64 sv_warp_max_u64(sv_u64 v) {
 static __host__ __device__ inline size_t sv_align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // aa[b*N + m] = sum_c x[b, c, m]^2 over a channel-major (B, C, N) source,
-// summed in channel order with the rounding of the selection's inner
-// products, so that every self-distance is exactly 0.
+// or sum_c x[b, m, c]^2 over a row-major (B, N, C) one, summed in channel
+// order with the rounding of the selection's inner products, so that every
+// self-distance is exactly 0.
+template <bool ROW>
 static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
                                         float* __restrict__ aa, int B, int N,
                                         int C) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * N) return;
   const long long b = i / N, m = i % N;
-  const float* p = x + b * C * (long long)N + m;
+  const float* p = ROW ? x + i * C : x + b * C * (long long)N + m;
+  const long long stride = ROW ? 1 : N;
   float acc = 0.f;
   for (int c = 0; c < C; ++c) {
-    const float v = p[(long long)c * N];
+    const float v = p[(long long)c * stride];
     acc = __fadd_rn(acc, __fmul_rn(v, v));
   }
   aa[i] = acc;
@@ -91,35 +96,49 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
 // exact-mode kNN selection
 // ---------------------------------------------------------------------------
 // One warp owns SEL_TPW centre points. It computes their keys against all N
-// candidates (each candidate's channel column loaded once for the SEL_TPW
+// candidates (each candidate's features loaded once for the SEL_TPW
 // centres) into shared memory, then extracts the k largest (key, row) pairs
 // rank by rank: each lane keeps the best of its own candidates
 // (m = lane mod 32), a warp max picks the winner, and only the winner's
 // lane rescans. Winners go to wins (B, k, N), rank-major like the JAX
-// kernel's emit_wins output.
+// kernel's emit_wins output, or (B, N, k) point-major.
+//
+// Channel-major source: lane m reads candidate m's channel c at x[c*N + m],
+// consecutive lanes on consecutive addresses. Row-major source
+// (ROW, the legacy round2 trunk): a candidate is one contiguous row, so
+// the block stages 32 candidate rows at a time in shared memory with
+// coalesced loads (row stride C | 1, odd, so that the 32 lanes reading
+// channel c of their own rows hit 32 banks) and lane m reads its row
+// there. The arithmetic is the same in both layouts: equal keys, equal ids.
 #define SEL_WARPS 4
 #define SEL_TPW 4
 #define SEL_TP (SEL_WARPS * SEL_TPW)
 
-static size_t sv_select_smem(int N, int C) {
+static size_t sv_select_smem(int N, int C, bool row_major = false) {
   return sv_align16((size_t)SEL_TP * C * sizeof(float)) +
-         (size_t)SEL_TP * N * sizeof(unsigned);
+         sv_align16((size_t)SEL_TP * N * sizeof(unsigned)) +
+         (row_major ? (size_t)32 * (C | 1) * sizeof(float) : 0);
 }
 
+template <bool ROW>
 static __global__ void __launch_bounds__(SEL_WARPS * 32)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
                      int N, int C, int k, int rs, int ps) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
   float* ctr = (float*)sv_smem;  // (SEL_TP, C)
-  unsigned* keys =
-      (unsigned*)(sv_smem + sv_align16((size_t)SEL_TP * C * sizeof(float)));
+  const size_t ctr_bytes = sv_align16((size_t)SEL_TP * C * sizeof(float));
+  unsigned* keys = (unsigned*)(sv_smem + ctr_bytes);
+  // ROW: 32 candidate rows at stride CP
+  float* tile = (float*)(sv_smem + ctr_bytes +
+                         sv_align16((size_t)SEL_TP * N * sizeof(unsigned)));
+  const int CP = C | 1;
   const int b = blockIdx.y, n0 = blockIdx.x * SEL_TP;
   const float* x = src + (size_t)b * C * N;
   const float* a = aa + (size_t)b * N;
   for (int i = threadIdx.x; i < SEL_TP * C; i += blockDim.x) {
     const int t = i / C, c = i % C, n = n0 + t;
-    ctr[i] = n < N ? x[(size_t)c * N + n] : 0.f;
+    ctr[i] = n < N ? (ROW ? x[(size_t)n * C + c] : x[(size_t)c * N + n]) : 0.f;
   }
   __syncthreads();
 
@@ -132,20 +151,31 @@ sv_knn_select_kernel(const float* __restrict__ src,
     const int n = n0 + t0 + t;
     tt[t] = n < N ? a[n] : 0.f;
   }
-  for (int m = lane; m < N; m += 32) {
-    float acc[SEL_TPW];
+  // block-uniform trip count: ROW synchronises the block around each tile
+  for (int m0 = 0; m0 < N; m0 += 32) {
+    const int m = m0 + lane;
+    if constexpr (ROW) {
+      __syncthreads();  // the previous tile is consumed
+      const int rows = min(32, N - m0);
+      for (int i = threadIdx.x; i < rows * C; i += blockDim.x)
+        tile[(i / C) * CP + i % C] = x[(size_t)m0 * C + i];
+      __syncthreads();
+    }
+    if (m < N) {
+      float acc[SEL_TPW];
 #pragma unroll
-    for (int t = 0; t < SEL_TPW; ++t) acc[t] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float xv = x[(size_t)c * N + m];
+      for (int t = 0; t < SEL_TPW; ++t) acc[t] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float xv = ROW ? tile[lane * CP + c] : x[(size_t)c * N + m];
+#pragma unroll
+        for (int t = 0; t < SEL_TPW; ++t)
+          acc[t] = __fadd_rn(acc[t], __fmul_rn(xv, ctr[(t0 + t) * C + c]));
+      }
+      const float am = a[m];
 #pragma unroll
       for (int t = 0; t < SEL_TPW; ++t)
-        acc[t] = __fadd_rn(acc[t], __fmul_rn(xv, ctr[(t0 + t) * C + c]));
+        wk[(size_t)t * N + m] = sv_ukey(sv_neg_dist(acc[t], tt[t], am));
     }
-    const float am = a[m];
-#pragma unroll
-    for (int t = 0; t < SEL_TPW; ++t)
-      wk[(size_t)t * N + m] = sv_ukey(sv_neg_dist(acc[t], tt[t], am));
   }
   __syncwarp();
 
@@ -174,27 +204,37 @@ sv_knn_select_kernel(const float* __restrict__ src,
   }
 }
 
-// Squared norms + selection for a channel-major (B, C, N) source. aa is a
-// (B, N) scratch buffer the wrapper allocated. wins is (B, k, N), or
-// (B, N, k) when point_major.
-static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
-                                 int B, int N, int C, int k,
-                                 cudaStream_t stream, bool point_major = false) {
-  const size_t smem = sv_select_smem(N, C);
+template <bool ROW>
+static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
+                                   int B, int N, int C, int k,
+                                   cudaStream_t stream, bool point_major) {
+  const size_t smem = sv_select_smem(N, C, ROW);
   if (smem > SV_SMEM_LIMIT || k > N || k < 1) return cudaErrorInvalidValue;
   const long long BN = (long long)B * N;
-  sv_sqnorm_kernel<<<(unsigned)((BN + 255) / 256), 256, 0, stream>>>(
+  sv_sqnorm_kernel<ROW><<<(unsigned)((BN + 255) / 256), 256, 0, stream>>>(
       src, aa, B, N, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sv_knn_select_kernel,
+  err = cudaFuncSetAttribute(sv_knn_select_kernel<ROW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TP - 1) / SEL_TP, B);
-  sv_knn_select_kernel<<<grid, SEL_WARPS * 32, smem, stream>>>(
+  sv_knn_select_kernel<ROW><<<grid, SEL_WARPS * 32, smem, stream>>>(
       src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1);
   return cudaGetLastError();
+}
+
+// Squared norms + selection for a channel-major (B, C, N) source, or a
+// row-major (B, N, C) one when row_major. aa is a (B, N) scratch buffer the
+// wrapper allocated. wins is (B, k, N), or (B, N, k) when point_major.
+static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
+                                 int B, int N, int C, int k,
+                                 cudaStream_t stream, bool point_major = false,
+                                 bool row_major = false) {
+  return row_major
+             ? sv_knn_select_t<true>(src, aa, wins, B, N, C, k, stream, point_major)
+             : sv_knn_select_t<false>(src, aa, wins, B, N, C, k, stream, point_major);
 }
 
 // ---------------------------------------------------------------------------

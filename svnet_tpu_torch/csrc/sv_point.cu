@@ -1,8 +1,9 @@
 // Per-point tail of SV-DGCNN on Hopper: the gated conv5 SVBlock and the
-// SVFuse read-out, channel-major.
+// SVFuse read-out, channel-major (B3) or row-major (B3r).
 //
 // Replaces svnet_tpu/ops/pallas/sv_point.py::sv_point_block_cm (kernel
-// _point_kernel_cm): Vector2Scalar on the trunk's per-round j-major vector
+// _point_kernel_cm) and, with ROW, ::sv_point_block (_point_kernel, the
+// legacy row-major trunks' tail): Vector2Scalar on the trunk's per-round j-major vector
 // blocks (read through a row map, the v_off contract), sign(x + beta) +-1
 // or FP linear1 + BN + leaky, linear2*scale2 + VectorBN times the gate,
 // and SVFuse's invariants emitted j-major, plus per-block partial maxima
@@ -13,8 +14,11 @@
 // N = 1024. A block stages PT_P points' inputs in shared memory and runs
 // linear1 and linear2 as register-tiled block GEMMs, so each weight value
 // read from L1/L2 serves four points; every other stage is a few hundred
-// operations per point. Outputs are written with consecutive threads on
-// consecutive points (coalesced in the channel-major layout).
+// operations per point. Channel-major outputs are written with
+// consecutive threads on consecutive points; row-major ones (ROW) with
+// consecutive threads on consecutive channels of a point's row, which is
+// also how ROW reads its input rows. Both layouts do the same arithmetic,
+// bit for bit.
 #include "sv_common.cuh"
 
 #define PT_P 16  // points per block
@@ -38,6 +42,7 @@ static PtSmem pt_layout(int S, int V, int S_out, int V_out) {
   return L;
 }
 
+template <bool ROW>
 static __global__ void __launch_bounds__(PT_THREADS)
 sv_point_kernel(
     const float* __restrict__ src, const float* __restrict__ gate,
@@ -63,15 +68,27 @@ sv_point_kernel(
   const int np = min(PT_P, N - n0);
   const float* x = src + (size_t)b * Cin * N;
 
-  for (int i = tid; i < PT_P * S; i += nth) {
-    const int ch = i / PT_P, p = i % PT_P;
-    X[(size_t)p * IN + ch] = p < np ? x[(size_t)ch * N + n0 + p] : 0.f;
-  }
-  for (int i = tid; i < PT_P * 3 * V; i += nth) {
-    const int q = i / PT_P, p = i % PT_P;  // q = i3*V + c
-    const int i3 = q / V, c = q % V;
-    VV[((size_t)p * 3 + i3) * V + c] =
-        p < np ? x[(size_t)vrow[q] * N + n0 + p] : 0.f;
+  if constexpr (ROW) {  // [s | v i-major] rows of Cin channels
+    for (int i = tid; i < PT_P * S; i += nth) {
+      const int p = i / S, ch = i % S;
+      X[(size_t)p * IN + ch] = p < np ? x[(size_t)(n0 + p) * Cin + ch] : 0.f;
+    }
+    for (int i = tid; i < PT_P * 3 * V; i += nth) {
+      const int p = i / (3 * V), q = i % (3 * V);  // q = i3*V + c
+      VV[(size_t)p * 3 * V + q] =
+          p < np ? x[(size_t)(n0 + p) * Cin + S + q] : 0.f;
+    }
+  } else {
+    for (int i = tid; i < PT_P * S; i += nth) {
+      const int ch = i / PT_P, p = i % PT_P;
+      X[(size_t)p * IN + ch] = p < np ? x[(size_t)ch * N + n0 + p] : 0.f;
+    }
+    for (int i = tid; i < PT_P * 3 * V; i += nth) {
+      const int q = i / PT_P, p = i % PT_P;  // q = i3*V + c
+      const int i3 = q / V, c = q % V;
+      VV[((size_t)p * 3 + i3) * V + c] =
+          p < np ? x[(size_t)vrow[q] * N + n0 + p] : 0.f;
+    }
   }
   __syncthreads();
   for (int i = tid; i < PT_P * 9; i += nth) {
@@ -123,18 +140,24 @@ sv_point_kernel(
   }
   __syncthreads();
 
-  float* xo = x_out + (size_t)b * Cout * N + n0;
+  // x column ch of block point p
+  float* xo = x_out + (size_t)b * Cout * N + (ROW ? (size_t)n0 * Cout : n0);
+  auto xat = [&](int p, int ch) -> float& {
+    return ROW ? xo[(size_t)p * Cout + ch] : xo[(size_t)ch * N + p];
+  };
   for (int i = tid; i < PT_P * S_out; i += nth) {
-    const int o = i / PT_P, p = i % PT_P;
-    if (p < np) xo[(size_t)o * N + p] = Y[(size_t)p * S_out + o];
+    const int o = ROW ? i % S_out : i / PT_P, p = ROW ? i / S_out : i % PT_P;
+    if (p < np) xat(p, o) = Y[(size_t)p * S_out + o];
   }
   for (int i = tid; i < PT_P * 3 * V_out; i += nth) {
-    const int q = i / PT_P, p = i % PT_P;  // q = j*V_out + o
+    // q = j*V_out + o
+    const int q = ROW ? i % (3 * V_out) : i / PT_P;
+    const int p = ROW ? i / (3 * V_out) : i % PT_P;
     const int j = q / V_out, o = q % V_out;
     if (p >= np) continue;
     const float* v = WL + (size_t)p * 3 * V_out;
     const float* z = ZF + p * 9;
-    xo[(size_t)(S_out + q) * N + p] =
+    xat(p, S_out + q) =
         v[o] * z[j] + v[V_out + o] * z[3 + j] + v[2 * V_out + o] * z[6 + j];
   }
   const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
@@ -151,6 +174,27 @@ sv_point_kernel(
   }
 }
 
+template <bool ROW>
+static int sv_point(const float* src, const float* gate, const int* vrow,
+                    const float* wz, const float* w1, const float* beta,
+                    const float* a1, const float* b1, const float* w2,
+                    const float* scale2, const float* a2, const float* b2,
+                    const float* wzf, float* x_out, float* smax, float* vsum,
+                    int B, int N, int S, int V, int S_out, int V_out,
+                    int binary, void* stream) {
+  const PtSmem L = pt_layout(S, V, S_out, V_out);
+  if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sv_point_kernel<ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + PT_P - 1) / PT_P, B);
+  sv_point_kernel<ROW><<<grid, PT_THREADS, L.total, (cudaStream_t)stream>>>(
+      src, gate, vrow, wz, w1, beta, a1, b1, w2, scale2, a2, b2, wzf, x_out,
+      smax, vsum, L, N, S, V, S_out, V_out, binary);
+  return (int)cudaGetLastError();
+}
+
 // src (B, S+3V, N) channel-major; gate (B, V_out); vrow (3V,) int32: the
 // src row of vector component i, reference channel c at vrow[i*V + c];
 // folded weights as the JAX fold gives them (wz (V, 3), w1 (S+3V, S_out),
@@ -162,15 +206,21 @@ extern "C" int sv_point_launch(
     const float* w2, const float* scale2, const float* a2, const float* b2,
     const float* wzf, float* x_out, float* smax, float* vsum, int B, int N,
     int S, int V, int S_out, int V_out, int binary, void* stream) {
-  const PtSmem L = pt_layout(S, V, S_out, V_out);
-  if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sv_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + PT_P - 1) / PT_P, B);
-  sv_point_kernel<<<grid, PT_THREADS, L.total, (cudaStream_t)stream>>>(
-      src, gate, vrow, wz, w1, beta, a1, b1, w2, scale2, a2, b2, wzf, x_out,
-      smax, vsum, L, N, S, V, S_out, V_out, binary);
-  return (int)cudaGetLastError();
+  return sv_point<false>(src, gate, vrow, wz, w1, beta, a1, b1, w2, scale2,
+                         a2, b2, wzf, x_out, smax, vsum, B, N, S, V, S_out,
+                         V_out, binary, stream);
+}
+
+// Row-major: src (B, N, S+3V) [s | v flat i-major, column S + i*V + c];
+// x_out (B, N, S_out+3V_out), SVFuse's columns j-major; the rest as
+// sv_point_launch.
+extern "C" int sv_point_rm_launch(
+    const float* src, const float* gate, const float* wz, const float* w1,
+    const float* beta, const float* a1, const float* b1, const float* w2,
+    const float* scale2, const float* a2, const float* b2, const float* wzf,
+    float* x_out, float* smax, float* vsum, int B, int N, int S, int V,
+    int S_out, int V_out, int binary, void* stream) {
+  return sv_point<true>(src, gate, nullptr, wz, w1, beta, a1, b1, w2, scale2,
+                        a2, b2, wzf, x_out, smax, vsum, B, N, S, V, S_out,
+                        V_out, binary, stream);
 }

@@ -1,11 +1,21 @@
-"""Fused eval engines, exact mode: SV-DGCNN classification (counterpart of
-svnet_tpu/infer.py:227-412, the round3 path) and SV-PointNet
+"""Fused eval engines, exact mode: SV-DGCNN classification and part
+segmentation (counterparts of svnet_tpu/infer.py:227-855) and SV-PointNet
 classification and part segmentation (svnet_tpu/infer.py:857-1167).
 
-SVDGCNNClsEngine keeps activations channel-major (B, C, N) between rounds:
+The SV-DGCNN engines run one of two trunks, chosen by ``rounds_impl``:
 
+  "round3" (the default) keeps activations channel-major (B, C, N):
   sv_round3_first -> gate -> sv_round3 x3 (conv2..conv4, gate after each)
-  -> sv_point_block_cm (conv5 + SVFuse) -> max+mean pool -> head
+  -> sv_point_block_cm (conv5 + SVFuse)
+  "round2", the legacy row-major trunk, keeps them (B, N, C):
+  sv_round2_first -> gate -> sv_round2 x3 -> sv_point_block
+
+then the head: classification pools max+mean over the points into the MLP
+head; part segmentation adds the fine per-point features (svfuse1), the
+pooled token (conv6 + svfuse2), the max of the embedding and the label
+branch, and runs the pointwise conv8-conv11 head. The two trunks compute
+the same function with the same arithmetic: on the same weights their
+kernels' outputs agree bitwise.
 
 The SV-PointNet engines run row-major (B, N, C) after the first round:
 
@@ -28,11 +38,14 @@ import torch
 from svnet_tpu_torch import config, ops
 from svnet_tpu_torch.config import BN_EPS, EPS
 from svnet_tpu_torch.nn.sv_layers import binary_matmul
+from svnet_tpu_torch.models.sv_dgcnn import PSEG_DIMS
 from svnet_tpu_torch.ops.kernels.fold import (
     fold_first_params,
     fold_point_like_params,
     fold_point_params,
     fold_svblock_params,
+    fuse3_perm,
+    head8_rows,
     head_perm,
 )
 from svnet_tpu_torch.ops.kernels.sv_block_point import (
@@ -40,8 +53,16 @@ from svnet_tpu_torch.ops.kernels.sv_block_point import (
     sv_block_point_plain,
 )
 from svnet_tpu_torch.ops.kernels.sv_point import (
+    sv_point_block,
     sv_point_block_cm,
     sv_point_block_cm_plain,
+    sv_point_block_plain,
+)
+from svnet_tpu_torch.ops.kernels.sv_round2 import (
+    sv_round2,
+    sv_round2_first,
+    sv_round2_first_plain,
+    sv_round2_plain,
 )
 from svnet_tpu_torch.ops.kernels.sv_round3 import (
     sv_round3,
@@ -50,25 +71,50 @@ from svnet_tpu_torch.ops.kernels.sv_round3 import (
     sv_round3_plain,
 )
 
-# (S_in, V_in, S_out, V_out) per fused conv round of SV_DGCNN_CLS
-ROUNDS = {
-    "conv2": (64 // 2, 64 // 6, 64 // 2, 64 // 6),
-    "conv3": (64 // 2, 64 // 6, 128 // 2, 128 // 6),
-    "conv4": (128 // 2, 128 // 6, 256 // 2, 256 // 6),
-}
+# (S, V) of the SV-DGCNN trunk's blocks conv1..conv4
+CLS_DIMS = {"conv1": (64 // 2, 64 // 6), "conv2": (64 // 2, 64 // 6),
+            "conv3": (128 // 2, 128 // 6), "conv4": (256 // 2, 256 // 6)}
+PSEG_TRUNK = {n: PSEG_DIMS[n] for n in CLS_DIMS}
 
 
-def _point_v_off() -> tuple:
-    """(row offset, V_r) of each round's j-major vector block in the
-    conv5 input [s (256) | v1 | v2 | v3 | v4]."""
-    v_off, o = [], 256
-    for Vr in (64 // 6, 64 // 6, 128 // 6, 256 // 6):
+def dgcnn_rounds(dims: dict) -> dict:
+    """(S_in, V_in, S_out, V_out) of the fused conv rounds conv2..conv4."""
+    names = list(dims)
+    return {n: (*dims[prev], *dims[n]) for prev, n in zip(names, names[1:])}
+
+
+def point_v_off(base: int, vdims) -> tuple:
+    """(row offset, V_r) of each round's j-major vector block in a
+    channel-major stack whose first block starts at row ``base`` (the conv5
+    input [s (S_c) | v1 | v2 | v3 | v4] has base S_c)."""
+    v_off, o = [], base
+    for Vr in vdims:
         v_off.append((o, Vr))
         o += 3 * Vr
     return tuple(v_off)
 
 
-POINT_V_OFF = _point_v_off()
+ROUNDS = dgcnn_rounds(CLS_DIMS)
+POINT_V_OFF = point_v_off(256, [V for _, V in CLS_DIMS.values()])
+
+ROUNDS_IMPLS = ("round3", "round2")
+UNPORTED_ROUNDS = {
+    "round": "kernel B10a (svnet_tpu/ops/pallas/sv_round.py::sv_round_first "
+             "and ::sv_round)",
+    "edge": "kernels B10c and B10d (svnet_tpu/ops/pallas/sv_edge.py::"
+            "sv_edge_block, sv_edge_first.py::sv_edge_first_block)",
+}
+
+
+def check_rounds_impl(rounds_impl: str) -> str:
+    if rounds_impl in UNPORTED_ROUNDS:
+        raise NotImplementedError(
+            f"rounds_impl={rounds_impl!r} runs {UNPORTED_ROUNDS[rounds_impl]}, "
+            "which is not ported yet")
+    if rounds_impl not in ROUNDS_IMPLS:
+        raise ValueError(f"rounds_impl {rounds_impl!r}; expected one of "
+                         f"{ROUNDS_IMPLS + tuple(UNPORTED_ROUNDS)}")
+    return rounds_impl
 
 
 def _to(tree, device):
@@ -79,6 +125,17 @@ def _to(tree, device):
 
 def _contig(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: t.contiguous() for n, t in folded.items()}
+
+
+def _take_rows(p: dict, rows: torch.Tensor) -> dict:
+    """A linear's weights for an input whose channels come in another
+    order, ``x[..., rows]``: ``x[..., rows] @ W[rows] == x @ W`` (its beta
+    permuted too)."""
+    rows = rows.to(p["kernel"].device)
+    out = dict(p, kernel=p["kernel"][rows, :])
+    if "beta" in p:
+        out["beta"] = p["beta"][rows]
+    return out
 
 
 def _bn_eval(p: dict, st: dict, x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +167,47 @@ def _v2s_eval(p: dict, v: torch.Tensor, bw: bool) -> torch.Tensor:
     return s.reshape(s.shape[:-2] + (-1,))
 
 
+def _linear_eval_cm(p: dict, x: torch.Tensor, bw: bool, ba: bool) -> torch.Tensor:
+    """Channel-major ``_linear_eval``: x (B, C, N) -> (B, O, N), per-channel
+    affines broadcast along the points."""
+    if not (bw or ba):
+        y = torch.einsum("co,bcn->bon", p["kernel"], x)
+    else:
+        if ba:
+            x = torch.sign(x + p["beta"][:, None])
+        w = torch.sign(p["kernel"]) if bw else p["kernel"]
+        y = torch.einsum("co,bcn->bon", w, x) * p["scale"][:, None]
+    return y + p["bias"][:, None] if "bias" in p else y
+
+
+def _bn_eval_cm(p: dict, st: dict, x: torch.Tensor) -> torch.Tensor:
+    inv = p["scale"] / torch.sqrt(st["var"] + BN_EPS)
+    return x * inv[:, None] + (p["bias"] - st["mean"] * inv)[:, None]
+
+
+def _v2s_eval_cm(p: dict, v_cm: torch.Tensor, v_off: tuple,
+                 bw: bool) -> torch.Tensor:
+    """Channel-major Vector2Scalar over a per-round j-major (B, 3V_c, N)
+    stack (blocks at ``v_off``): (B, 3V_c, N) invariants j-outer (row
+    j*V_c + c, c in the reference's round order); the consumer's weight
+    rows take that order (``fold.head8_rows``)."""
+    w = torch.sign(p["linear"]["kernel"]) if bw else p["linear"]["kernel"]
+    v = [torch.cat([v_cm[:, o + i * Vr:o + (i + 1) * Vr] for o, Vr in v_off],
+                   dim=1) for i in range(3)]  # (B, V_c, N) x3
+    z = [torch.einsum("cj,bcn->bjn", w, vi) for vi in v]  # (B, 3, N)
+    if bw:
+        z = [zi * p["linear"]["scale"][:, None] for zi in z]
+    return torch.cat([v[0] * z[0][:, j:j + 1] + v[1] * z[1][:, j:j + 1]
+                      + v[2] * z[2][:, j:j + 1] for j in range(3)], dim=1)
+
+
+def _mean_points(x_cm: torch.Tensor) -> torch.Tensor:
+    """Mean over the points of channel-major x (B, C, N), always reduced
+    along a contiguous last axis: the two trunks (and an engine and its
+    plain twin) then sum in one order and agree bitwise."""
+    return torch.mean(x_cm.contiguous(), dim=2)
+
+
 def _vector_bn_eval(p: dict, st: dict, v: torch.Tensor) -> torch.Tensor:
     n = torch.sqrt(torch.sum(v * v, dim=-2)) + EPS
     nbn = _bn_eval(p["bn"], st["bn"], n)
@@ -131,11 +229,100 @@ def _svblock_eval(p: dict, st: dict, s: torch.Tensor, v: torch.Tensor,
     return s, v * g
 
 
-class SVDGCNNClsEngine:
+class _DGCNNEngine:
+    """What the two SV-DGCNN engines share: the device, the folds, the
+    trunk (``rounds_impl``) and conv5 + the SVFuse at ``fuse_key``."""
+
+    def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
+                 k: int, binary: bool, mode: str, device, oracle: bool,
+                 rounds_impl: str):
+        self.mode = config.check_mode(mode)
+        self.rounds_impl = check_rounds_impl(rounds_impl)
+        self.row_major = rounds_impl == "round2"
+        if self.row_major:
+            fns = ((sv_round2_first_plain, sv_round2_plain, sv_point_block_plain)
+                   if oracle else (sv_round2_first, sv_round2, sv_point_block))
+        else:
+            fns = ((sv_round3_first_plain, sv_round3_plain,
+                    sv_point_block_cm_plain) if oracle
+                   else (sv_round3_first, sv_round3, sv_point_block_cm))
+        self._first, self._round, self._point = fns
+        self.device = config.resolve_device(device)
+        if self.device.type == "cuda":
+            # full-f32 matmuls: TF32 would flip binarization signs (C7)
+            config.set_full_fp32()
+        self.k, self.binary = k, binary
+        p = self.p = _to(weights["params"], self.device)
+        bs = self.bs = _to(weights["batch_stats"], self.device)
+        self.dims, self.rounds = dims, dgcnn_rounds(dims)
+        self.folded = {
+            name: _contig(fold_svblock_params(p[name], bs[name], S, V, binary))
+            for name, (S, V, _, _) in self.rounds.items()
+        }
+        self.folded_first = _contig(
+            fold_first_params(p["init_scalar"], p["conv1"], bs["conv1"]))
+        self.S_c = sum(S for S, _ in dims.values())
+        self.V_c = sum(V for _, V in dims.values())
+        self.S5, self.V5 = emb
+        self.v_off = point_v_off(self.S_c, [V for _, V in dims.values()])
+        self.folded_point = _contig(fold_point_params(
+            p["conv5"], bs["conv5"], p[fuse_key], S=self.S_c, V=self.V_c,
+            binary=binary))
+
+    def _check(self, points: torch.Tensor) -> None:
+        if points.device != self.device or points.dtype != torch.float32:
+            raise ValueError(
+                f"points must be float32 on {self.device}, got "
+                f"{points.dtype} on {points.device}")
+
+    def _trunk(self, points: torch.Tensor):
+        """The four rounds, each round's v gated. round3: s (B, S_c, N) and
+        v (B, 3V_c, N) as per-round j-major blocks; round2: s (B, N, S_c)
+        and v (B, N, 3, V_c)."""
+        p, k, rm = self.p, self.k, self.row_major
+        B, N, _ = points.shape
+        dim = -1 if rm else 1  # the channel axis
+
+        def gated(v, name, mean):
+            g = se_gate(p[name], mean).repeat(1, 3)
+            return v * (g[:, None, :] if rm else g[:, :, None])
+
+        S1, V1 = self.dims["conv1"]
+        s1, v1, s_mean = self._first(points, self.folded_first, S_out=S1,
+                                     V_out=V1, k=k)[:3]
+        outs = [(s1, gated(v1, "conv1", s_mean))]
+        for name, (S, V, S_out, V_out) in self.rounds.items():
+            joint = torch.cat(outs[-1], dim=dim)
+            so, vo, se_mean = self._round(
+                joint, self.folded[name], S=S, V=V, S_out=S_out,
+                V_out=V_out, k=k, binary=self.binary)[:3]
+            outs.append((so, gated(vo, name, se_mean)))
+        s = torch.cat([o[0] for o in outs], dim=dim)
+        if rm:
+            return s, torch.cat([o[1].reshape(B, N, 3, -1) for o in outs], -1)
+        return s, torch.cat([o[1] for o in outs], dim=1)
+
+    def _conv5(self, s: torch.Tensor, v: torch.Tensor):
+        """conv5 + SVFuse through B3 (round3) or B3r (round2): x with its
+        SVFuse channels j-major, s5_max (B, S5), v5_mean (B, 3V5)."""
+        kw = dict(S=self.S_c, V=self.V_c, S_out=self.S5, V_out=self.V5,
+                  binary=self.binary)
+        if self.row_major:
+            g5 = se_gate(self.p["conv5"], _mean_points(s.transpose(1, 2)))
+            src5 = torch.cat([s, v.flatten(2)], dim=-1)
+            return self._point(src5, g5, self.folded_point, **kw)
+        g5 = se_gate(self.p["conv5"], _mean_points(s))
+        return self._point(torch.cat([s, v], dim=1), g5, self.folded_point,
+                           v_off=self.v_off, **kw)
+
+
+class SVDGCNNClsEngine(_DGCNNEngine):
     """Build from a weight tree ({'params', 'batch_stats'}, e.g. from
     ``init_params`` or ``utils.convert.from_flax``); call on (B, N, 3)
     float32 points on ``device``: the card unless the caller passes
-    ``device="cpu"``.
+    ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
+    default) or the legacy row-major "round2"; "round" and "edge" need
+    kernels not ported yet and raise.
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
@@ -143,65 +330,20 @@ class SVDGCNNClsEngine:
 
     def __init__(self, weights: dict, num_classes: int = 40, k: int = 20,
                  binary: bool = True, mode: str = "exact", device="cuda",
-                 oracle: bool = False):
-        self.mode = config.check_mode(mode)
-        if oracle:
-            self._first, self._round, self._point = (
-                sv_round3_first_plain, sv_round3_plain, sv_point_block_cm_plain)
-        else:
-            self._first, self._round, self._point = (
-                sv_round3_first, sv_round3, sv_point_block_cm)
-        self.device = config.resolve_device(device)
-        if self.device.type == "cuda":
-            # full-f32 matmuls: TF32 would flip binarization signs (C7)
-            config.set_full_fp32()
-        self.num_classes, self.k, self.binary = num_classes, k, binary
-        p = self.p = _to(weights["params"], self.device)
-        bs = self.bs = _to(weights["batch_stats"], self.device)
-        self.folded = {
-            name: _contig(fold_svblock_params(p[name], bs[name], S, V, binary))
-            for name, (S, V, _, _) in ROUNDS.items()
-        }
-        self.folded_first = _contig(
-            fold_first_params(p["init_scalar"], p["conv1"], bs["conv1"]))
-        # conv5 + svfuse tail: S_c = 256, V_c = 83 -> (512, 170)
-        self.folded_point = _contig(fold_point_params(
-            p["conv5"], bs["conv5"], p["svfuse"], S=256, V=83, binary=binary))
-        # the tail emits SVFuse channels j-major; permute the head's first
-        # linear (and its beta) to consume that layout
-        perm = head_perm(1024 // 2, 1024 // 6).to(self.device)
-        h1 = dict(p["linear1"])
-        h1["kernel"] = h1["kernel"][perm, :]
-        if "beta" in h1:
-            h1["beta"] = h1["beta"][perm]
-        self.head1 = h1
+                 oracle: bool = False, rounds_impl: str = "round3"):
+        super().__init__(weights, CLS_DIMS, (1024 // 2, 1024 // 6), "svfuse",
+                         k, binary, mode, device, oracle, rounds_impl)
+        self.num_classes = num_classes
+        # the tail emits SVFuse channels j-major; the head's first linear
+        # takes its rows in that order
+        self.head1 = _take_rows(self.p["linear1"], head_perm(self.S5, self.V5))
 
-    def _trunk(self, points: torch.Tensor):
-        """Returns s_cm (B, 256, N) and v_cm (B, 249, N), the latter as
-        per-round j-major blocks, each round's v gated."""
-        p, k = self.p, self.k
-        s1, v1, s_mean = self._first(
-            points, self.folded_first, S_out=64 // 2, V_out=64 // 6, k=k)[:3]
-        v1 = v1 * se_gate(p["conv1"], s_mean).repeat(1, 3)[:, :, None]
-        outs = [(s1, v1)]
-        for name, (S, V, S_out, V_out) in ROUNDS.items():
-            joint = torch.cat(outs[-1], dim=1)  # (B, S + 3V, N)
-            so, vo, se_mean = self._round(
-                joint, self.folded[name], S=S, V=V, S_out=S_out,
-                V_out=V_out, k=k, binary=self.binary)[:3]
-            vo = vo * se_gate(p[name], se_mean).repeat(1, 3)[:, :, None]
-            outs.append((so, vo))
-        return (torch.cat([o[0] for o in outs], dim=1),
-                torch.cat([o[1] for o in outs], dim=1))
-
-    def _tail(self, s_cm: torch.Tensor, v_cm: torch.Tensor) -> torch.Tensor:
+    def _tail(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 1022, N), or (B, N, 1022) from the row-major trunk ->
+        logits: max and mean over the points, the MLP head."""
         p, bs = self.p, self.bs
-        g5 = se_gate(p["conv5"], torch.mean(s_cm, dim=2))  # (B, 170)
-        x, _, _ = self._point(
-            torch.cat([s_cm, v_cm], dim=1), g5, self.folded_point,
-            S=256, V=83, S_out=512, V_out=170, v_off=POINT_V_OFF,
-            binary=self.binary)  # (B, 1022, N), SVFuse channels j-major
-        x = torch.cat([torch.amax(x, dim=2), torch.mean(x, dim=2)], dim=-1)
+        x_cm = x.transpose(1, 2) if self.row_major else x
+        x = torch.cat([torch.amax(x_cm, dim=2), _mean_points(x_cm)], dim=-1)
         lrelu = torch.nn.functional.leaky_relu
         x = _linear_eval(self.head1, x, self.binary, self.binary)
         x = lrelu(_bn_eval(p["bn1"]["bn"], bs["bn1"]["bn"], x), 0.2)
@@ -212,11 +354,98 @@ class SVDGCNNClsEngine:
     @torch.no_grad()
     def __call__(self, points: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) float32 points -> (B, num_classes) logits."""
-        if points.device != self.device or points.dtype != torch.float32:
-            raise ValueError(
-                f"points must be float32 on {self.device}, got "
-                f"{points.dtype} on {points.device}")
-        return self._tail(*self._trunk(points.contiguous()))
+        self._check(points)
+        return self._tail(self._conv5(*self._trunk(points.contiguous()))[0])
+
+
+class SVDGCNNPsegEngine(_DGCNNEngine):
+    """SV-DGCNN part segmentation, exact mode (svnet_tpu/infer.py:533-855);
+    built, placed and switched (``rounds_impl``, ``oracle``) as
+    ``SVDGCNNClsEngine``. Call on (B, N, 3) float32 points and the (B, 16)
+    one-hot object category; returns (B, N, num_part) logits.
+
+    The round3 tail stays channel-major: the fine features' j-outer and the
+    embedding's j-major SVFuse channels are folded into conv8's rows
+    (``head8``). The round2 tail permutes the embedding back to the
+    reference's c-major order (``fuse3_perm``) and uses conv8 as it is."""
+
+    def __init__(self, weights: dict, num_part: int = 50, k: int = 40,
+                 binary: bool = True, mode: str = "exact", device="cuda",
+                 oracle: bool = False, rounds_impl: str = "round3"):
+        super().__init__(weights, PSEG_TRUNK, PSEG_DIMS["conv5"], "svfuse3",
+                         k, binary, mode, device, oracle, rounds_impl)
+        self.num_part = num_part
+        p = self.p
+        self.v_off0 = point_v_off(0, [V for _, V in self.dims.values()])
+        self.fuse3_perm = fuse3_perm(self.S5, self.V5).to(self.device)
+        # x_pool (conv6 + svfuse2) and the label branch, c-major
+        mid = (p["conv6"]["linear1"]["kernel"].shape[1]
+               + 3 * p["conv6"]["linear2"]["kernel"].shape[1]
+               + p["conv7"]["kernel"].shape[1])
+        self.head8 = _take_rows(p["conv8"]["conv"], head8_rows(
+            self.S5, self.V5, mid, self.S_c, self.V_c))
+
+    def _token_and_label(self, s5_max, v5_mean, label):
+        """The pooled token through conv6 + svfuse2, (B, 1, ·) c-major, and
+        the label branch (B, 64)."""
+        p, bs, b = self.p, self.bs, self.binary
+        B = s5_max.shape[0]
+        sp, vp = _svblock_eval(p["conv6"], bs["conv6"], s5_max[:, None, :],
+                               v5_mean.reshape(B, 1, 3, self.V5), b)
+        x_pool = torch.cat([sp, _v2s_eval(p["svfuse2"]["v2s"], vp, b)], dim=-1)
+        lab = _bn_eval(p["bn7"]["bn"], bs["bn7"]["bn"],
+                       _linear_eval(p["conv7"], label, False, False))
+        return x_pool, torch.nn.functional.leaky_relu(lab, 0.2)
+
+    def _tail_cm(self, label, s_cm, v_cm):
+        p, bs, b = self.p, self.bs, self.binary
+        B, _, N = s_cm.shape
+        lrelu = torch.nn.functional.leaky_relu
+        x_fine = torch.cat(
+            [s_cm, _v2s_eval_cm(p["svfuse1"]["v2s"], v_cm, self.v_off0, b)],
+            dim=1)  # (B, S_c + 3V_c, N)
+        x, s5_max, v5_mean = self._conv5(s_cm, v_cm)  # (B, S5 + 3V5, N)
+        x_pool, lab = self._token_and_label(s5_max, v5_mean, label)
+        gcat = torch.cat([torch.amax(x, dim=2, keepdim=True),
+                          x_pool.transpose(1, 2), lab[:, :, None]], dim=1)
+        net = torch.cat([gcat.expand(B, -1, N), x_fine], dim=1)
+        net = lrelu(_bn_eval_cm(p["conv8"]["bn"], bs["conv8"]["bn"],
+                                _linear_eval_cm(self.head8, net, b, b)), 0.2)
+        for name in ("conv9", "conv10"):
+            net = _linear_eval_cm(p[name]["conv"], net, b, b)
+            net = lrelu(_bn_eval_cm(p[name]["bn"], bs[name]["bn"], net), 0.2)
+        return _linear_eval_cm(p["conv11"], net, False, False).transpose(1, 2)
+
+    def _tail_rows(self, label, s_c, v_c):
+        p, bs, b = self.p, self.bs, self.binary
+        B, N, _ = s_c.shape
+        lrelu = torch.nn.functional.leaky_relu
+        x_fine = torch.cat([s_c, _v2s_eval(p["svfuse1"]["v2s"], v_c, b)], -1)
+        x, s5_max, v5_mean = self._conv5(s_c, v_c)  # (B, N, S5 + 3V5)
+        x = x[..., self.fuse3_perm]  # SVFuse channels back to c-major
+        x_pool, lab = self._token_and_label(s5_max, v5_mean, label)
+        gcat = torch.cat([torch.amax(x, dim=1, keepdim=True), x_pool,
+                          lab[:, None, :]], dim=-1)
+        net = torch.cat([gcat.expand(B, N, -1), x_fine], dim=-1)
+        for name in ("conv8", "conv9", "conv10"):
+            net = _linear_eval(p[name]["conv"], net, b, b)
+            net = lrelu(_bn_eval(p[name]["bn"], bs[name]["bn"], net), 0.2)
+        return _linear_eval(p["conv11"], net, False, False)
+
+    @torch.no_grad()
+    def __call__(self, points: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        """(B, N, 3) points, (B, 16) one-hot category -> (B, N, num_part)."""
+        self._check(points)
+        B = points.shape[0]
+        if (label.device != self.device or label.dtype != torch.float32
+                or tuple(label.shape) != (B, 16)):
+            raise ValueError(f"label: expected (B, 16) float32 on {self.device}"
+                             f", got {tuple(label.shape)} {label.dtype} on "
+                             f"{label.device}")
+        s, v = self._trunk(points.contiguous())
+        if self.row_major:
+            return self._tail_rows(label, s, v)
+        return self._tail_cm(label, s, v)
 
 
 # the SV-PointNet engines' per-point SVBlocks, in call order:

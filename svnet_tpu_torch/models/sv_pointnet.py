@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from svnet_tpu_torch import ops
-from svnet_tpu_torch.models.sv_dgcnn import _running_stats
+from svnet_tpu_torch.models.sv_dgcnn import seeded_tree
 from svnet_tpu_torch.nn.sv_layers import (
     BatchNorm,
     Linear,
@@ -23,7 +23,7 @@ from svnet_tpu_torch.nn.sv_layers import (
     SVFuse,
     Vector2Scalar,
 )
-from svnet_tpu_torch.utils.convert import load_tree, module_tree
+from svnet_tpu_torch.utils.convert import load_tree
 
 # (in_s, in_v, out_s, out_v) of the encoders' per-point SVBlocks; conv_pos
 # runs on the edges' 9 init scalars and 3 vector channels
@@ -190,27 +190,17 @@ class SVPointNetPseg(nn.Module):
         return model.eval()
 
 
-def _init(model: nn.Module) -> dict:
-    tree = module_tree(model)
-
-    def bump(d):
-        return {n: bump(c) if isinstance(c, dict) else _running_stats(c)
-                for n, c in d.items()}
-
-    return {"params": tree["params"], "batch_stats": bump(tree["batch_stats"])}
-
-
 def init_params(num_classes: int = 40, k: int = 20, binary: bool = False,
                 generator: torch.Generator | None = None) -> dict:
     """Seeded SVPointNetCls weights as ``{'params', 'batch_stats'}``: the
     tree, keys and shapes of flax ``SV_PointNet_CLS(...).init``, running
     stats by the test-suite recipe (``sv_dgcnn.init_params``)."""
     del k
-    return _init(SVPointNetCls(num_classes, 1, binary, generator))
+    return seeded_tree(SVPointNetCls(num_classes, 1, binary, generator))
 
 
 def init_params_pseg(num_part: int = 50, k: int = 40, binary: bool = False,
                      generator: torch.Generator | None = None) -> dict:
     """Seeded SVPointNetPseg weights, as ``init_params``."""
     del k
-    return _init(SVPointNetPseg(num_part, 1, binary, generator))
+    return seeded_tree(SVPointNetPseg(num_part, 1, binary, generator))

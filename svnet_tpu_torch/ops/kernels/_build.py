@@ -45,6 +45,12 @@ SIGNATURES = {
     # src, gate, vrow, 10 weights, x_out, smax, vsum; B N S V S_out V_out
     # binary; stream
     "sv_point_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # the row-major twins: sv_round2_first_launch as sv_round3_first_launch,
+    # sv_round2_launch as sv_round3_launch, sv_point_rm_launch as
+    # sv_point_launch without vrow
+    "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
+    "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
+    "sv_point_rm_launch": [_P] * 15 + [_I] * 7 + [_P],
     # src, gate, 9 weights, s_out, v_out; B N S V S_out V_out binary; stream
     "sv_block_point_launch": [_P] * 13 + [_I] * 7 + [_P],
     # S V S_out V_out -> points per block

@@ -1,6 +1,7 @@
 """Host-side weight folding for the fused kernels (counterparts of
 svnet_tpu/ops/pallas/sv_edge.py:230-283, sv_edge_first.py:169-208,
-sv_point.py:332-391 and sv_block_point.py:135-179).
+sv_point.py:332-391 and sv_block_point.py:135-179), and the channel
+permutations of the engines' heads (svnet_tpu/infer.py:323-330, :606-632).
 
 Each fold turns one block's weight tree into the kernel's constants:
 BatchNorm and the binarized layers' scales become per-channel affines,
@@ -112,3 +113,28 @@ def head_perm(S_out: int, V_out: int) -> torch.Tensor:
     block = list(range(S_out)) + _jmajor(S_out, V_out)
     width = S_out + 3 * V_out
     return torch.tensor(block + [width + r for r in block], dtype=torch.int64)
+
+
+def fuse3_perm(S: int, V: int) -> torch.Tensor:
+    """Columns of a j-major [s (S) | SVFuse (3V)] output in the reference's
+    c-major order: ``x_jmajor[..., perm] == x_cmajor`` (the part
+    segmentation engine's row-major tail)."""
+    inv = [0] * (3 * V)
+    for j in range(3):
+        for c in range(V):
+            inv[c * 3 + j] = j * V + c
+    return torch.tensor(list(range(S)) + [S + i for i in inv],
+                        dtype=torch.int64)
+
+
+def head8_rows(S5: int, V5: int, mid: int, S_c: int, V_c: int) -> torch.Tensor:
+    """Rows of the part segmentation head's conv8 for the channel-major
+    tail's input [x_max (S5 + 3V5, SVFuse j-major) | x_pool and the label
+    (mid, c-major) | x_fine (S_c + 3V_c, Vector2Scalar j-outer)]:
+    ``net_cm @ W[rows] == net_reference @ W``."""
+    rows = list(range(S5)) + _jmajor(S5, V5)
+    off = S5 + 3 * V5
+    rows += [off + i for i in range(mid)]
+    off += mid
+    rows += [off + i for i in range(S_c)] + _jmajor(off + S_c, V_c)
+    return torch.tensor(rows, dtype=torch.int64)

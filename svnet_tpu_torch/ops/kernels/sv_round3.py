@@ -28,6 +28,7 @@ from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
 from svnet_tpu_torch.ops.kernels import _build
 from svnet_tpu_torch.ops.kernels.fold import Folded
 
+
 def jmajor(s: torch.Tensor, multi: int = 3) -> torch.Tensor:
     """Vector2Scalar output (..., C*multi) c-major -> j-major (j*C + c)."""
     C = s.shape[-1] // multi
@@ -85,10 +86,11 @@ def first_perm(n_ch: int = 2) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
-def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
-                          S_out: int, V_out: int, k: int, cross: bool = False):
-    """Plain version of the first round; same outputs as the kernel, with
-    the neighbour ids (B, k, N) int32 last."""
+def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
+                     V_out: int, k: int, cross: bool = False):
+    """The first round's function on row-major outputs, shared by the plain
+    versions of both layouts: (s (B, N, S_out), v (B, N, 3*V_out) ungated,
+    s_mean (B, 3*n_ch) c-major, ids (B, N, k) int32)."""
     B, N, _ = points.shape
     idx = ops.knn_plain(points, k)
     edges = ops.get_graph_feature_cross if cross else ops.get_graph_feature
@@ -102,8 +104,16 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
     s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
     vm = _rank_mean(vb)  # (B, N, 3, V_out)
     s_mean = _point_sums(sva).sum(dim=2)[:, first_perm(v.shape[-1])] / (N * k)
-    return (s.transpose(1, 2), vm.reshape(B, N, 3 * V_out).transpose(1, 2),
-            s_mean, idx.transpose(1, 2).to(torch.int32))
+    return s, vm.reshape(B, N, 3 * V_out), s_mean, idx
+
+
+def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
+                          S_out: int, V_out: int, k: int, cross: bool = False):
+    """Plain version of the first round; same outputs as the kernel, with
+    the neighbour ids (B, k, N) int32 last."""
+    s, v, s_mean, idx = first_round_rows(points, folded, S_out=S_out,
+                                         V_out=V_out, k=k, cross=cross)
+    return s.transpose(1, 2), v.transpose(1, 2), s_mean, idx.transpose(1, 2)
 
 
 def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
@@ -111,7 +121,8 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
                     emit_wins: bool = False):
     """points (B, N, 3) -> (s (B, S_out, N), v (B, 3*V_out, N) ungated,
     s_mean (B, 3*n_ch) c-major[, wins (B, k, N) int32]); the edges carry
-    n_ch = 3 channels with ``cross`` (SV-PointNet), else 2."""
+    n_ch = 3 channels with ``cross`` (SV-PointNet), else 2. The kernel takes
+    S_out = 32 and V_out = 10 or 16 (SV_DGCNN_PSEG's conv1)."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
@@ -158,12 +169,12 @@ sv_round3_first.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
+def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool):
-    """Plain version of a conv round on channel-major src (B, S+3V, N);
-    same outputs as the kernel, with the neighbour ids last."""
-    B, _, N = src.shape
-    x = src.transpose(1, 2)  # (B, N, S + 3V): the joint kNN features
+    """A conv round's function on row-major x (B, N, S + 3V), shared by the
+    plain versions of both layouts: (s (B, N, S_out), v (B, N, 3*V_out)
+    ungated, s_edge_mean (B, 2S), ids (B, N, k) int32)."""
+    B, N, _ = x.shape
     idx = ops.knn_plain(x, k)
     s_e, v_e = ops.get_graph_feature_sv(
         (x[..., :S], x[..., S:].reshape(B, N, 3, V)), k, idx, plain=True)
@@ -179,8 +190,17 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
     vm = _rank_mean(vb)
     se_mean = _point_sums(s_e).sum(dim=2) / (N * k)
-    return (s.transpose(1, 2), vm.reshape(B, N, 3 * V_out).transpose(1, 2),
-            se_mean, idx.transpose(1, 2).to(torch.int32))
+    return s, vm.reshape(B, N, 3 * V_out), se_mean, idx
+
+
+def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
+                    S_out: int, V_out: int, k: int, binary: bool):
+    """Plain version of a conv round on channel-major src (B, S+3V, N);
+    same outputs as the kernel, with the neighbour ids (B, k, N) last."""
+    s, v, se_mean, idx = conv_round_rows(
+        src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k,
+        binary=binary)
+    return s.transpose(1, 2), v.transpose(1, 2), se_mean, idx.transpose(1, 2)
 
 
 def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,

@@ -186,3 +186,96 @@ def test_edge_gather_matches_plain_on_card(shape):
     assert (eg.edge_gather_fwd.launches, eg.edge_gather_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(x.grad, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+def test_row_major_kernels_match_plain_on_card(binary):
+    """B10b (first round at V_out 10 and 16, a conv round at partseg's
+    conv4 widths) and B3r bitwise against their plain versions and against
+    the channel-major kernels B1/B2/B3 on the same values; N and k ragged;
+    B3's pooled outputs bitwise (the partseg engine reads them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.infer import SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.sv_point import (
+        sv_point_block,
+        sv_point_block_plain,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(6)
+    eng = SVDGCNNPsegEngine(init_params_pseg(50, 7, binary, gen), 50, 7,
+                            binary, device=dev)
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+
+    cls = TorchEngine(init_params(40, 7, binary, gen), 40, 7, binary,
+                      device=dev)
+    pts = torch.randn(2, 203, 3, generator=gen).to(dev)
+    for v_out, folded in ((16, eng.folded_first), (10, cls.folded_first)):
+        kw = dict(S_out=32, V_out=v_out, k=7)
+        rm = k2.sv_round2_first(pts, folded, emit_wins=True, **kw)
+        for g, w in zip(rm, k2.sv_round2_first_plain(pts, folded, **kw)):
+            assert torch.equal(g, w)
+        cm = sv_round3_first(pts, folded, emit_wins=True, **kw)
+        for g, w in zip(cm, sv_round3_first_plain(pts, folded, **kw)):
+            assert torch.equal(g, w)
+        assert torch.equal(rm[0], cm[0].transpose(1, 2))
+        assert torch.equal(rm[3], cm[3].transpose(1, 2))
+    S, V, S_out, V_out = eng.rounds["conv4"]
+    src = torch.randn(2, 203, S + 3 * V, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=7, binary=binary)
+    rm = k2.sv_round2(src, eng.folded["conv4"], emit_wins=True, **kw)
+    for g, w in zip(rm, k2.sv_round2_plain(src, eng.folded["conv4"], **kw)):
+        assert torch.equal(g, w)
+    cm = sv_round3(src.transpose(1, 2).contiguous(), eng.folded["conv4"],
+                   emit_wins=True, **kw)
+    assert torch.equal(rm[1], cm[1].transpose(1, 2))
+    S, V, S_out, V_out = eng.S_c, eng.V_c, eng.S5, eng.V5
+    src = torch.randn(2, 203, S + 3 * V, generator=gen).to(dev)
+    gate = torch.rand(2, V_out, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+    got = sv_point_block(src, gate, eng.folded_point, **kw)
+    for g, w in zip(got, sv_point_block_plain(src, gate, eng.folded_point, **kw)):
+        assert torch.equal(g, w)
+    src_cm = src.transpose(1, 2).contiguous()
+    got = sv_point_block_cm(src_cm, gate, eng.folded_point, v_off=((S, V),), **kw)
+    want = sv_point_block_cm_plain(src_cm, gate, eng.folded_point,
+                                   v_off=((S, V),), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_pseg_engines_on_card():
+    """SV-DGCNN partseg on the card, both trunks: the kernels' launches per
+    request, logits bitwise those of the plain twin, and round2 equal to
+    round3 (binary)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.infer import SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.sv_point import sv_point_block
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(7)
+    w = init_params_pseg(50, 10, True, gen)
+    pts = torch.randn(2, 300, 3, generator=gen).to(dev)
+    label = torch.eye(16)[[3, 9]].to(dev)
+    outs = {}
+    for impl, fns in (("round3", (sv_round3_first, sv_round3, sv_point_block_cm)),
+                      ("round2", (k2.sv_round2_first, k2.sv_round2,
+                                  sv_point_block))):
+        before = [f.launches for f in fns]
+        eng = SVDGCNNPsegEngine(w, 50, 10, True, device=dev, rounds_impl=impl)
+        outs[impl] = eng(pts, label)
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, 3, 1]
+        oracle = SVDGCNNPsegEngine(w, 50, 10, True, device=dev,
+                                   rounds_impl=impl, oracle=True)
+        assert torch.equal(outs[impl], oracle(pts, label))
+    assert torch.equal(outs["round2"], outs["round3"])

@@ -37,6 +37,8 @@ from svnet_tpu_torch.ops.kernels.sv_round3_train import (
     sv_round3_train_bwd,
     sv_round3_train_fwd,
 )
+from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.utils.convert import from_flax
 
 RTOL, ATOL = 1e-5, 1e-6  # f32; the two sides sum in different orders
@@ -95,14 +97,25 @@ def test_fold_matches_jax(engines):
                                   np.asarray(jeng.head1["kernel"]))
 
 
-@pytest.mark.parametrize("N", [64, 40])
-def test_round3_first_matches_jax(engines, N):
+@pytest.mark.parametrize("N,V_out", [(64, 10), (40, 10), (64, 16), (40, 16)],
+                         ids=["64", "40", "64-v16", "40-v16"])
+def test_round3_first_matches_jax(engines, N, V_out):
+    """V_out=10 on the classifier's weights; V_out=16 on SV_DGCNN_PSEG's
+    conv1 (make_divisible widths), folded by the port for both sides."""
     jeng, teng = engines
+    if V_out == 10:
+        folded, jfolded = teng.folded_first, jeng.folded_first
+    else:
+        w = init_params_pseg(50, K, teng.binary, torch.Generator().manual_seed(N))
+        p, bs = w["params"], w["batch_stats"]
+        folded = fold_first_params(p["init_scalar"], p["conv1"], bs["conv1"])
+        jfolded = {n: jnp.asarray(t.numpy()) for n, t in folded.items()}
     pts = np.random.default_rng(N).standard_normal((B, N, 3)).astype(np.float32)
-    want = jax_first(jnp.asarray(pts), jeng.folded_first, S_out=32, V_out=10,
+    want = jax_first(jnp.asarray(pts), jfolded, S_out=32, V_out=V_out,
                      k=K, mode="exact", interpret=True, emit_wins=True, cm=True)
-    got = sv_round3_first(torch.from_numpy(pts), teng.folded_first,
-                          S_out=32, V_out=10, k=K, emit_wins=True)
+    got = sv_round3_first(torch.from_numpy(pts), folded,
+                          S_out=32, V_out=V_out, k=K, emit_wins=True)
+    assert got[1].shape == (B, 3 * V_out, N)
     _same_ids(got[3], want[3])
     _close(got[:3], want[:3])
 
