@@ -13,9 +13,11 @@ N=1024) through the trainer; binary SV-PointNet classification serving
 SV-PointNet classification training (B=32, N=1024, k=20) through the
 trainer, and binary SV-DGCNN training through the un-fused path; binary
 SV-DGCNN part segmentation serving (B=32, N=2048, k=40, 50 parts) through
-SVDGCNNPsegEngine, and both SV-DGCNN engines' legacy row-major trunk
-(rounds_impl="round2"). Phases; any failure raises and the script exits
-non-zero:
+SVDGCNNPsegEngine, both SV-DGCNN engines' legacy row-major trunk
+(rounds_impl="round2"), the classifier's "round" and "edge" trunks, and
+the XNOR-popcount +-1 product through its bench
+(utils/bench_binary_matmul.py). Phases; any failure raises and the script
+exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -42,7 +44,14 @@ non-zero:
      B7 (edge_gather, forward and scatter-add backward) at the slice's
      shape (32, 1024, 20, C=3), at C=62 and C=127 and at a ragged
      (8, 1000, 7, C=5): forward and backward bitwise, two backward launches
-     identical
+     identical.
+     B10a (sv_round_first, sv_round conv2-4, binary and FP), B10d
+     (sv_edge_first_block) and B10c (sv_edge_block conv2-4, binary and FP)
+     at the classifier's shapes and at a ragged B=8, N=1000, k=7 (first
+     round and conv2), inputs chained through the plain round trunk:
+     outputs bitwise against the plain versions, B10a also bitwise
+     against B10b on the same input; B10d and B10c read the same B4 ids
+     on both sides, B10c the same host gate (svblock_gate)
   3  serve 5 requests; each launches sv_round3_first once, sv_round3
      three times and sv_point_block_cm once; logits finite, (128, 40);
      top-1 agrees with the plain-version engine on >= 99% of clouds
@@ -92,6 +101,22 @@ non-zero:
      sv_round2_first once, sv_round2 three times and sv_point_block (B3r)
      once; top-1 (per cloud, per point) agrees with the plain engine and
      with the round3 engine on the same weights on >= 99%
+ 14  the classifier's round and edge trunks: 5 requests of (128, 1024, 3)
+     each; per request round launches sv_round_first once, sv_round three
+     times and sv_point_block once, edge launches knn 4 times,
+     sv_edge_first_block once, sv_edge_block three times and
+     sv_point_block once, neither any round2 or round3 kernel; logits
+     finite, (128, 40); top-1 agrees with the plain engine and with the
+     round3 engine on >= 99%; whether round is bitwise the round2 engine
+     and the median latency are printed. Then SVDGCNNPsegEngine asked for
+     "round" and "edge" serves one request of (32, 2048, 3) each and
+     launches the round2 kernels only (sv_round2_first once, sv_round2
+     three times, sv_point_block once)
+ 15  the XNOR-popcount product (B9) through the bench's main at
+     (M, K, N) = (4096, 2048, 512) and a ragged (1000, 96, 77): exact
+     against the dense +-1 product and bitwise against the plain version;
+     the kernel's time, torch._int_mm's on int8 operands and a bf16
+     torch.mm's with f32 output
 
 The last lines of output are the card line, one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -119,12 +144,12 @@ N_RAGGED_POINT = 1001  # divides by neither block size of B8 (16, 8)
 N_RAGGED = 1000  # the SV-DGCNN kernels' ragged case: no tile divides it
 # the least time of a kernel's work: bytes over the HBM rate; real-valued
 # operations over the f32 rate outside the tensor cores, and the products of
-# +-1 by +-1 (a binary round's linear1, exact in bf16, as the TPU kernels
-# compute it) over the dense bf16 tensor-core rate; NVIDIA H100 SXM data
-# sheet, at its 700 W limit
+# +-1 by +-1 (a binary round's linear1, B9) over the dense int8 tensor-core
+# rate, the fastest at which the card computes them exactly; NVIDIA H100
+# SXM data sheet, at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+PM1_OPS_PER_S = 1979e12
 
 
 def log(*args):
@@ -181,7 +206,7 @@ class Report:
 def bound(flops: float, nbytes: float, pm1_flops: float = 0.0):
     """(least ms, what bounds it) of a call moving nbytes, doing flops
     real-valued operations and pm1_flops of +-1 by +-1 products."""
-    t_ops = flops / F32_FLOP_PER_S + pm1_flops / BF16_FLOP_PER_S
+    t_ops = flops / F32_FLOP_PER_S + pm1_flops / PM1_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -404,7 +429,7 @@ def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
         rep.add(names[2], err, ms, plain_ms, cost if time_it else None)
 
     # main shapes, inputs chained through the plain versions
-    trunk = f"{tag} {eng.rounds_impl}"
+    trunk = f"{tag} {eng.trunk}"
     pts = cloud(b, n, gen, dev)
     po = first(pts, k, f"{names[0]} B={b} N={n} k={k}", True)
     outs = [(po[0], gated(eng.p["conv1"], po))]
@@ -663,10 +688,11 @@ def phase8(pn, gen, dev, counters, card):
 
 
 def dgcnn_engines(dev, w_bin, w_fp):
-    """The SV-DGCNN engines of phases 2, 12 and 13 besides phase 3's:
+    """The SV-DGCNN engines of phases 2 and 12-14 besides phase 3's:
     partseg on seeded weights, both trunks, binary with kernels and plain
-    and FP with kernels; the classifier's round2 trunk on phase 3's
-    weights."""
+    and FP with kernels, and the partseg engines asked for "round" and
+    "edge" (which run round2); the classifier's round2, round and edge
+    trunks on phase 3's weights."""
     import torch
 
     from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
@@ -685,13 +711,17 @@ def dgcnn_engines(dev, w_bin, w_fp):
                                         rounds_impl=impl, oracle=True),
             "kernel_fp": SVDGCNNPsegEngine(p_fp, PARTS, K_PSEG, False,
                                            device=dev, rounds_impl=impl)}
-    out["cls round2"] = {
-        "kernel": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
-                                   rounds_impl="round2"),
-        "oracle": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
-                                   rounds_impl="round2", oracle=True),
-        "kernel_fp": SVDGCNNClsEngine(w_fp, CLASSES, K, False, device=dev,
-                                      rounds_impl="round2")}
+    for impl in ("round2", "round", "edge"):
+        out[f"cls {impl}"] = {
+            "kernel": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
+                                       rounds_impl=impl),
+            "oracle": SVDGCNNClsEngine(w_bin, CLASSES, K, True, device=dev,
+                                       rounds_impl=impl, oracle=True),
+            "kernel_fp": SVDGCNNClsEngine(w_fp, CLASSES, K, False, device=dev,
+                                          rounds_impl=impl)}
+        if impl != "round2":  # the part segmenter runs round2 for them
+            out[f"pseg {impl}"] = {"kernel": SVDGCNNPsegEngine(
+                p_bin, PARTS, K_PSEG, True, device=dev, rounds_impl=impl)}
     return out
 
 
@@ -783,6 +813,167 @@ def phase13(dg, eng3, gen, dev, counters, card):
         agreement(f"phase 13 {tag}: round2 vs the round3 engine", got, r3)
         out[tag] = launches
     return out
+
+
+def phase2_round_edge(rep, eng, eng_fp, gen, dev, b, n, k, time_it):
+    """B10a (first and conv rounds), B10d and B10c (conv rounds) against
+    their plain versions at (b, n, k), inputs chained through the plain
+    round trunk: outputs bitwise, B10a also bitwise B10b's on the same
+    input; B10d and B10c read the same B4 ids on both sides and B10c the
+    same host gate, so the block alone is compared."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    shape = f"B={b} N={n} k={k}"
+
+    def compare(name, label, kern, plain, r2, cost, timed=time_it):
+        ko, po = kern(), plain()
+        sync(dev)
+        check_equal(label, ko, po)
+        if r2 is not None:
+            check_equal(label + " vs B10b", ko, r2())
+        ms = plain_ms = None
+        if timed:
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        log(f"  {label}: bitwise the plain version"
+            + (", and B10b's" if r2 is not None else "")
+            + f"; kernel {ms} ms, plain {plain_ms} ms, bound {bound(*cost)}")
+        rep.add(name, 0.0, ms, plain_ms, bound(*cost))
+        return po
+
+    S1, V1 = eng.dims["conv1"]
+    pts = cloud(b, n, gen, dev)
+    f, kw = eng.folded_first, dict(S_out=S1, V_out=V1, k=k)
+    ef, pm1 = edge_flops(0, 1, S1, V1, True)
+    out_b = 4.0 * b * n * (S1 + 3 * V1 + 6)
+    po = compare("sv_round_first", f"sv_round_first {shape}",
+                 lambda: k1.sv_round_first(pts, f, **kw),
+                 lambda: k1.sv_round_first_plain(pts, f, **kw),
+                 lambda: k2.sv_round2_first(pts, f, **kw),
+                 (knn_flops(b, n, 3) + b * n * k * ef,
+                  4.0 * b * n * 3 + out_b, b * n * k * pm1))
+    idx = knn(pts, k)
+    if time_it:  # B4 at the edge trunk's batch (phase 2's kNN is B=32's)
+        log(f"  knn {shape} C=3: kernel {cuda_ms(lambda: knn(pts, k))} ms")
+    compare("sv_edge_first_block", f"sv_edge_first_block {shape}",
+            lambda: kf.sv_edge_first_block(pts, idx, f, **kw),
+            lambda: kf.sv_edge_first_block_plain(pts, idx, f, **kw), None,
+            (b * n * k * ef, 4.0 * b * n * (3 + k) + out_b, b * n * k * pm1))
+    g = se_gate(eng.p["conv1"], po[2]).repeat(1, 3)
+    outs = [(po[0], po[1] * g[:, None, :])]
+    for name in eng.rounds if time_it else ("conv2",):
+        S, V, S_out, V_out = eng.rounds[name]
+        src = torch.cat(outs[-1], dim=-1).contiguous()
+        idx = knn(src, k)
+        if time_it:
+            log(f"  knn {shape} C={src.shape[-1]}: kernel "
+                f"{cuda_ms(lambda: knn(src, k))} ms")
+        for e, tag in ((eng, "binary"), (eng_fp, "fp")):
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k,
+                      binary=e.binary)
+            f, t = e.folded[name], time_it and tag == "binary"
+            ef, pm1 = edge_flops(S, V, S_out, V_out, binary=e.binary)
+            C = S + 3 * V
+            out_b = 4.0 * b * n * (S_out + 3 * V_out)
+            rp = compare(
+                "sv_round", f"sv_round {name} {tag} {shape}",
+                lambda: k1.sv_round(src, f, **kw),
+                lambda: k1.sv_round_plain(src, f, **kw),
+                lambda: k2.sv_round2(src, f, **kw),
+                (knn_flops(b, n, C) + b * n * k * ef,
+                 4.0 * b * n * (C + 2 * S) + out_b, b * n * k * pm1), t)
+            gate = ke.svblock_gate(e.p[name], src[..., :S], idx)
+            compare(
+                "sv_edge_block", f"sv_edge_block {name} {tag} {shape}",
+                lambda: ke.sv_edge_block(src, idx, gate, f, **kw),
+                lambda: ke.sv_edge_block_plain(src, idx, gate, f, **kw), None,
+                (b * n * k * ef, 4.0 * (b * n * (C + k) + b * V_out) + out_b,
+                 b * n * k * pm1), t)
+            if tag == "binary":
+                g = se_gate(e.p[name], rp[2]).repeat(1, 3)
+                outs.append((rp[0], rp[1] * g[:, None, :]))
+
+
+def phase14(dg, eng3, gen, dev, counters, card):
+    """The classifier's round and edge trunks: 5 requests of (128, 1024, 3)
+    each, launches per request checked, top-1 against the plain engine and
+    against the round3 engine; round against the round2 engine (bitwise
+    expected); then the part segmenter asked for "round" and "edge", which
+    launches the round2 kernels only (C14)."""
+    import torch
+
+    out = {}
+    for impl, want_per in (
+            ("round", {"sv_round_first": 1, "sv_round": 3,
+                       "sv_point_block": 1}),
+            ("edge", {"knn": 4, "sv_edge_first_block": 1, "sv_edge_block": 3,
+                      "sv_point_block": 1})):
+        engs = dg[f"cls {impl}"]
+        requests = [(cloud(B, N, gen, dev),) for _ in range(REQUESTS)]
+        got, want, _, launches = serve(
+            f"phase 14 {impl}", engs["kernel"], engs["oracle"], requests,
+            counters, want_per, card)
+        if (got.shape != (REQUESTS * B, CLASSES)
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"phase 14 {impl}: logits {tuple(got.shape)} "
+                                 f"not finite ({REQUESTS * B}, {CLASSES})")
+        agreement(f"phase 14 {impl}: vs its plain engine", got, want)
+        r3 = torch.cat([eng3(*req) for req in requests])
+        agreement(f"phase 14 {impl}: vs the round3 engine", got, r3)
+        if impl == "round":
+            r2 = torch.cat([dg["cls round2"]["kernel"](*req) for req in requests])
+            log(f"phase 14 round: bitwise the round2 engine {torch_equal(got, r2)}")
+        out[impl] = launches
+    req = (cloud(B_PSEG, N_PSEG, gen, dev), labels(B_PSEG, gen, dev))
+    r2 = dg["pseg round2"]["kernel"](*req)
+    for impl in ("round", "edge"):
+        before = [fn.launches for fn in counters]
+        got = dg[f"pseg {impl}"]["kernel"](*req)
+        sync(dev)
+        per = {fn.__name__: fn.launches - b0
+               for fn, b0 in zip(counters, before) if fn.launches - b0}
+        want = {"sv_round2_first": 1, "sv_round2": 3, "sv_point_block": 1}
+        if per != want:
+            raise AssertionError(f"phase 14 pseg {impl}: launches {per} != {want}")
+        log(f"phase 14: partseg asked for {impl!r} launches {per}; bitwise the "
+            f"round2 engine {torch_equal(got, r2)}")
+    return out
+
+
+def phase15(rep, counters, card):
+    """Kernel B9 through the bench's main at the bench's shape and at a
+    ragged one: exact against the dense product and bitwise against the
+    plain version (main raises otherwise), and the kernel's, the int8
+    and the bf16 library products' times. Its launches are the bench's:
+    the checks and every timed call."""
+    from svnet_tpu_torch.ops.kernels import binary_matmul as kb
+    from svnet_tpu_torch.utils import bench_binary_matmul
+
+    for fn in counters:
+        fn.launches = 0
+    for M, Kd, Nd in ((4096, 2048, 512), (1000, 96, 77)):
+        res = bench_binary_matmul.main(M, Kd, Nd)
+        L = Kd // 32
+        cost = bound(0.0, 4.0 * (M * L + Nd * L + M * Nd), 2.0 * M * Kd * Nd)
+        log(f"phase 15: ({M}, {Kd}, {Nd}) exact {res['exact_vs_dense']}, "
+            f"bitwise the plain version {res['bitwise_vs_plain']}; kernel "
+            f"{res['kernel_ms']} ms (with the packing {res['call_ms']}), plain "
+            f"{res['plain_ms']}, torch._int_mm {res['int8_ms']} (exact "
+            f"{res['int8_exact']}), bf16 torch.mm {res['bf16_ms']} (exact "
+            f"{res['bf16_exact']}), bound {cost} | {card}")
+        # the kernels line times the bench's own shape, the first; its
+        # library call is the faster of the two exact products
+        rep.add("xnor_popcount", 0.0, *((res["kernel_ms"], res["plain_ms"],
+                                          cost, min(res["int8_ms"],
+                                                    res["bf16_ms"]))
+                                         if M == 4096 else ()))
+    return {"xnor_popcount": kb.xnor_popcount.launches}
 
 
 def pointnet_engines(dev):
@@ -1265,11 +1456,15 @@ def main() -> int:
     from svnet_tpu_torch.models.sv_dgcnn import init_params
     from svnet_tpu_torch.ops import rotations
     from svnet_tpu_torch.ops.kernels import _build
+    from svnet_tpu_torch.ops.kernels import binary_matmul as kbm
     from svnet_tpu_torch.ops.kernels import edge_gather as eg
     from svnet_tpu_torch.ops.kernels import knn as kk
     from svnet_tpu_torch.ops.kernels import sv_block_point as kb
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kef
     from svnet_tpu_torch.ops.kernels import sv_point as kp
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
     from svnet_tpu_torch.ops.kernels import sv_round2 as k2
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
     from svnet_tpu_torch.ops.kernels import sv_round3_train as krt
@@ -1311,6 +1506,8 @@ def main() -> int:
                             ("pseg round2", (B_PSEG, N_PSEG, K_PSEG))):
         phase2(rep, name.split()[0], dg[name]["kernel"], dg[name]["kernel_fp"],
                gen, dev, b, n, k)
+    phase2_round_edge(rep, eng, eng_fp, gen, dev, B, N, K, True)
+    phase2_round_edge(rep, eng, eng_fp, gen, dev, 8, N_RAGGED, 7, False)
     p_bin = tree_map(lambda t: t.to(dev), w_bin["params"])
     p_fp = tree_map(lambda t: t.to(dev), w_fp["params"])
     phase2_train(rep, p_bin, p_fp, gen, dev)
@@ -1325,7 +1522,9 @@ def main() -> int:
                 kf.sv_first_train_fwd, kf.sv_first_train_bwd,
                 krt.sv_round3_train_fwd, krt.sv_round3_train_bwd,
                 kb.sv_block_point, eg.edge_gather_fwd, eg.edge_gather_bwd,
-                k2.sv_round2_first, k2.sv_round2, kp.sv_point_block)
+                k2.sv_round2_first, k2.sv_round2, kp.sv_point_block,
+                k1.sv_round_first, k1.sv_round, kef.sv_edge_first_block,
+                ke.sv_edge_block, kbm.xnor_popcount)
     requests = [cloud(B, N, gen, dev) for _ in range(REQUESTS)]
     eng(requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -1342,10 +1541,10 @@ def main() -> int:
         torch.cuda.synchronize()
         lat.append(e0.elapsed_time(e1))
         per = [fn.launches - b0 for fn, b0 in zip(counters, before)]
-        if per != [1, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]:
+        if per != [1, 3, 1] + [0] * (len(counters) - 3):
             raise AssertionError(f"phase 3: launches per request {per} != "
                                  "[1, 3, 1] serving, 0 training, 0 B8, 0 B7, "
-                                 "0 round2")
+                                 "0 round2, 0 round, 0 edge, 0 B9")
         logits.append(out)
     launches = {fn.__name__: fn.launches for fn in counters}
     got = torch.cat(logits)
@@ -1415,6 +1614,16 @@ def main() -> int:
         for fn in (k2.sv_round2_first, k2.sv_round2, kp.sv_point_block):
             launches[kernel_name(fn, tag, True)] = r2_launches[fn.__name__]
 
+    # phase 14: the classifier's round and edge trunks; C14
+    trunk_launches = phase14(dg, eng, gen, dev, counters, card)
+    for impl, fns in (("round", (k1.sv_round_first, k1.sv_round)),
+                      ("edge", (kef.sv_edge_first_block, ke.sv_edge_block))):
+        for fn in fns:
+            launches[fn.__name__] = trunk_launches[impl][fn.__name__]
+
+    # phase 15: B9 through its bench
+    launches.update(phase15(rep, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -1435,6 +1644,17 @@ def main() -> int:
                                   "svnet_tpu/ops/pallas/edge_gather.py:92"),
               "edge_gather_bwd": ("svnet_tpu_torch/csrc/edge_gather.cu",
                                   "svnet_tpu/ops/pallas/edge_gather.py:92")}
+    src_of.update({
+        "sv_round_first": ("svnet_tpu_torch/csrc/sv_round.cu",
+                           "svnet_tpu/ops/pallas/sv_round.py:361"),
+        "sv_round": ("svnet_tpu_torch/csrc/sv_round.cu",
+                     "svnet_tpu/ops/pallas/sv_round.py:423"),
+        "sv_edge_first_block": ("svnet_tpu_torch/csrc/sv_edge.cu",
+                                "svnet_tpu/ops/pallas/sv_edge_first.py:114"),
+        "sv_edge_block": ("svnet_tpu_torch/csrc/sv_edge.cu",
+                          "svnet_tpu/ops/pallas/sv_edge.py:168"),
+        "xnor_popcount": ("svnet_tpu_torch/csrc/binary_matmul.cu",
+                          "svnet_tpu/ops/pallas/binary_matmul.py:77")})
     for tag in ("cls", "pseg"):
         src_of[f"sv_round2_first {tag}"] = (
             "svnet_tpu_torch/csrc/sv_round2.cu",

@@ -1,6 +1,8 @@
 // The block kernels of the exact-mode fused rounds, shared by the
-// channel-major round3 launchers (sv_round3_first.cu, sv_round3.cu) and
-// the row-major round2 launchers (sv_round2.cu). Each kernel is a template
+// channel-major round3 launchers (sv_round3_first.cu, sv_round3.cu), the
+// row-major round2 and round launchers (sv_round2.cu, sv_round.cu) and the
+// row-major launchers that take the caller's neighbour ids (sv_edge.cu,
+// through sv_first_block and sv_conv_block). Each kernel is a template
 // on the layout: with ROW the source, the outputs and the neighbour ids
 // are row-major -- a neighbour is one contiguous row (B, N, C), the ids
 // (B, N, k) -- else channel-major (B, C, N) with ids (B, k, N). Only the
@@ -139,8 +141,31 @@ sv_first_block_kernel(
   }
 }
 
-// Selection over the xyz points (C = 3), then the block kernel for the
-// edge channel count (2, or 3 with cross) and the vector width (10 or 16).
+// The block kernel on the caller's neighbour ids, for the edge channel
+// count (2, or 3 with cross) and the vector width (10 or 16).
+template <bool ROW>
+static int sv_first_block(const float* pts, const int* wins, const float* wz0,
+                          const float* wz1, const float* w1, const float* a1,
+                          const float* b1, const float* w2, const float* a2,
+                          const float* b2, float* s_out, float* v_out,
+                          float* ssum, int B, int N, int k, int S_out,
+                          int V_out, int cross, cudaStream_t st) {
+  if (S_out != F_S_OUT || (V_out != 10 && V_out != 16))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + F_THREADS - 1) / F_THREADS, B);
+#define SV_FIRST(NCH, VO)                                                   \
+  sv_first_block_kernel<NCH, VO, ROW><<<grid, F_THREADS, 0, st>>>(          \
+      pts, wins, wz0, wz1, w1, a1, b1, w2, a2, b2, s_out, v_out, ssum, N, k)
+  if (cross) {
+    if (V_out == 10) SV_FIRST(3, 10); else SV_FIRST(3, 16);
+  } else {
+    if (V_out == 10) SV_FIRST(2, 10); else SV_FIRST(2, 16);
+  }
+#undef SV_FIRST
+  return (int)cudaGetLastError();
+}
+
+// Selection over the xyz points (C = 3), then the block kernel.
 template <bool ROW>
 static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           const float* wz1, const float* w1, const float* a1,
@@ -153,17 +178,9 @@ static int sv_first_round(const float* pts, float* aa, const float* wz0,
   cudaError_t err = sv_knn_select(pts, aa, wins, B, N, 3, k, st,
                                   /*point_major=*/ROW, /*row_major=*/ROW);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + F_THREADS - 1) / F_THREADS, B);
-#define SV_FIRST(NCH, VO)                                                   \
-  sv_first_block_kernel<NCH, VO, ROW><<<grid, F_THREADS, 0, st>>>(          \
-      pts, wins, wz0, wz1, w1, a1, b1, w2, a2, b2, s_out, v_out, ssum, N, k)
-  if (cross) {
-    if (V_out == 10) SV_FIRST(3, 10); else SV_FIRST(3, 16);
-  } else {
-    if (V_out == 10) SV_FIRST(2, 10); else SV_FIRST(2, 16);
-  }
-#undef SV_FIRST
-  return (int)cudaGetLastError();
+  return sv_first_block<ROW>(pts, wins, wz0, wz1, w1, a1, b1, w2, a2, b2,
+                             s_out, v_out, ssum, B, N, k, S_out, V_out, cross,
+                             st);
 }
 
 // ---------------------------------------------------------------------------
@@ -183,7 +200,9 @@ struct R3Smem {
   size_t ctr, X, VE, Z, Y, sacc, vacc, sesum, rows, total;
 };
 
-static R3Smem r3_layout(int S, int V, int S_out, int V_out) {
+// ``stats``: room for the per-point sums of the edge scalars (the gate
+// statistics); the gated variant emits none.
+static R3Smem r3_layout(int S, int V, int S_out, int V_out, bool stats = true) {
   const int C = S + 3 * V, twoV = 2 * V, IN1 = 2 * S + 6 * V;
   R3Smem L;
   size_t o = 0;
@@ -195,16 +214,20 @@ static R3Smem r3_layout(int S, int V, int S_out, int V_out) {
   L.Y = take((size_t)R3_E * S_out);
   L.sacc = take((size_t)R3_TP * S_out);
   L.vacc = take((size_t)R3_TP * 3 * V_out);
-  L.sesum = take((size_t)R3_TP * (2 * S > 0 ? 2 * S : 1));
+  L.sesum = stats ? take((size_t)R3_TP * (2 * S > 0 ? 2 * S : 1)) : take(0);
   L.rows = take(R3_E);
   L.total = o;
   return L;
 }
 
-template <bool ROW>
+// GATED: v leaves gated, (sum * (1/k)) * gate[b, o] with gate (B, V_out),
+// and no gate statistics are summed (ssum unused); else v leaves ungated
+// and ssum takes the per-point sums of the edge scalars.
+template <bool ROW, bool GATED = false>
 static __global__ void __launch_bounds__(R3_THREADS)
 sv_round_block_kernel(
     const float* __restrict__ src, const int* __restrict__ wins,
+    const float* __restrict__ gate,
     const float* __restrict__ wz, const float* __restrict__ w1,
     const float* __restrict__ beta, const float* __restrict__ a1,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -238,7 +261,8 @@ sv_round_block_kernel(
   }
   for (int i = tid; i < R3_TP * S_out; i += nth) sacc[i] = -INFINITY;
   for (int i = tid; i < R3_TP * 3 * V_out; i += nth) vacc[i] = 0.f;
-  for (int i = tid; i < R3_TP * 2 * S; i += nth) sesum[i] = 0.f;
+  if constexpr (!GATED)
+    for (int i = tid; i < R3_TP * 2 * S; i += nth) sesum[i] = 0.f;
 
   for (int r0 = 0; r0 < k; r0 += R3_G) {
     for (int e = tid; e < R3_E; e += nth) {
@@ -265,13 +289,14 @@ sv_round_block_kernel(
     }
     __syncthreads();
     // gate statistics: per-point sums of the raw edge scalars, rank by rank
-    for (int i = tid; i < R3_TP * 2 * S; i += nth) {
-      const int t = i / (2 * S), ch = i % (2 * S);
-      for (int g = 0; g < R3_G; ++g) {
-        const int e = t * R3_G + g;
-        if (rows[e] >= 0) sesum[i] += X[(size_t)e * IN1 + ch];
+    if constexpr (!GATED)
+      for (int i = tid; i < R3_TP * 2 * S; i += nth) {
+        const int t = i / (2 * S), ch = i % (2 * S);
+        for (int g = 0; g < R3_G; ++g) {
+          const int e = t * R3_G + g;
+          if (rows[e] >= 0) sesum[i] += X[(size_t)e * IN1 + ch];
+        }
       }
-    }
     // Vector2Scalar frame z_i[j] = sum_c v_e[i][c] * wz[c][j]
     for (int i = tid; i < R3_E * 9; i += nth) {
       const int e = i / 9, i3 = (i % 9) / 3, j = i % 3;
@@ -333,6 +358,12 @@ sv_round_block_kernel(
   }
 
   const float inv_k = (float)(1.0 / k);
+  // the pooled vector of output channel q = i3*V_out + o
+  auto vmean = [&](int t, int q) {
+    const float m = vacc[(size_t)t * 3 * V_out + q] * inv_k;
+    if constexpr (GATED) return m * gate[(size_t)b * V_out + q % V_out];
+    return m;
+  };
   if constexpr (ROW) {  // a point's outputs are one contiguous row
     for (int i = tid; i < R3_TP * S_out; i += nth) {
       const int t = i / S_out, o = i % S_out, n = n0 + t;
@@ -340,7 +371,7 @@ sv_round_block_kernel(
     }
     for (int i = tid; i < R3_TP * 3 * V_out; i += nth) {
       const int t = i / (3 * V_out), q = i % (3 * V_out), n = n0 + t;
-      if (n < N) v_out[((size_t)b * N + n) * 3 * V_out + q] = vacc[i] * inv_k;
+      if (n < N) v_out[((size_t)b * N + n) * 3 * V_out + q] = vmean(t, q);
     }
   } else {
     for (int i = tid; i < R3_TP * S_out; i += nth) {
@@ -349,15 +380,37 @@ sv_round_block_kernel(
     }
     for (int i = tid; i < R3_TP * 3 * V_out; i += nth) {
       const int q = i / R3_TP, t = i % R3_TP, n = n0 + t;  // q = i3*V_out + o
-      if (n < N)
-        v_out[((size_t)b * 3 * V_out + q) * N + n] =
-            vacc[(size_t)t * 3 * V_out + q] * inv_k;
+      if (n < N) v_out[((size_t)b * 3 * V_out + q) * N + n] = vmean(t, q);
     }
   }
-  for (int i = tid; i < R3_TP * 2 * S; i += nth) {
-    const int ch = i / R3_TP, t = i % R3_TP, n = n0 + t;
-    if (n < N) ssum[((size_t)b * 2 * S + ch) * N + n] = sesum[t * 2 * S + ch];
-  }
+  if constexpr (!GATED)
+    for (int i = tid; i < R3_TP * 2 * S; i += nth) {
+      const int ch = i / R3_TP, t = i % R3_TP, n = n0 + t;
+      if (n < N) ssum[((size_t)b * 2 * S + ch) * N + n] = sesum[t * 2 * S + ch];
+    }
+}
+
+// The block kernel on the caller's neighbour ids (GATED: v gated, no
+// statistics).
+template <bool ROW, bool GATED>
+static int sv_conv_block(const float* src, const int* wins, const float* gate,
+                         const float* wz, const float* w1, const float* beta,
+                         const float* a1, const float* b1, const float* w2,
+                         const float* scale2, const float* a2, const float* b2,
+                         float* s_out, float* v_out, float* ssum, int B, int N,
+                         int S, int V, int S_out, int V_out, int k, int binary,
+                         cudaStream_t st) {
+  const R3Smem L = r3_layout(S, V, S_out, V_out, /*stats=*/!GATED);
+  if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sv_round_block_kernel<ROW, GATED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + R3_TP - 1) / R3_TP, B);
+  sv_round_block_kernel<ROW, GATED><<<grid, R3_THREADS, L.total, st>>>(
+      src, wins, gate, wz, w1, beta, a1, b1, w2, scale2, a2, b2, s_out, v_out,
+      ssum, L, N, S, V, S_out, V_out, k, binary);
+  return (int)cudaGetLastError();
 }
 
 // Selection over the joint features, then the block kernel.
@@ -369,18 +422,12 @@ static int sv_conv_round(const float* src, float* aa, const float* wz,
                          float* v_out, float* ssum, int* wins, int B, int N,
                          int S, int V, int S_out, int V_out, int k, int binary,
                          cudaStream_t st) {
-  const R3Smem L = r3_layout(S, V, S_out, V_out);
-  if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (r3_layout(S, V, S_out, V_out).total > SV_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(src, aa, wins, B, N, S + 3 * V, k, st,
                                   /*point_major=*/ROW, /*row_major=*/ROW);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(sv_round_block_kernel<ROW>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + R3_TP - 1) / R3_TP, B);
-  sv_round_block_kernel<ROW><<<grid, R3_THREADS, L.total, st>>>(
-      src, wins, wz, w1, beta, a1, b1, w2, scale2, a2, b2, s_out, v_out,
-      ssum, L, N, S, V, S_out, V_out, k, binary);
-  return (int)cudaGetLastError();
+  return sv_conv_block<ROW, false>(src, wins, nullptr, wz, w1, beta, a1, b1,
+                                   w2, scale2, a2, b2, s_out, v_out, ssum, B,
+                                   N, S, V, S_out, V_out, k, binary, st);
 }

@@ -2,13 +2,21 @@
 segmentation (counterparts of svnet_tpu/infer.py:227-855) and SV-PointNet
 classification and part segmentation (svnet_tpu/infer.py:857-1167).
 
-The SV-DGCNN engines run one of two trunks, chosen by ``rounds_impl``:
+The SV-DGCNN engines run one of four trunks, chosen by ``rounds_impl``:
 
   "round3" (the default) keeps activations channel-major (B, C, N):
   sv_round3_first -> gate -> sv_round3 x3 (conv2..conv4, gate after each)
   -> sv_point_block_cm (conv5 + SVFuse)
   "round2", the legacy row-major trunk, keeps them (B, N, C):
   sv_round2_first -> gate -> sv_round2 x3 -> sv_point_block
+  "round" (classifier): sv_round_first -> gate -> sv_round x3, each gated
+  here, as round2 -> sv_point_block
+  "edge" (classifier): knn -> sv_edge_first_block -> gate, then per conv
+  round knn over the joint features -> svblock_gate -> sv_edge_block (the
+  gate applied inside) -> sv_point_block
+
+(the part segmenter runs round2 for "round" and "edge", as the JAX
+engine does; an unknown name raises)
 
 then the head: classification pools max+mean over the points into the MLP
 head; part segmentation adds the fine per-point features (svfuse1), the
@@ -58,6 +66,21 @@ from svnet_tpu_torch.ops.kernels.sv_point import (
     sv_point_block_cm_plain,
     sv_point_block_plain,
 )
+from svnet_tpu_torch.ops.kernels.sv_edge import (
+    svblock_gate,
+    sv_edge_block,
+    sv_edge_block_plain,
+)
+from svnet_tpu_torch.ops.kernels.sv_edge_first import (
+    sv_edge_first_block,
+    sv_edge_first_block_plain,
+)
+from svnet_tpu_torch.ops.kernels.sv_round import (
+    sv_round,
+    sv_round_first,
+    sv_round_first_plain,
+    sv_round_plain,
+)
 from svnet_tpu_torch.ops.kernels.sv_round2 import (
     sv_round2,
     sv_round2_first,
@@ -97,23 +120,70 @@ def point_v_off(base: int, vdims) -> tuple:
 ROUNDS = dgcnn_rounds(CLS_DIMS)
 POINT_V_OFF = point_v_off(256, [V for _, V in CLS_DIMS.values()])
 
-ROUNDS_IMPLS = ("round3", "round2")
-UNPORTED_ROUNDS = {
-    "round": "kernel B10a (svnet_tpu/ops/pallas/sv_round.py::sv_round_first "
-             "and ::sv_round)",
-    "edge": "kernels B10c and B10d (svnet_tpu/ops/pallas/sv_edge.py::"
-            "sv_edge_block, sv_edge_first.py::sv_edge_first_block)",
+ROUNDS_IMPLS = ("round3", "round2", "round", "edge")
+
+
+def _host_gated(rnd, rm: bool = True):
+    """A round that returns (s, ungated v, gate mean, ...), with its v gated
+    here by the SE gate of that mean: (x, folded, p, **kw) -> (s, gated v)."""
+    def run(x, folded, p, **kw):
+        s, v, mean = rnd(x, folded, **kw)[:3]
+        g = se_gate(p, mean).repeat(1, 3)
+        return s, v * (g[:, None, :] if rm else g[:, :, None])
+    return run
+
+
+def _gated_trunk(first, rnd, point, rm: bool = True):
+    """A trunk of fused rounds (kNN inside), each gated here; first, rnd
+    and point are (kernel, plain) pairs."""
+    def build(oracle: bool):
+        return (_host_gated(first[oracle], rm), _host_gated(rnd[oracle], rm),
+                point[oracle])
+    return build
+
+
+def _edge_trunk(oracle: bool):
+    """The edge trunk: each round on its own kNN ids (B4, or ``knn_plain``
+    with ``oracle``); the first round gated here from its s_mean, a conv
+    round's gate computed from the ids (``svblock_gate``) and applied
+    inside the block."""
+    knn = ops.knn_plain if oracle else ops.knn
+    first = (sv_edge_first_block, sv_edge_first_block_plain)[oracle]
+    block = (sv_edge_block, sv_edge_block_plain)[oracle]
+
+    def first_round(points, folded, **kw):
+        return first(points, knn(points, kw["k"]), folded, **kw)
+
+    def conv_round(joint, folded, p, *, S, k, **kw):
+        idx = knn(joint, k)
+        gate = svblock_gate(p, joint[..., :S].contiguous(), idx)
+        return block(joint, idx, gate, folded, S=S, k=k, **kw)
+
+    return (_host_gated(first_round), conv_round,
+            (sv_point_block, sv_point_block_plain)[oracle])
+
+
+# trunk -> build(oracle) -> (first round, conv round, point block); a round
+# is (x, folded, p, **dims) -> (s, gated v)
+TRUNKS = {
+    "round3": _gated_trunk((sv_round3_first, sv_round3_first_plain),
+                           (sv_round3, sv_round3_plain),
+                           (sv_point_block_cm, sv_point_block_cm_plain),
+                           rm=False),
+    "round2": _gated_trunk((sv_round2_first, sv_round2_first_plain),
+                           (sv_round2, sv_round2_plain),
+                           (sv_point_block, sv_point_block_plain)),
+    "round": _gated_trunk((sv_round_first, sv_round_first_plain),
+                          (sv_round, sv_round_plain),
+                          (sv_point_block, sv_point_block_plain)),
+    "edge": _edge_trunk,
 }
 
 
 def check_rounds_impl(rounds_impl: str) -> str:
-    if rounds_impl in UNPORTED_ROUNDS:
-        raise NotImplementedError(
-            f"rounds_impl={rounds_impl!r} runs {UNPORTED_ROUNDS[rounds_impl]}, "
-            "which is not ported yet")
     if rounds_impl not in ROUNDS_IMPLS:
         raise ValueError(f"rounds_impl {rounds_impl!r}; expected one of "
-                         f"{ROUNDS_IMPLS + tuple(UNPORTED_ROUNDS)}")
+                         f"{ROUNDS_IMPLS}")
     return rounds_impl
 
 
@@ -231,22 +301,17 @@ def _svblock_eval(p: dict, st: dict, s: torch.Tensor, v: torch.Tensor,
 
 class _DGCNNEngine:
     """What the two SV-DGCNN engines share: the device, the folds, the
-    trunk (``rounds_impl``) and conv5 + the SVFuse at ``fuse_key``."""
+    trunk (``trunk``, from the caller's ``rounds_impl``) and conv5 + the
+    SVFuse at ``fuse_key``. ``oracle`` runs every kernel's plain version,
+    the kNN's included."""
 
     def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
                  k: int, binary: bool, mode: str, device, oracle: bool,
-                 rounds_impl: str):
+                 trunk: str):
         self.mode = config.check_mode(mode)
-        self.rounds_impl = check_rounds_impl(rounds_impl)
-        self.row_major = rounds_impl == "round2"
-        if self.row_major:
-            fns = ((sv_round2_first_plain, sv_round2_plain, sv_point_block_plain)
-                   if oracle else (sv_round2_first, sv_round2, sv_point_block))
-        else:
-            fns = ((sv_round3_first_plain, sv_round3_plain,
-                    sv_point_block_cm_plain) if oracle
-                   else (sv_round3_first, sv_round3, sv_point_block_cm))
-        self._first, self._round, self._point = fns
+        self.trunk = trunk
+        self.row_major = trunk != "round3"
+        self._first, self._round, self._point = TRUNKS[trunk](oracle)
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
@@ -277,26 +342,19 @@ class _DGCNNEngine:
 
     def _trunk(self, points: torch.Tensor):
         """The four rounds, each round's v gated. round3: s (B, S_c, N) and
-        v (B, 3V_c, N) as per-round j-major blocks; round2: s (B, N, S_c)
-        and v (B, N, 3, V_c)."""
+        v (B, 3V_c, N) as per-round j-major blocks; the row-major trunks:
+        s (B, N, S_c) and v (B, N, 3, V_c)."""
         p, k, rm = self.p, self.k, self.row_major
         B, N, _ = points.shape
         dim = -1 if rm else 1  # the channel axis
-
-        def gated(v, name, mean):
-            g = se_gate(p[name], mean).repeat(1, 3)
-            return v * (g[:, None, :] if rm else g[:, :, None])
-
         S1, V1 = self.dims["conv1"]
-        s1, v1, s_mean = self._first(points, self.folded_first, S_out=S1,
-                                     V_out=V1, k=k)[:3]
-        outs = [(s1, gated(v1, "conv1", s_mean))]
+        outs = [self._first(points, self.folded_first, p["conv1"], S_out=S1,
+                            V_out=V1, k=k)]
         for name, (S, V, S_out, V_out) in self.rounds.items():
             joint = torch.cat(outs[-1], dim=dim)
-            so, vo, se_mean = self._round(
-                joint, self.folded[name], S=S, V=V, S_out=S_out,
-                V_out=V_out, k=k, binary=self.binary)[:3]
-            outs.append((so, gated(vo, name, se_mean)))
+            outs.append(self._round(joint, self.folded[name], p[name], S=S,
+                                    V=V, S_out=S_out, V_out=V_out, k=k,
+                                    binary=self.binary))
         s = torch.cat([o[0] for o in outs], dim=dim)
         if rm:
             return s, torch.cat([o[1].reshape(B, N, 3, -1) for o in outs], -1)
@@ -321,8 +379,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     ``init_params`` or ``utils.convert.from_flax``); call on (B, N, 3)
     float32 points on ``device``: the card unless the caller passes
     ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
-    default) or the legacy row-major "round2"; "round" and "edge" need
-    kernels not ported yet and raise.
+    default), the legacy row-major "round2", "round" (kernel B10a) or
+    "edge" (a separate kNN, kernels B10d and B10c).
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
@@ -332,7 +390,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3"):
         super().__init__(weights, CLS_DIMS, (1024 // 2, 1024 // 6), "svfuse",
-                         k, binary, mode, device, oracle, rounds_impl)
+                         k, binary, mode, device, oracle,
+                         check_rounds_impl(rounds_impl))
         self.num_classes = num_classes
         # the tail emits SVFuse channels j-major; the head's first linear
         # takes its rows in that order
@@ -361,8 +420,9 @@ class SVDGCNNClsEngine(_DGCNNEngine):
 class SVDGCNNPsegEngine(_DGCNNEngine):
     """SV-DGCNN part segmentation, exact mode (svnet_tpu/infer.py:533-855);
     built, placed and switched (``rounds_impl``, ``oracle``) as
-    ``SVDGCNNClsEngine``. Call on (B, N, 3) float32 points and the (B, 16)
-    one-hot object category; returns (B, N, num_part) logits.
+    ``SVDGCNNClsEngine``, but for "round" and "edge", which run the round2
+    trunk, as the JAX engine does. Call on (B, N, 3) float32 points and the
+    (B, 16) one-hot object category; returns (B, N, num_part) logits.
 
     The round3 tail stays channel-major: the fine features' j-outer and the
     embedding's j-major SVFuse channels are folded into conv8's rows
@@ -372,8 +432,10 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
     def __init__(self, weights: dict, num_part: int = 50, k: int = 40,
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3"):
+        trunk = check_rounds_impl(rounds_impl)
         super().__init__(weights, PSEG_TRUNK, PSEG_DIMS["conv5"], "svfuse3",
-                         k, binary, mode, device, oracle, rounds_impl)
+                         k, binary, mode, device, oracle,
+                         "round3" if trunk == "round3" else "round2")
         self.num_part = num_part
         p = self.p
         self.v_off0 = point_v_off(0, [V for _, V in self.dims.values()])

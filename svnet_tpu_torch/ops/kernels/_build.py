@@ -51,6 +51,16 @@ SIGNATURES = {
     "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
     "sv_point_rm_launch": [_P] * 15 + [_I] * 7 + [_P],
+    # B10a, as the round2 entry points
+    "sv_round_first_launch": [_P] * 14 + [_I] * 6 + [_P],
+    "sv_round_launch": [_P] * 15 + [_I] * 8 + [_P],
+    # pts, ids, 8 weights, s_out, v_out, ssum; B N k S_out V_out; stream
+    "sv_edge_first_launch": [_P] * 13 + [_I] * 5 + [_P],
+    # src, ids, gate, 9 weights, s_out, v_out; B N S V S_out V_out k
+    # binary; stream
+    "sv_edge_launch": [_P] * 14 + [_I] * 8 + [_P],
+    # xp, wp, out; M N L; stream
+    "xnor_popcount_launch": [_P] * 3 + [_I] * 3 + [_P],
     # src, gate, 9 weights, s_out, v_out; B N S V S_out V_out binary; stream
     "sv_block_point_launch": [_P] * 13 + [_I] * 7 + [_P],
     # S V S_out V_out -> points per block

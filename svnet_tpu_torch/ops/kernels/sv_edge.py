@@ -1,0 +1,112 @@
+"""The ids-consuming conv round, exact mode, kernel B10c (counterpart of
+svnet_tpu/ops/pallas/sv_edge.py::sv_edge_block), and its host gate
+``svblock_gate`` (sv_edge.py:286-306): the classifier's
+``rounds_impl="edge"`` trunk, whose neighbour ids come from a separate kNN.
+
+``sv_edge_block(src (B, N, S + 3V), idx (B, N, k) int32, gate (B, V_out))``
+returns ``s (B, N, S_out)`` and ``v (B, N, 3*V_out)`` GATED: the mean over
+k times the gate, as the JAX kernel applies it. There are no gate
+statistics: the gate comes in. The ids are checked (shape, int32, device)
+and an id outside [0, N) raises, on any device: JAX's one-hot gather
+would read a zero row there; the port refuses.
+
+A CPU tensor goes to the plain version; a CUDA tensor launches
+csrc/sv_edge.cu or raises. ``sv_edge_block.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from svnet_tpu_torch.config import require_cuda
+from svnet_tpu_torch.ops.kernels import _build
+from svnet_tpu_torch.ops.kernels.fold import Folded
+from svnet_tpu_torch.ops.kernels.sv_round3 import conv_block_rows
+
+
+def check_ids(idx: torch.Tensor, B: int, N: int, k: int, device) -> None:
+    """Neighbour ids (B, N, k) int32 on ``device``, every id in [0, N)."""
+    if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32:
+        raise TypeError(f"idx: expected an int32 tensor, got "
+                        f"{getattr(idx, 'dtype', type(idx).__name__)}")
+    if tuple(idx.shape) != (B, N, k):
+        raise ValueError(f"idx: shape {tuple(idx.shape)}, expected {(B, N, k)}")
+    if idx.device != device:
+        raise ValueError(f"idx: on {idx.device}, expected {device}")
+    lo, hi = torch.aminmax(idx)
+    if int(lo) < 0 or int(hi) >= N:
+        raise ValueError(f"idx: ids in [{int(lo)}, {int(hi)}] leave [0, {N})")
+
+
+def svblock_gate(p: dict, s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """An SVBlock's SE gate from the mean of its edge scalars over (N, k),
+    without the edges: the centre half is the mean of s, the neighbour
+    half the in-degree-weighted mean; s (B, N, S), idx (B, N, k) ->
+    (B, V_out). The degrees are counted as integers (exact whatever the
+    order of the scatter), then made float."""
+    B, N, _ = s.shape
+    k = idx.shape[-1]
+    flat = idx.reshape(B, -1).long()
+    counts = torch.zeros((B, N), dtype=torch.int64, device=s.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    mean_nbr = torch.einsum("bn,bns->bs", counts.to(s.dtype), s) / (N * k)
+    mean_ctr = torch.mean(s, dim=1)
+    g = torch.cat([mean_nbr - mean_ctr, mean_ctr], dim=-1)  # (B, 2S)
+    g = torch.relu(g @ p["gate_fc1"]["kernel"])
+    return torch.sigmoid(g @ p["gate_fc2"]["kernel"])
+
+
+def sv_edge_block_plain(src: torch.Tensor, idx: torch.Tensor,
+                        gate: torch.Tensor, folded: Folded, *, S: int, V: int,
+                        S_out: int, V_out: int, k: int, binary: bool):
+    """Plain version: the round3 plain core on the given ids, v pooled
+    then gated."""
+    B, N, _ = src.shape
+    s, vm, _ = conv_block_rows(src, idx, folded, S=S, V=V, S_out=S_out,
+                               V_out=V_out, binary=binary)
+    return s, (vm * gate[:, None, None, :]).reshape(B, N, 3 * V_out)
+
+
+def sv_edge_block(src: torch.Tensor, idx: torch.Tensor, gate: torch.Tensor,
+                  folded: Folded, *, S: int, V: int, S_out: int, V_out: int,
+                  k: int, binary: bool = True):
+    """src (B, N, S+3V) row-major [s | v i-major], idx (B, N, k) int32,
+    gate (B, V_out) -> (s (B, N, S_out), v (B, N, 3*V_out) gated)."""
+    C = S + 3 * V
+    if src.dim() != 3 or src.shape[-1] != C:
+        raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, N, {C})")
+    B, N, _ = src.shape
+    if not 1 <= k <= N:
+        raise ValueError(f"k={k} must lie in [1, N={N}]")
+    check_ids(idx, B, N, k, src.device)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary)
+    if src.device.type == "cpu":
+        return sv_edge_block_plain(src, idx, gate, folded, **kw)
+    dev = require_cuda(src.device)
+    _build.check_arg(src, "src", (B, N, C), dev)
+    _build.check_arg(gate, "gate", (B, V_out), dev)
+    if not idx.is_contiguous():
+        raise ValueError("idx: must be contiguous")
+    IN1, f = 2 * S + 6 * V, folded
+    w = [_build.check_arg(f["wz"], "wz", (2 * V, 3), dev),
+         _build.check_arg(f["w1"], "w1", (IN1, S_out), dev),
+         _build.check_arg(f["beta"], "beta", (1, IN1), dev),
+         _build.check_arg(f["a1"], "a1", (1, S_out), dev),
+         _build.check_arg(f["b1"], "b1", (1, S_out), dev),
+         _build.check_arg(f["w2"], "w2", (2 * V, V_out), dev),
+         _build.check_arg(f["scale2"], "scale2", (1, V_out), dev),
+         _build.check_arg(f["a2"], "a2", (1, V_out), dev),
+         _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
+    lib = _build.lib()
+    s = torch.empty((B, N, S_out), device=dev)
+    v = torch.empty((B, N, 3 * V_out), device=dev)
+    err = lib.sv_edge_launch(
+        src.data_ptr(), idx.data_ptr(), gate.data_ptr(), *w, s.data_ptr(),
+        v.data_ptr(), B, N, S, V, S_out, V_out, k, int(binary),
+        _build.stream_ptr(dev))
+    _build.check(err, "sv_edge_block")
+    sv_edge_block.launches += 1
+    return s, v
+
+
+sv_edge_block.launches = 0

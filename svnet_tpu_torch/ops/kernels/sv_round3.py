@@ -86,13 +86,13 @@ def first_perm(n_ch: int = 2) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
-def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
-                     V_out: int, k: int, cross: bool = False):
-    """The first round's function on row-major outputs, shared by the plain
-    versions of both layouts: (s (B, N, S_out), v (B, N, 3*V_out) ungated,
-    s_mean (B, 3*n_ch) c-major, ids (B, N, k) int32)."""
+def first_block_rows(points: torch.Tensor, idx: torch.Tensor, folded: Folded,
+                     *, S_out: int, V_out: int, cross: bool = False):
+    """The first round's block on the neighbour ids ``idx`` (B, N, k),
+    row-major: (s (B, N, S_out), v (B, N, 3*V_out) ungated, s_mean
+    (B, 3*n_ch) c-major). Shared by every first round's plain version."""
     B, N, _ = points.shape
-    idx = ops.knn_plain(points, k)
+    k = idx.shape[-1]
     edges = ops.get_graph_feature_cross if cross else ops.get_graph_feature
     v = edges(points, k, idx, plain=True)  # (B, N, k, 3, n_ch)
     sva = jmajor(v2s_invariants(v, ordered_matmul(v, folded["wz0"])))
@@ -104,7 +104,17 @@ def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
     s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
     vm = _rank_mean(vb)  # (B, N, 3, V_out)
     s_mean = _point_sums(sva).sum(dim=2)[:, first_perm(v.shape[-1])] / (N * k)
-    return s, vm.reshape(B, N, 3 * V_out), s_mean, idx
+    return s, vm.reshape(B, N, 3 * V_out), s_mean
+
+
+def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
+                     V_out: int, k: int, cross: bool = False):
+    """The first round's function on row-major outputs, shared by the plain
+    versions of both layouts: the kNN, then ``first_block_rows``; (s, v
+    ungated, s_mean, ids (B, N, k) int32)."""
+    idx = ops.knn_plain(points, k)
+    return (*first_block_rows(points, idx, folded, S_out=S_out, V_out=V_out,
+                              cross=cross), idx)
 
 
 def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
@@ -169,13 +179,14 @@ sv_round3_first.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
-                    S_out: int, V_out: int, k: int, binary: bool):
-    """A conv round's function on row-major x (B, N, S + 3V), shared by the
-    plain versions of both layouts: (s (B, N, S_out), v (B, N, 3*V_out)
-    ungated, s_edge_mean (B, 2S), ids (B, N, k) int32)."""
+def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
+                    S: int, V: int, S_out: int, V_out: int, binary: bool):
+    """A conv round's block on row-major x (B, N, S + 3V) and the neighbour
+    ids ``idx`` (B, N, k): (s (B, N, S_out), v (B, N, 3, V_out) ungated,
+    the edge scalars s_e (B, N, k, 2S)). Shared by every conv round's plain
+    version."""
     B, N, _ = x.shape
-    idx = ops.knn_plain(x, k)
+    k = idx.shape[-1]
     s_e, v_e = ops.get_graph_feature_sv(
         (x[..., :S], x[..., S:].reshape(B, N, 3, V)), k, idx, plain=True)
     sv = jmajor(v2s_invariants(v_e, ordered_matmul(v_e, folded["wz"])))
@@ -187,8 +198,19 @@ def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
     y = _leaky(h * folded["a1"] + folded["b1"])
     wl = ordered_matmul(v_e, folded["w2"]) * folded["scale2"]
     vb = wl * vector_bn_scale(wl, folded["a2"], folded["b2"])
-    s = torch.amax(y, dim=2)  # svpool: max over k, vector mean
-    vm = _rank_mean(vb)
+    return torch.amax(y, dim=2), _rank_mean(vb), s_e  # svpool: max, mean
+
+
+def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
+                    S_out: int, V_out: int, k: int, binary: bool):
+    """A conv round's function on row-major x (B, N, S + 3V), shared by the
+    plain versions of both layouts: the kNN, then ``conv_block_rows``;
+    (s (B, N, S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids
+    (B, N, k) int32)."""
+    B, N, _ = x.shape
+    idx = ops.knn_plain(x, k)
+    s, vm, s_e = conv_block_rows(x, idx, folded, S=S, V=V, S_out=S_out,
+                                 V_out=V_out, binary=binary)
     se_mean = _point_sums(s_e).sum(dim=2) / (N * k)
     return s, vm.reshape(B, N, 3 * V_out), se_mean, idx
 

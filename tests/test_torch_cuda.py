@@ -279,3 +279,109 @@ def test_pseg_engines_on_card():
                                    rounds_impl=impl, oracle=True)
         assert torch.equal(outs[impl], oracle(pts, label))
     assert torch.equal(outs["round2"], outs["round3"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+def test_round_and_edge_kernels_match_plain_on_card(binary):
+    """B10a (first and conv round) bitwise against its plain version and
+    against B10b; B10d and B10c on the ids of B4 bitwise against their
+    plain versions on the same ids; N and k ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config, ops
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(8)
+    eng = TorchEngine(init_params(40, 7, binary, gen), 40, 7, binary,
+                      device=dev, rounds_impl="edge")
+    pts = torch.randn(2, 203, 3, generator=gen).to(dev)
+    kw = dict(S_out=32, V_out=10, k=7)
+    got = k1.sv_round_first(pts, eng.folded_first, **kw)
+    for g, w, r2 in zip(got, k1.sv_round_first_plain(pts, eng.folded_first, **kw),
+                        k2.sv_round2_first(pts, eng.folded_first, **kw)):
+        assert torch.equal(g, w) and torch.equal(g, r2)
+    idx = ops.knn(pts, 7)
+    got = kf.sv_edge_first_block(pts, idx, eng.folded_first, **kw)
+    for g, w in zip(got, kf.sv_edge_first_block_plain(
+            pts, idx, eng.folded_first, **kw)):
+        assert torch.equal(g, w)
+    S, V, S_out, V_out = eng.rounds["conv4"]
+    src = torch.randn(2, 203, S + 3 * V, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=7, binary=binary)
+    f = eng.folded["conv4"]
+    got = k1.sv_round(src, f, **kw)
+    for g, w, r2 in zip(got, k1.sv_round_plain(src, f, **kw),
+                        k2.sv_round2(src, f, **kw)):
+        assert torch.equal(g, w) and torch.equal(g, r2)
+    idx = ops.knn(src, 7)
+    gate = ke.svblock_gate(eng.p["conv4"], src[..., :S], idx)
+    got = ke.sv_edge_block(src, idx, gate, f, **kw)
+    for g, w in zip(got, ke.sv_edge_block_plain(src, idx, gate, f, **kw)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        ke.sv_edge_block(src, idx + 203, gate, f, **kw)
+
+
+@pytest.mark.cuda
+def test_cls_round_and_edge_engines_on_card():
+    """The classifier's round and edge trunks on the card: the kernels'
+    launches per request, logits bitwise those of the plain twin, round
+    equal to round2 (binary)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels.sv_point import sv_point_block
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(9)
+    w = init_params(40, 10, True, gen)
+    pts = torch.randn(2, 300, 3, generator=gen).to(dev)
+    outs = {}
+    for impl, fns, want in (
+            ("round", (k1.sv_round_first, k1.sv_round, sv_point_block), [1, 3, 1]),
+            ("edge", (kk.knn, kf.sv_edge_first_block, ke.sv_edge_block,
+                      sv_point_block), [4, 1, 3, 1])):
+        eng = TorchEngine(w, 40, 10, True, device=dev, rounds_impl=impl)
+        before = [f.launches for f in fns]
+        outs[impl] = eng(pts)
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+        oracle = TorchEngine(w, 40, 10, True, device=dev, rounds_impl=impl,
+                             oracle=True)
+        before = [f.launches for f in fns]
+        assert torch.equal(outs[impl], oracle(pts))
+        assert [f.launches for f in fns] == before
+    assert torch.equal(outs["round"], TorchEngine(
+        w, 40, 10, True, device=dev, rounds_impl="round2")(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 64, 128), (1000, 96, 77)],
+                         ids=["even", "ragged"])
+def test_xnor_popcount_matches_plain_on_card(shape):
+    """B9 exact against the dense +-1 product and bitwise against its plain
+    version; M, N and the word count ragged to its tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import binary_matmul as kb
+    from svnet_tpu_torch.utils.bench_binary_matmul import operands
+
+    M, K, N = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x, w = operands(M, K, N, 0, dev)
+    xp, wp = kb.pack_signs(x), kb.pack_signs(w.T).contiguous()
+    before = kb.xnor_popcount.launches
+    got = kb.xnor_popcount(xp, wp, K)
+    assert kb.xnor_popcount.launches == before + 1
+    assert torch.equal(got, (x.double() @ w.double()).float())
+    assert torch.equal(got, kb.xnor_popcount_plain(xp, wp, K))

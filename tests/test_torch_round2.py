@@ -225,15 +225,33 @@ def test_cls_round2_engine_equals_round3_engine(cls_setup):
 
 @pytest.mark.parametrize("impl", ["round", "edge", "bogus"])
 def test_unported_rounds_impl_raises(impl):
-    """The trunks of B10a and B10c/B10d are not ported: asking for them
-    raises, for both engines, and never falls back to another trunk."""
+    """An unknown trunk raises ValueError for both engines (stricter than
+    the JAX engines, which run another trunk for it). "round" and "edge":
+    the part segmenter runs the round2 trunk for them, as the JAX engine
+    does, and equals its round2 output; the classifier's "round" (B10a,
+    B10b's function) equals its round2 output."""
     w = init_params(CLASSES, K, True, torch.Generator().manual_seed(0))
     wp = init_params_pseg(PARTS, K, True, torch.Generator().manual_seed(0))
-    err = ValueError if impl == "bogus" else NotImplementedError
-    with pytest.raises(err, match="B10" if impl != "bogus" else "rounds_impl"):
-        SVDGCNNClsEngine(w, CLASSES, K, True, device="cpu", rounds_impl=impl)
-    with pytest.raises(err):
-        SVDGCNNPsegEngine(wp, PARTS, K, True, device="cpu", rounds_impl=impl)
+    if impl == "bogus":
+        with pytest.raises(ValueError, match="rounds_impl"):
+            SVDGCNNClsEngine(w, CLASSES, K, True, device="cpu", rounds_impl=impl)
+        with pytest.raises(ValueError, match="rounds_impl"):
+            SVDGCNNPsegEngine(wp, PARTS, K, True, device="cpu",
+                              rounds_impl=impl)
+        return
+    x = torch.from_numpy(_rand(11, B, 32, 3))
+    label = torch.nn.functional.one_hot(torch.tensor([2, 9]), 16).float()
+    pseg = SVDGCNNPsegEngine(wp, PARTS, K, True, device="cpu",
+                             rounds_impl=impl)
+    assert pseg.trunk == "round2"
+    assert torch.equal(pseg(x, label), SVDGCNNPsegEngine(
+        wp, PARTS, K, True, device="cpu", rounds_impl="round2")(x, label))
+    if impl == "round":
+        assert torch.equal(
+            SVDGCNNClsEngine(w, CLASSES, K, True, device="cpu",
+                             rounds_impl="round")(x),
+            SVDGCNNClsEngine(w, CLASSES, K, True, device="cpu",
+                             rounds_impl="round2")(x))
 
 
 def test_round2_wrappers_check_arguments():
