@@ -30,7 +30,16 @@ exits non-zero:
      (64,24)->(128,40), then (256,96)->(512,168)). Serving rounds: neighbour ids agree on >= 99.99% of
      (b, rank, n) and every mismatch is a near-tie (true distances within
      1e-5 relative); on centre points whose neighbour sets agree, outputs
-     within rtol=1e-4, atol=1e-5. kNN (B4): the same id check.
+     within rtol=1e-4, atol=1e-5. kNN (B4): ids bitwise the plain
+     version's, at the training shapes (B=32, N=1024, k=20, C=3, 62, 62,
+     127), on the round3 engines' inputs of every round (cls B=128,
+     N=1024, k=20, C=3, 62, 62, 127; partseg B=32, N=2048, k=40, C=3, 80,
+     80, 136), each timed beside torch.cdist + torch.topk, and at shapes
+     no tile or list of the selection divides (N=1000, 1001, 130; k=1,
+     k=N, 33, 40, 64, 100; duplicated points); the selection inside B1,
+     B2 (channel-major, rank-major ids) and B10b (row-major, point-major
+     ids) at N=1001 k=33, N=1000 k=64 with ties and N=130 k=100, outputs
+     and ids bitwise.
      Training rounds (B5, B6; binary and FP): forward outputs, gate means
      and batch statistics within rtol=1e-4, atol=1e-5 (they are equal:
      both sides sum the batch statistics in double), argmax ranks equal
@@ -42,8 +51,9 @@ exits non-zero:
      B3/B3r: x within rtol=1e-4, atol=1e-5 of the plain version, and
      whether x and the pooled outputs are bitwise equal is printed.
      B7 (edge_gather, forward and scatter-add backward) at the slice's
-     shape (32, 1024, 20, C=3), at C=62 and C=127 and at a ragged
-     (8, 1000, 7, C=5): forward and backward bitwise, two backward launches
+     shape (32, 1024, 20, C=3), at C=62 and C=127 (each timed beside
+     torch.gather and index_add_) and at a ragged (8, 1000, 7) with C=5,
+     1 and 64: forward and backward bitwise, two backward launches
      identical.
      B10a (sv_round_first, sv_round conv2-4, binary and FP), B10d
      (sv_edge_first_block) and B10c (sv_edge_block conv2-4, binary and FP)
@@ -428,13 +438,20 @@ def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
             f"{same}; kernel {ms} ms, plain {plain_ms} ms, bound {cost}")
         rep.add(names[2], err, ms, plain_ms, cost if time_it else None)
 
-    # main shapes, inputs chained through the plain versions
+    # main shapes, inputs chained through the plain versions; B4 on the
+    # round3 engine's inputs of each round (the edge trunk's shapes)
     trunk = f"{tag} {eng.trunk}"
     pts = cloud(b, n, gen, dev)
+    if not rm:
+        compare_knn(rep, f"knn {tag} B={b} N={n} C=3 k={k}", pts, k, True)
     po = first(pts, k, f"{names[0]} B={b} N={n} k={k}", True)
     outs = [(po[0], gated(eng.p["conv1"], po))]
     for name in eng.rounds:
         src = torch.cat(outs[-1], dim=dim).contiguous()
+        if not rm:
+            feats = src.transpose(1, 2).contiguous()
+            compare_knn(rep, f"knn {tag} B={b} N={n} C={feats.shape[-1]} "
+                        f"k={k} ({name})", feats, k, True)
         po = conv(src, eng, name, k, f"{names[1]} {name} binary", True)
         conv(src, eng_fp, name, k, f"{names[1]} {name} fp", False)
         outs.append((po[0], gated(eng.p[name], po)))
@@ -859,8 +876,6 @@ def phase2_round_edge(rep, eng, eng_fp, gen, dev, b, n, k, time_it):
                  (knn_flops(b, n, 3) + b * n * k * ef,
                   4.0 * b * n * 3 + out_b, b * n * k * pm1))
     idx = knn(pts, k)
-    if time_it:  # B4 at the edge trunk's batch (phase 2's kNN is B=32's)
-        log(f"  knn {shape} C=3: kernel {cuda_ms(lambda: knn(pts, k))} ms")
     compare("sv_edge_first_block", f"sv_edge_first_block {shape}",
             lambda: kf.sv_edge_first_block(pts, idx, f, **kw),
             lambda: kf.sv_edge_first_block_plain(pts, idx, f, **kw), None,
@@ -871,9 +886,6 @@ def phase2_round_edge(rep, eng, eng_fp, gen, dev, b, n, k, time_it):
         S, V, S_out, V_out = eng.rounds[name]
         src = torch.cat(outs[-1], dim=-1).contiguous()
         idx = knn(src, k)
-        if time_it:
-            log(f"  knn {shape} C={src.shape[-1]}: kernel "
-                f"{cuda_ms(lambda: knn(src, k))} ms")
         for e, tag in ((eng, "binary"), (eng_fp, "fp")):
             kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k,
                       binary=e.binary)
@@ -1039,8 +1051,9 @@ def check_grads(tag, got: dict, want: dict, total: float, dsrc=None):
 
 
 def compare_knn(rep, tag, x, kk, time_it):
-    """Kernel B4 against its plain version (and, timed, torch.cdist +
-    torch.topk as the library yardstick) on channels-last x (B, N, C)."""
+    """Kernel B4 against its plain version, ids bitwise (and, timed,
+    torch.cdist + torch.topk as the library yardstick) on channels-last
+    x (B, N, C)."""
     import torch
 
     from svnet_tpu_torch.ops.kernels.knn import knn
@@ -1048,8 +1061,11 @@ def compare_knn(rep, tag, x, kk, time_it):
 
     ko, po = knn(x, kk), knn_plain(x, kk)
     sync(x.device)
-    check_ids(tag, ko.transpose(1, 2), po.transpose(1, 2), x)
+    if not torch.equal(ko, po):
+        check_ids(tag, ko.transpose(1, 2), po.transpose(1, 2), x)
+        raise AssertionError(f"{tag}: ids not bitwise the plain version's")
     if not time_it:
+        log(f"  {tag}: ids bitwise the plain version's")
         rep.add("knn", 0.0)
         return po
     bb, nn, C = x.shape
@@ -1060,10 +1076,73 @@ def compare_knn(rep, tag, x, kk, time_it):
     ms, plain_ms, lib_ms = (cuda_ms(lambda: knn(x, kk)),
                             cuda_ms(lambda: knn_plain(x, kk)), cuda_ms(library))
     cost = bound(knn_flops(bb, nn, C), 4.0 * bb * nn * (C + kk))
-    log(f"  {tag}: kernel {ms} ms, plain {plain_ms} ms, cdist+topk {lib_ms} ms, "
-        f"bound {cost}")
+    log(f"  {tag}: ids bitwise the plain version's; kernel {ms} ms, plain "
+        f"{plain_ms} ms, cdist+topk {lib_ms} ms, bound {cost}")
     rep.add("knn", 0.0, ms, plain_ms, cost, lib_ms)
     return po
+
+
+def select_input(b, n, c, dup, gen, dev):
+    """Seeded normal features (b, n, c); with dup, every odd row repeats
+    an even one, so that exact ties go to the minimum row."""
+    import torch
+
+    x = torch.randn(b, n, c, generator=gen)
+    if dup:
+        h = x[:, 1::2].shape[1]
+        x[:, 1::2] = x[:, ::2][:, :h]
+    return x.to(dev)
+
+
+# (B, N, C, k, duplicated points) where no size of the selection divides N
+# or k: its blocks of 64 centres and tiles of 128 candidates (N = 1000,
+# 1001, 130), k = 1 and k = N, lists of 33-64 entries, two rounds of 64
+# ranks (k = 100), exact ties
+SELECT_SHAPES = ((8, 1000, 3, 20, False), (8, 1001, 62, 7, False),
+                 (2, 50, 5, 1, False), (2, 50, 5, 50, False),
+                 (8, 1001, 127, 33, False), (8, 1000, 80, 40, False),
+                 (8, 1001, 3, 64, False), (2, 130, 3, 100, False),
+                 (8, 300, 62, 20, True), (8, 301, 3, 40, True))
+
+
+def phase2_select(rep, eng, gen, dev):
+    """The selection at shapes that its tiles and lists do not divide: B4
+    (channel-major source, point-major ids) bitwise knn_plain's at
+    SELECT_SHAPES; the selection inside the rounds, both layouts and both
+    id orders, through B1 and B2 (channel-major, rank-major wins) and
+    B10b (row-major, point-major wins), first round and conv2, outputs and
+    ids bitwise their plain versions, at N = 1001, k = 33; N = 1000,
+    k = 64 with ties; N = 130, k = 100."""
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for b, n, c, k, dup in SELECT_SHAPES:
+        compare_knn(rep, f"knn forced B={b} N={n} C={c} k={k}"
+                    + (" ties" if dup else ""),
+                    select_input(b, n, c, dup, gen, dev), k, False)
+    S1, V1 = eng.dims["conv1"]
+    S, V, S_out, V_out = eng.rounds["conv2"]
+    for n, k, dup in ((1001, 33, False), (1000, 64, True), (130, 100, False)):
+        shape = f"B=2 N={n} k={k}" + (" ties" if dup else "")
+        pts = select_input(2, n, 3, dup, gen, dev)
+        kw = dict(S_out=S1, V_out=V1, k=k)
+        for kern, plain in ((kr.sv_round3_first, kr.sv_round3_first_plain),
+                            (k2.sv_round2_first, k2.sv_round2_first_plain)):
+            check_equal(f"{kern.__name__} forced {shape}",
+                        kern(pts, eng.folded_first, emit_wins=True, **kw),
+                        plain(pts, eng.folded_first, **kw))
+        src = select_input(2, n, S + 3 * V, dup, gen, dev)
+        kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=True)
+        f = eng.folded["conv2"]
+        check_equal(f"sv_round2 conv2 forced {shape}",
+                    k2.sv_round2(src, f, emit_wins=True, **kw),
+                    k2.sv_round2_plain(src, f, **kw))
+        src = src.transpose(1, 2).contiguous()
+        check_equal(f"sv_round3 conv2 forced {shape}",
+                    kr.sv_round3(src, f, emit_wins=True, **kw),
+                    kr.sv_round3_plain(src, f, **kw))
+        log(f"  selection in B1, B2, B10b (first, conv2) forced {shape}: "
+            "outputs and ids bitwise the plain versions")
 
 
 def compare_train(rep, tag, names, fwd, x, idx, kp, d, gen, time_it, total):
@@ -1336,7 +1415,8 @@ def phase2_gather(rep, gen, dev):
     from svnet_tpu_torch.ops.kernels.knn import knn
 
     for b, n, k, c in ((B_TRAIN, N, K, 3), (B_TRAIN, N, K, 62),
-                       (B_TRAIN, N, K, 127), (8, N - 24, 7, 5)):
+                       (B_TRAIN, N, K, 127), (8, N - 24, 7, 5),
+                       (8, N - 24, 7, 1), (8, N - 24, 7, 64)):
         tag = f"edge_gather B={b} N={n} k={k} C={c}"
         pts = cloud(b, n, gen, dev)
         idx = knn(pts, k)
@@ -1374,11 +1454,12 @@ def phase2_gather(rep, gen, dev):
             f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
             f"bound {bwd_cost}")
         # the kernels line times each pass at its main path's shapes: the
-        # forward at C=3 (phase 9 gathers the points), the backward at the
-        # joint widths (phase 11: conv2 and conv3 at C=62, conv4 at C=127)
+        # forward at C=3 (phase 9 gathers the points) and at the joint widths
+        # (phase 11: conv2 and conv3 at C=62, conv4 at C=127), the backward
+        # at the joint widths
         main = (b, n, k) == (B_TRAIN, N, K)
         rep.add("edge_gather_fwd", 0.0, *((t[0], t[1], fwd_cost, t[2])
-                                          if main and c == 3 else ()))
+                                          if main else ()))
         rep.add("edge_gather_bwd", 0.0, *((t[3], t[4], bwd_cost, t[5])
                                           if main and c != 3 else ()))
 
@@ -1508,6 +1589,7 @@ def main() -> int:
                gen, dev, b, n, k)
     phase2_round_edge(rep, eng, eng_fp, gen, dev, B, N, K, True)
     phase2_round_edge(rep, eng, eng_fp, gen, dev, 8, N_RAGGED, 7, False)
+    phase2_select(rep, eng, gen, dev)
     p_bin = tree_map(lambda t: t.to(dev), w_bin["params"])
     p_fp = tree_map(lambda t: t.to(dev), w_fp["params"])
     phase2_train(rep, p_bin, p_fp, gen, dev)

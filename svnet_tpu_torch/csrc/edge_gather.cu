@@ -14,9 +14,12 @@
 // What bounds it on the H100: device memory. At the SV-PointNet training
 // shape (B=32, N=1024, k=20, C=3) the forward moves about 10.9 MB (ids,
 // rows, the (B, N, k, C) output), 3.2 us at 3.35 TB/s, and both passes sit
-// near launch latency. The forward gives each thread one output element,
-// consecutive threads consecutive elements, so the stores coalesce; a row
-// of C = 3 floats makes the loads short, which is accepted for now.
+// near launch latency; at the joint widths of the un-fused SV-DGCNN step
+// (C = 62, 127) the forward moves 170 and 340 MB. A thread per output
+// float with 64-bit divisions per element, as the first version had, is
+// bound by integer instructions there: the forward now gives each edge
+// row to a group of threads sized to C, which reads the id once and
+// copies the row with coalesced vector loads and stores.
 //
 // The backward uses no float atomics, so its result does not depend on
 // the order in which blocks run: it builds the inverse adjacency of idx
@@ -33,6 +36,7 @@
 // An id outside [0, n_src) never reads outside src: its forward row is NaN
 // and the backward ignores the edge.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -54,18 +58,63 @@ __device__ __forceinline__ long long grid_step() {
   return (long long)gridDim.x * blockDim.x;
 }
 
+template <int V> struct Vec;
+template <> struct Vec<1> { typedef float T; };
+template <> struct Vec<2> { typedef float2 T; };
+template <> struct Vec<4> { typedef float4 T; };
+
 // out (B, M, k, C) from src (B, n_src, C) and idx (B, M, k); ek = M * k.
+// A group of 2^lg threads copies a row: it reads the row's id once and
+// moves the row's C floats as C / V vectors of V floats, consecutive
+// threads on consecutive vectors. A row's loads depend on its id's, so a
+// thread keeps R rows x U vectors of loads in flight before it stores
+// them: 4 vectors of one row at the joint widths (C = 62, 127), one
+// vector of 4 rows where a row is one vector a thread (C = 3). Index
+// arithmetic is 32-bit, one division per row.
+template <int V, int U, int R>
 __global__ void eg_fwd_kernel(const float* __restrict__ src,
                               const int* __restrict__ idx,
-                              float* __restrict__ out, long long total,
-                              int n_src, int ek, int C) {
-  for (long long o = grid_start(); o < total; o += grid_step()) {
-    long long e = o / C;
-    int c = (int)(o - e * C);
-    long long b = e / ek;
-    int m = idx[e];
-    out[o] = (m >= 0 && m < n_src) ? src[(b * n_src + m) * C + c]
-                                   : __int_as_float(0x7fc00000);
+                              float* __restrict__ out, long long edges,
+                              int n_src, int ek, int C, int lg) {
+  typedef typename Vec<V>::T T;
+  const int G = 1 << lg, g = threadIdx.x & (G - 1), cv = C / V;
+  const long long groups = (long long)gridDim.x * (blockDim.x >> lg);
+  for (long long e0 = (long long)blockIdx.x * (blockDim.x >> lg) + (threadIdx.x >> lg);
+       e0 < edges; e0 += R * groups) {
+    const T* s[R];
+    T* o[R];
+    bool in[R], ok[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      in[r] = r == 0 || e0 + r * groups < edges;
+      const int ei = in[r] ? (int)(e0 + r * groups) : 0;  // edges < 2^31
+      const int m = idx[ei];
+      ok[r] = in[r] && m >= 0 && m < n_src;
+      s[r] = reinterpret_cast<const T*>(
+          src + ((size_t)(ei / ek) * n_src + (ok[r] ? m : 0)) * C);
+      o[r] = reinterpret_cast<T*>(out + (size_t)ei * C);
+    }
+    for (int v0 = g; v0 < cv; v0 += U * G) {
+      T x[R][U];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (v0 + u * G >= cv) break;
+          if (ok[r]) {
+            x[r][u] = s[r][v0 + u * G];
+          } else {
+            float* f = reinterpret_cast<float*>(&x[r][u]);
+#pragma unroll
+            for (int i = 0; i < V; ++i) f[i] = __int_as_float(0x7fc00000);
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (in[r] && v0 + u * G < cv) o[r][v0 + u * G] = x[r][u];
+    }
   }
 }
 
@@ -184,16 +233,50 @@ __global__ void eg_sum_kernel(const float* __restrict__ g,
 
 }  // namespace
 
-// src (B, n_src, C), idx (B, M, k) int32 -> out (B, M, k, C).
+template <int V, int U, int R>
+static int eg_fwd_run(const float* src, const int* idx, float* out,
+                      long long edges, int n_src, int ek, int C, int lg,
+                      cudaStream_t s) {
+  const int rows = R * (kThreads >> lg);
+  long long blocks = (edges + rows - 1) / rows;
+  eg_fwd_kernel<V, U, R><<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks),
+                           kThreads, 0, s>>>(src, idx, out, edges, n_src, ek,
+                                             C, lg);
+  return (int)cudaGetLastError();
+}
+
+// The group of a row: the least power of two with 4 vectors a thread (at
+// most 32 threads), and at least 4 threads where the row has that many
+// vectors.
+template <int V>
+static int eg_fwd_launch(const float* src, const int* idx, float* out,
+                         long long edges, int n_src, int ek, int C,
+                         cudaStream_t s) {
+  const int cv = C / V;
+  int lg = 0;
+  while ((4 << lg) < cv && lg < 5) ++lg;
+  while ((1 << lg) < cv && lg < 2) ++lg;
+  return (1 << lg) >= cv
+             ? eg_fwd_run<V, 1, 4>(src, idx, out, edges, n_src, ek, C, lg, s)
+             : eg_fwd_run<V, 4, 1>(src, idx, out, edges, n_src, ek, C, lg, s);
+}
+
+// src (B, n_src, C), idx (B, M, k) int32 -> out (B, M, k, C). Rows move as
+// float4 when C is a multiple of 4 and both arrays are 16-byte aligned, as
+// float2 at 8 bytes, else as floats.
 extern "C" int sv_edge_gather_fwd_launch(const float* src, const int* idx,
                                          float* out, int B, int n_src, int M,
                                          int k, int C, void* stream) {
-  long long total = (long long)B * M * k * C;
-  if (total == 0) return 0;
+  const long long edges = (long long)B * M * k;
+  if (edges == 0 || C == 0) return 0;
+  if (edges > INT_MAX) return (int)cudaErrorInvalidValue;  // 32-bit edge ids
   cudaStream_t s = (cudaStream_t)stream;
-  eg_fwd_kernel<<<grid_for(total), kThreads, 0, s>>>(src, idx, out, total,
-                                                     n_src, M * k, C);
-  return (int)cudaGetLastError();
+  const uintptr_t align = (uintptr_t)src | (uintptr_t)out;
+  if (C % 4 == 0 && align % 16 == 0)
+    return eg_fwd_launch<4>(src, idx, out, edges, n_src, M * k, C, s);
+  if (C % 2 == 0 && align % 8 == 0)
+    return eg_fwd_launch<2>(src, idx, out, edges, n_src, M * k, C, s);
+  return eg_fwd_launch<1>(src, idx, out, edges, n_src, M * k, C, s);
 }
 
 // g (B, M, k, C), idx (B, M, k) int32 -> dsrc (B, n_src, C). scratch holds

@@ -8,12 +8,14 @@
 // What bounds it on the H100: B*N*N*C multiply-adds of the distances
 // (C = 3, 62, 62, 127 on the training path), rounded op by op in f32 on
 // the CUDA cores (no FMA, so that self-distances are exactly 0 and the
-// ranking is bitwise the plain version's), then k rescans of N keys per
-// centre. The design reuses the serving rounds' selection
-// (sv_common.cuh): each candidate column is loaded once for four centres,
-// the N keys of a centre stay in shared memory, and a warp max picks
-// each rank's winner; only the winner's lane rescans its own candidates.
-// The ids are written point-major, as knn_pallas returns them.
+// ranking is bitwise the plain version's): twice the instructions of the
+// FMA bound. The design is the serving rounds' selection (sv_common.cuh):
+// register tiles of 8 centres x 4 candidates per lane over channel chunks
+// staged in shared memory, then a per-centre top-k list in registers that
+// drops every key below its k-th entry at once and folds the rest in by
+// warp insertion or a bitonic merge, so no rank rescans the N keys and
+// the shared memory per centre scales with k. The ids are written
+// point-major, as knn_pallas returns them.
 #include "sv_common.cuh"
 
 // x (B, C, N) channel-major; aa (B, N) scratch; ids (B, N, k) int32.

@@ -45,8 +45,7 @@ static __device__ __forceinline__ float sv_neg_dist(float inner, float ctr_sq,
 
 // Exact-mode neighbour key (svnet_tpu/ops/pallas/sv_round3.py:194-196): the
 // sortable-int bits of the f32 distance with the sign bit flipped, so the
-// unsigned order is the float order (-0.0 below +0.0). 0 is never the key
-// of a non-NaN distance and marks a removed candidate.
+// unsigned order is the float order (-0.0 below +0.0).
 static __device__ __forceinline__ unsigned sv_ukey(float neg) {
   const int bits = __float_as_int(neg);
   const int key = bits < 0 ? (bits ^ 0x7FFFFFFF) : bits;
@@ -55,18 +54,13 @@ static __device__ __forceinline__ unsigned sv_ukey(float neg) {
 
 // (key, row) packed into one unique value: the low word is N-1-row, so
 // among equal keys the smallest row is the largest value -- the min-row
-// tie-break of sv_round3.py:441-451.
+// tie-break of sv_round3.py:441-451. The order of packed values is that of
+// the plain version's packed int64 (ops/knn.py::topk_rows), NaN keys
+// included. 0 is the packed value of (the lowest key, row N-1), the last
+// of every order, and also marks an empty slot of a selection list: a list
+// slot that keeps 0 decodes to row N-1, which is what it then stands for.
 static __device__ __forceinline__ sv_u64 sv_pack(unsigned ukey, int row, int N) {
-  return ukey == 0u ? 0ull
-                    : (((sv_u64)ukey << 32) | (sv_u64)(unsigned)(N - 1 - row));
-}
-
-static __device__ __forceinline__ sv_u64 sv_warp_max_u64(sv_u64 v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const sv_u64 o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
+  return ((sv_u64)ukey << 32) | (sv_u64)(unsigned)(N - 1 - row);
 }
 
 static __host__ __device__ inline size_t sv_align16(size_t n) { return (n + 15) & ~(size_t)15; }
@@ -95,134 +89,301 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // exact-mode kNN selection
 // ---------------------------------------------------------------------------
-// One warp owns SEL_TPW centre points. It computes their keys against all N
-// candidates (each candidate's features loaded once for the SEL_TPW
-// centres) into shared memory, then extracts the k largest (key, row) pairs
-// rank by rank: each lane keeps the best of its own candidates
-// (m = lane mod 32), a warp max picks the winner, and only the winner's
-// lane rescans. Winners go to wins (B, k, N), rank-major like the JAX
-// kernel's emit_wins output, or (B, N, k) point-major.
+// A block of SEL_WARPS warps owns SEL_TC centre points of one cloud, 8 per
+// warp, and streams all N candidates past them in tiles of SEL_TM.
 //
-// Channel-major source: lane m reads candidate m's channel c at x[c*N + m],
-// consecutive lanes on consecutive addresses. Row-major source
-// (ROW, the legacy round2 trunk): a candidate is one contiguous row, so
-// the block stages 32 candidate rows at a time in shared memory with
-// coalesced loads (row stride C | 1, odd, so that the 32 lanes reading
-// channel c of their own rows hit 32 banks) and lane m reads its row
-// there. The arithmetic is the same in both layouts: equal keys, equal ids.
-#define SEL_WARPS 4
-#define SEL_TPW 4
-#define SEL_TP (SEL_WARPS * SEL_TPW)
+// Distance pass. For each tile, chunks of SEL_KC channels of the centres
+// and of the tile's candidates are staged in shared memory channel-major
+// (both layouts: a row-major source is transposed on the way in). A lane
+// owns 8 centres x 4 adjacent candidates: per channel it reads two float4
+// of centres (a broadcast) and one float4 of candidates for 32 products
+// and 32 sums, and every pair's inner product is summed from 0.f channel
+// by channel with __fmul_rn / __fadd_rn, as in the plain version. The
+// cloud's features are read once per SEL_TC centres.
+//
+// Selection. Each centre keeps a list of its best 32 * KW packed keys
+// (KW = 1 for k <= 32, else 2), sorted descending, in shared memory
+// between tiles and in its warp's registers while the warp folds a tile
+// in (lane l holds entries l and 32 + l), beside a threshold T, the
+// list's kc-th entry. The tile's keys overwrite the staged chunks once
+// every warp is done with them. After a tile, the warp goes over each of its
+// centres' 128 keys in 4 batches of 32 (one per lane): a key at or below T
+// is dropped at once; a batch with at most SEL_SERIAL keys above T inserts
+// them one by one (a ballot finds the position, a shuffle shifts the
+// tail), a batch with more (the first tiles) is sorted by a warp bitonic
+// sort and merged into the list by a bitonic merge (an insertion is a few
+// dependent shuffles, a merge about twenty). The threshold is refreshed
+// once per batch, and the kernel is built for 3 blocks an SM (at most 85
+// registers a thread): the selection is a chain of shuffles, and more
+// warps hide its latency. Nothing holds a centre's N keys, no
+// rank rescans them, and the shared memory of a centre is 32 * KW * 8
+// bytes plus the tile's keys. The packed keys are unique, so the list
+// does not depend on the order in which candidates arrive: the ids are
+// the plain version's. A k above 64 is selected in rounds of 64 ranks,
+// each pass keeping only keys below the last one the previous round took.
+// Winners go to wins (B, k, N), rank-major like the JAX kernel's emit_wins
+// output, or (B, N, k) point-major.
+#define SEL_WARPS 8
+#define SEL_TC (8 * SEL_WARPS)  // centres per block
+#define SEL_TM 128              // candidates per tile, 4 per lane
+#define SEL_KC 32               // channels per staged chunk
+#define SEL_CS (SEL_TC + 4)     // row strides of the staged chunks: 16-byte
+#define SEL_MS (SEL_TM + 4)     // rows; a row-major transpose hits 32 banks
+#define SEL_SERIAL 4            // a batch with more keys above T is merged
+#define SEL_STAGE_BYTES                                                 \
+  (SEL_KC * (SEL_CS + SEL_MS) * 4 > SEL_TC * SEL_TM * 4                 \
+       ? SEL_KC * (SEL_CS + SEL_MS) * 4                                  \
+       : SEL_TC * SEL_TM * 4)
 
-static size_t sv_select_smem(int N, int C, bool row_major = false) {
-  return sv_align16((size_t)SEL_TP * C * sizeof(float)) +
-         sv_align16((size_t)SEL_TP * N * sizeof(unsigned)) +
-         (row_major ? (size_t)32 * (C | 1) * sizeof(float) : 0);
+static size_t sv_select_smem(int kw) {
+  return SEL_STAGE_BYTES + (size_t)SEL_TC * (32 * kw + 1) * sizeof(sv_u64);
 }
 
-template <bool ROW>
-static __global__ void __launch_bounds__(SEL_WARPS * 32)
+// dst[cc * (ROWS + 4) + t] = channel c0 + cc of row r0 + t (0 past N), for
+// t < ROWS, cc < nc. Channel-major: consecutive threads read consecutive
+// rows. Row-major: a warp reads 8 consecutive channels of 4 rows, and its
+// 32 stores fall in 32 banks (row stride = 4 mod 32).
+template <bool ROW, int ROWS>
+static __device__ __forceinline__ void sv_stage(float* dst,
+                                                const float* __restrict__ x,
+                                                int r0, int c0, int nc, int N,
+                                                int C) {
+  constexpr int ld = ROWS + 4;
+  if constexpr (ROW) {
+    const int ncp = (nc + 7) & ~7;
+    for (int e = threadIdx.x; e < ROWS * ncp; e += blockDim.x) {
+      const int cc = (e / (8 * ROWS)) * 8 + (e & 7), t = (e >> 3) % ROWS;
+      const int r = r0 + t;
+      if (cc < nc) dst[cc * ld + t] = r < N ? x[(size_t)r * C + c0 + cc] : 0.f;
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * nc; e += blockDim.x) {
+      const int cc = e / ROWS, t = e % ROWS, r = r0 + t;
+      dst[cc * ld + t] = r < N ? x[(size_t)(c0 + cc) * N + r] : 0.f;
+    }
+  }
+}
+
+static __device__ __forceinline__ sv_u64 sv_max64(sv_u64 a, sv_u64 b) { return a > b ? a : b; }
+static __device__ __forceinline__ sv_u64 sv_min64(sv_u64 a, sv_u64 b) { return a < b ? a : b; }
+
+// Sorts a bitonic sequence of 32 values over the warp, descending.
+static __device__ __forceinline__ sv_u64 sv_bitonic_desc(sv_u64 v, int lane) {
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const sv_u64 o = __shfl_xor_sync(0xffffffffu, v, stride);
+    v = (lane & stride) ? sv_min64(v, o) : sv_max64(v, o);
+  }
+  return v;
+}
+
+// Sorts 32 values over the warp, descending (lane 0 the largest).
+static __device__ __forceinline__ sv_u64 sv_warp_sort_desc(sv_u64 v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const sv_u64 o = __shfl_xor_sync(0xffffffffu, v, stride);
+      const bool desc = (lane & size) == 0, low = (lane & stride) == 0;
+      v = low == desc ? sv_max64(v, o) : sv_min64(v, o);
+    }
+  return v;
+}
+
+// The list's entry r (0-based), on every lane.
+template <int KW>
+static __device__ __forceinline__ sv_u64 sv_entry(const sv_u64 (&L)[KW], int r) {
+  sv_u64 v = L[0];
+  if (KW > 1 && r >= 32) v = L[KW - 1];
+  return __shfl_sync(0xffffffffu, v, r & 31);
+}
+
+// Inserts x (the same on every lane) into the descending list; the last
+// entry falls off.
+template <int KW>
+static __device__ __forceinline__ void sv_insert(sv_u64 (&L)[KW], sv_u64 x, int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 0; w < KW; ++w) pos += __popc(__ballot_sync(0xffffffffu, L[w] > x));
+  sv_u64 carry = 0ull;  // entry 32w - 1 before the shift
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    sv_u64 up = __shfl_up_sync(0xffffffffu, L[w], 1);
+    const sv_u64 last = __shfl_sync(0xffffffffu, L[w], 31);
+    if (lane == 0) up = carry;
+    const int r = 32 * w + lane;
+    L[w] = r < pos ? L[w] : (r == pos ? x : up);
+    carry = last;
+  }
+}
+
+// Merges one value per lane (any order) into the descending list, keeping
+// the 32 * KW largest of both.
+template <int KW>
+static __device__ __forceinline__ void sv_merge(sv_u64 (&L)[KW], sv_u64 x, int lane) {
+  // y ascending over the lanes: max(L, y) is the top 32 of both, bitonic
+  sv_u64 y = __shfl_sync(0xffffffffu, sv_warp_sort_desc(x, lane), 31 - lane);
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    const sv_u64 hi = sv_max64(L[w], y), lo = sv_min64(L[w], y);
+    L[w] = sv_bitonic_desc(hi, lane);
+    if (w + 1 < KW)  // the rest compete for the next 32 entries
+      y = __shfl_sync(0xffffffffu, sv_bitonic_desc(lo, lane), 31 - lane);
+  }
+}
+
+template <bool ROW, int KW>
+static __global__ void __launch_bounds__(SEL_WARPS * 32, 3)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
                      int N, int C, int k, int rs, int ps) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
-  float* ctr = (float*)sv_smem;  // (SEL_TP, C)
-  const size_t ctr_bytes = sv_align16((size_t)SEL_TP * C * sizeof(float));
-  unsigned* keys = (unsigned*)(sv_smem + ctr_bytes);
-  // ROW: 32 candidate rows at stride CP
-  float* tile = (float*)(sv_smem + ctr_bytes +
-                         sv_align16((size_t)SEL_TP * N * sizeof(unsigned)));
-  const int CP = C | 1;
-  const int b = blockIdx.y, n0 = blockIdx.x * SEL_TP;
+  float* ctr_s = (float*)sv_smem;           // (SEL_KC, SEL_CS) centres
+  float* cand_s = ctr_s + SEL_KC * SEL_CS;  // (SEL_KC, SEL_MS) candidates
+  unsigned* keys_s = (unsigned*)sv_smem;    // (SEL_TC, SEL_TM) a tile's keys
+  sv_u64* lists = (sv_u64*)(sv_smem + SEL_STAGE_BYTES);  // (SEL_TC, 32 KW)
+  sv_u64* upper = lists + SEL_TC * 32 * KW;              // (SEL_TC)
+  const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = warp * 8;  // this warp's first centre in the block
   const float* x = src + (size_t)b * C * N;
   const float* a = aa + (size_t)b * N;
-  for (int i = threadIdx.x; i < SEL_TP * C; i += blockDim.x) {
-    const int t = i / C, c = i % C, n = n0 + t;
-    ctr[i] = n < N ? (ROW ? x[(size_t)n * C + c] : x[(size_t)c * N + n]) : 0.f;
+  unsigned* wkeys = keys_s + t0 * SEL_TM;
+  sv_u64* wlist = lists + t0 * 32 * KW;
+  float ctr_sq[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + t0 + i;
+    ctr_sq[i] = n < N ? a[n] : 0.f;
   }
-  __syncthreads();
+  if (lane < 8) upper[t0 + lane] = ~0ull;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t0 = warp * SEL_TPW;
-  unsigned* wk = keys + (size_t)t0 * N;
-  float tt[SEL_TPW];
+  for (int r0 = 0; r0 < k; r0 += 32 * KW) {
+    const int kc = min(32 * KW, k - r0);
+    for (int i = lane; i < 8 * 32 * KW; i += 32) wlist[i] = 0ull;
+    // block-uniform trip counts: every warp reaches every __syncthreads
+    for (int m0 = 0; m0 < N; m0 += SEL_TM) {
+      float acc[8][4];
 #pragma unroll
-  for (int t = 0; t < SEL_TPW; ++t) {
-    const int n = n0 + t0 + t;
-    tt[t] = n < N ? a[n] : 0.f;
-  }
-  // block-uniform trip count: ROW synchronises the block around each tile
-  for (int m0 = 0; m0 < N; m0 += 32) {
-    const int m = m0 + lane;
-    if constexpr (ROW) {
-      __syncthreads();  // the previous tile is consumed
-      const int rows = min(32, N - m0);
-      for (int i = threadIdx.x; i < rows * C; i += blockDim.x)
-        tile[(i / C) * CP + i % C] = x[(size_t)m0 * C + i];
-      __syncthreads();
-    }
-    if (m < N) {
-      float acc[SEL_TPW];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int t = 0; t < SEL_TPW; ++t) acc[t] = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float xv = ROW ? tile[lane * CP + c] : x[(size_t)c * N + m];
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int c0 = 0; c0 < C; c0 += SEL_KC) {
+        const int nc = min(SEL_KC, C - c0);
+        __syncthreads();  // the previous chunk, or tile's keys, is consumed
+        sv_stage<ROW, SEL_TC>(ctr_s, x, n0, c0, nc, N, C);
+        sv_stage<ROW, SEL_TM>(cand_s, x, m0, c0, nc, N, C);
+        __syncthreads();
+#pragma unroll 4
+        for (int cc = 0; cc < nc; ++cc) {
+          const float4 qa = *(const float4*)(ctr_s + cc * SEL_CS + t0);
+          const float4 qb = *(const float4*)(ctr_s + cc * SEL_CS + t0 + 4);
+          const float4 p = *(const float4*)(cand_s + cc * SEL_MS + 4 * lane);
+          const float q[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+          const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-        for (int t = 0; t < SEL_TPW; ++t)
-          acc[t] = __fadd_rn(acc[t], __fmul_rn(xv, ctr[(t0 + t) * C + c]));
-      }
-      const float am = a[m];
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int t = 0; t < SEL_TPW; ++t)
-        wk[(size_t)t * N + m] = sv_ukey(sv_neg_dist(acc[t], tt[t], am));
-    }
-  }
-  __syncwarp();
-
-  for (int t = 0; t < SEL_TPW; ++t) {
-    const int n = n0 + t0 + t;
-    if (n >= N) break;  // warp-uniform
-    unsigned* kt = wk + (size_t)t * N;
-    sv_u64 best = 0ull;
-    for (int m = lane; m < N; m += 32) {
-      const sv_u64 v = sv_pack(kt[m], m, N);
-      best = v > best ? v : best;
-    }
-    for (int r = 0; r < k; ++r) {
-      const sv_u64 w = sv_warp_max_u64(best);
-      const int row = N - 1 - (int)(unsigned)(w & 0xffffffffull);
-      if (lane == 0) wins[(size_t)b * k * N + (size_t)r * rs + (size_t)n * ps] = row;
-      if ((row & 31) == lane) {  // the winner's owner drops it and rescans
-        kt[row] = 0u;
-        best = 0ull;
-        for (int m = lane; m < N; m += 32) {
-          const sv_u64 v = sv_pack(kt[m], m, N);
-          best = v > best ? v : best;
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(pv[j], q[i]));
         }
       }
+      float cand_sq[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + 4 * lane + j;
+        cand_sq[j] = m < N ? a[m] : 0.f;
+      }
+      __syncthreads();  // every warp is done with the staged chunk
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint4 kv;
+        kv.x = sv_ukey(sv_neg_dist(acc[i][0], ctr_sq[i], cand_sq[0]));
+        kv.y = sv_ukey(sv_neg_dist(acc[i][1], ctr_sq[i], cand_sq[1]));
+        kv.z = sv_ukey(sv_neg_dist(acc[i][2], ctr_sq[i], cand_sq[2]));
+        kv.w = sv_ukey(sv_neg_dist(acc[i][3], ctr_sq[i], cand_sq[3]));
+        *(uint4*)(wkeys + i * SEL_TM + 4 * lane) = kv;
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int i = 0; i < 8; ++i) {
+        if (n0 + t0 + i >= N) break;  // warp-uniform
+        sv_u64* li = wlist + i * 32 * KW;
+        const sv_u64 up = upper[t0 + i];
+        sv_u64 L[KW];
+#pragma unroll
+        for (int w = 0; w < KW; ++w) L[w] = li[32 * w + lane];
+        sv_u64 T = sv_entry<KW>(L, kc - 1);
+#pragma unroll 1
+        for (int j = 0; j < SEL_TM; j += 32) {
+          const int m = m0 + j + lane;
+          const sv_u64 v = m < N ? sv_pack(wkeys[i * SEL_TM + j + lane], m, N) : 0ull;
+          const bool pass = v > T && v < up;
+          unsigned mask = __ballot_sync(0xffffffffu, pass);
+          if (__popc(mask) > SEL_SERIAL) {
+            sv_merge<KW>(L, pass ? v : 0ull, lane);
+            T = sv_entry<KW>(L, kc - 1);
+          } else {  // T is refreshed after the batch: a key that falls
+                    // below it meanwhile lands past entry kc - 1
+            while (mask) {
+              const int s = __ffs(mask) - 1;
+              mask &= mask - 1;
+              sv_insert<KW>(L, __shfl_sync(0xffffffffu, v, s), lane);
+            }
+            T = sv_entry<KW>(L, kc - 1);
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < KW; ++w) li[32 * w + lane] = L[w];
+      }
     }
+    __syncwarp();
+    for (int i = 0; i < 8; ++i) {
+      const int n = n0 + t0 + i;
+      if (n >= N) break;
+      const sv_u64* li = wlist + i * 32 * KW;
+#pragma unroll
+      for (int w = 0; w < KW; ++w) {
+        const int r = 32 * w + lane;
+        if (r < kc)
+          wins[(size_t)blockIdx.y * k * N + (size_t)(r0 + r) * rs + (size_t)n * ps] =
+              N - 1 - (int)(unsigned)(li[r] & 0xffffffffull);
+      }
+      if (lane == 0) upper[t0 + i] = li[kc - 1];
+    }
+    __syncwarp();
   }
+}
+
+template <bool ROW, int KW>
+static cudaError_t sv_knn_select_launch(const float* src, const float* aa,
+                                        int* wins, int B, int N, int C, int k,
+                                        cudaStream_t stream, bool point_major) {
+  const size_t smem = sv_select_smem(KW);
+  cudaError_t err = cudaFuncSetAttribute(
+      sv_knn_select_kernel<ROW, KW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
+  sv_knn_select_kernel<ROW, KW><<<grid, SEL_WARPS * 32, smem, stream>>>(
+      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1);
+  return cudaGetLastError();
 }
 
 template <bool ROW>
 static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
                                    int B, int N, int C, int k,
                                    cudaStream_t stream, bool point_major) {
-  const size_t smem = sv_select_smem(N, C, ROW);
-  if (smem > SV_SMEM_LIMIT || k > N || k < 1) return cudaErrorInvalidValue;
+  if (k > N || k < 1 || C < 1) return cudaErrorInvalidValue;
   const long long BN = (long long)B * N;
   sv_sqnorm_kernel<ROW><<<(unsigned)((BN + 255) / 256), 256, 0, stream>>>(
       src, aa, B, N, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sv_knn_select_kernel<ROW>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + SEL_TP - 1) / SEL_TP, B);
-  sv_knn_select_kernel<ROW><<<grid, SEL_WARPS * 32, smem, stream>>>(
-      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1);
-  return cudaGetLastError();
+  return k <= 32 ? sv_knn_select_launch<ROW, 1>(src, aa, wins, B, N, C, k,
+                                                stream, point_major)
+                 : sv_knn_select_launch<ROW, 2>(src, aa, wins, B, N, C, k,
+                                                stream, point_major);
 }
 
 // Squared norms + selection for a channel-major (B, C, N) source, or a

@@ -13,9 +13,9 @@
 // gone: a neighbour is one contiguous row here.
 //
 // What bounds it on the H100: as for the round3 kernels, the distance
-// pass and linear1 in f32 on the CUDA cores. The selection stages 32
-// candidate rows at a time in shared memory with coalesced row loads
-// (sv_common.cuh, ROW); the block kernel (sv_rounds.cuh, ROW) gathers each
+// pass and linear1 in f32 on the CUDA cores. The selection stages chunks
+// of candidate rows in shared memory with coalesced row loads, transposed
+// to the channel-major tiles of the other layout (sv_common.cuh, ROW); the block kernel (sv_rounds.cuh, ROW) gathers each
 // neighbour's row with consecutive threads on consecutive channels and
 // writes each point's outputs as one contiguous row. The arithmetic is the
 // round3 kernels' to the bit, so the two trunks agree exactly.

@@ -12,8 +12,8 @@
 // k = 20) the distance pass is B*N*N*C multiply-adds and linear1 is
 // B*N*k*(2S+6V)*S_out, both in f32 on the CUDA cores (the distance is
 // rounded op by op, no FMA, so that self-distances are exactly 0). The
-// selection kernel (sv_common.cuh) reuses each candidate column for
-// SEL_TPW centres and keeps its keys in shared memory. The block kernel
+// selection kernel (sv_common.cuh) tiles the distances over 8 centres x 4
+// candidates per lane and keeps a top-k list per centre, not its N keys. The block kernel
 // (sv_rounds.cuh) stages R3_TP centres x R3_G ranks of edge features in
 // shared memory -- the gather reads neighbour rows straight from device
 // memory, where the TPU needed one-hot int8 matmuls over byte planes --

@@ -13,9 +13,9 @@
 //
 // What bounds it on the H100: the selection. With C = 3 every edge costs a
 // few hundred FLOPs, while each centre scans all N candidates k times on
-// the TPU. Here one warp selects for several centres from keys held in
-// shared memory and only the lane that owned a winner rescans, so a rank
-// costs one warp max instead of an N-wide pass. The TPU's one-hot int8
+// the TPU. Here a warp keeps a top-k list per centre and
+// drops every candidate below its k-th entry at once (sv_common.cuh), so
+// no rank costs an N-wide pass. The TPU's one-hot int8
 // gather and byte planes are gone: a thread reads its neighbours' three
 // coordinates directly. The block math is one thread per centre, all of it
 // in registers. The gate statistics leave as per-point sums over the

@@ -155,7 +155,9 @@ def test_train_kernels_match_plain_on_card(binary):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 200, 7, 3), (3, 1001, 20, 62),
-                                   (2, 100, 8, 5)], ids=["xyz", "joint", "hub"])
+                                   (2, 100, 8, 5), (2, 100, 8, 1),
+                                   (2, 200, 7, 64)],
+                         ids=["xyz", "joint", "hub", "c1", "c64"])
 def test_edge_gather_matches_plain_on_card(shape):
     """B7 forward and scatter-add backward bitwise against their plain
     versions; two backward launches identical; ragged N, and a hub point
@@ -385,3 +387,106 @@ def test_xnor_popcount_matches_plain_on_card(shape):
     assert kb.xnor_popcount.launches == before + 1
     assert torch.equal(got, (x.double() @ w.double()).float())
     assert torch.equal(got, kb.xnor_popcount_plain(xp, wp, K))
+
+
+# (B, N, C, k, duplicated points) for the selection: N off the block's 64
+# centres and the tile's 128 candidates (1000, 1001, 130), k = 1, k = N,
+# lists of 33-64 entries, two rounds of 64 ranks (k = 100), exact ties
+SELECT_SHAPES = [(2, 1000, 3, 20, False), (2, 1001, 62, 7, False),
+                 (1, 50, 5, 1, False), (1, 50, 5, 50, False),
+                 (2, 1001, 127, 33, False), (2, 1000, 80, 40, False),
+                 (2, 1001, 3, 64, False), (1, 130, 3, 100, False),
+                 (2, 300, 62, 20, True), (2, 301, 3, 40, True)]
+
+
+def _select_input(b, n, c, dup, seed):
+    x = torch.randn(b, n, c, generator=torch.Generator().manual_seed(seed))
+    if dup:  # every odd row repeats an even one: ties to the minimum row
+        h = x[:, 1::2].shape[1]
+        x[:, 1::2] = x[:, ::2][:, :h]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SELECT_SHAPES,
+                         ids=[f"N{s[1]}-C{s[2]}-k{s[3]}{'-dup' if s[4] else ''}"
+                              for s in SELECT_SHAPES])
+def test_knn_selection_shape_forced_on_card(shape):
+    """B4's ids (channel-major source, point-major ids) bitwise those of
+    ``knn_plain`` where no tile or list size divides N or k."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels.knn import knn
+    from svnet_tpu_torch.ops.knn import knn_plain
+
+    b, n, c, k, dup = shape
+    x = _select_input(b, n, c, dup, 9).to(torch.device("cuda"))
+    assert torch.equal(knn(x, k), knn_plain(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1001, 33, False), (1000, 64, True),
+                                   (130, 100, False)],
+                         ids=["N1001-k33", "N1000-k64-dup", "N130-k100"])
+def test_round_selection_shape_forced_on_card(shape):
+    """The selection inside the rounds, both layouts and both id orders:
+    B1 and B2 (channel-major, rank-major wins) and B10b (row-major,
+    point-major wins), first round and conv2, bitwise their plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+
+    n, k, dup = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    eng = TorchEngine(init_params(40, 7, True, torch.Generator().manual_seed(10)),
+                      40, 7, True, device=dev)
+    pts = _select_input(2, n, 3, dup, 11).to(dev)
+    kw = dict(S_out=32, V_out=10, k=k)
+    for kern, plain in ((sv_round3_first, sv_round3_first_plain),
+                        (k2.sv_round2_first, k2.sv_round2_first_plain)):
+        got = kern(pts, eng.folded_first, emit_wins=True, **kw)
+        for g, w in zip(got, plain(pts, eng.folded_first, **kw)):
+            assert torch.equal(g, w)
+    src = _select_input(2, n, 62, dup, 12).to(dev)
+    kw = dict(S=32, V=10, S_out=32, V_out=10, k=k, binary=True)
+    f = eng.folded["conv2"]
+    got = k2.sv_round2(src, f, emit_wins=True, **kw)
+    for g, w in zip(got, k2.sv_round2_plain(src, f, **kw)):
+        assert torch.equal(g, w)
+    src = src.transpose(1, 2).contiguous()
+    got = sv_round3(src, f, emit_wins=True, **kw)
+    for g, w in zip(got, sv_round3_plain(src, f, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 62, 64])
+def test_edge_gather_unaligned_rows_on_card(c):
+    """B7's forward bitwise its plain version on a source that starts 4
+    bytes off a 16-byte boundary (a contiguous view into a larger buffer),
+    where the float4 and float2 copies must not be taken, and NaN rows for
+    ids outside [0, n_src)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(13)
+    b, n, k = 2, 300, 9
+    buf = torch.randn(b * n * c + 1, generator=gen).to(dev)
+    src = buf[1:].view(b, n, c)
+    assert src.data_ptr() % 16 != 0 and src.is_contiguous()
+    idx = torch.randint(0, n, (b, n, k), generator=gen, dtype=torch.int32).to(dev)
+    assert torch.equal(eg.edge_gather_fwd(src, idx),
+                       eg.edge_gather_fwd_plain(src, idx))
+    idx[0, 3, 2], idx[1, 7, 0] = n, -1
+    out = eg.edge_gather_fwd(src, idx)
+    assert bool(out[0, 3, 2].isnan().all()) and bool(out[1, 7, 0].isnan().all())
+    keep = torch.ones(b, n, k, dtype=torch.bool, device=dev)
+    keep[0, 3, 2] = keep[1, 7, 0] = False
+    idx[0, 3, 2], idx[1, 7, 0] = 0, 0
+    assert torch.equal(out[keep], eg.edge_gather_fwd_plain(src, idx)[keep])
