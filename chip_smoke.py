@@ -30,7 +30,9 @@ exits non-zero:
      (64,24)->(128,40), then (256,96)->(512,168)). Serving rounds: neighbour ids agree on >= 99.99% of
      (b, rank, n) and every mismatch is a near-tie (true distances within
      1e-5 relative); on centre points whose neighbour sets agree, outputs
-     within rtol=1e-4, atol=1e-5. kNN (B4): ids bitwise the plain
+     within rtol=1e-4, atol=1e-5; a binary conv round (B2, B10b) must be
+     bitwise its plain version, ids included (linear1's +-1 products run
+     on the tensor cores, exact). kNN (B4): ids bitwise the plain
      version's, at the training shapes (B=32, N=1024, k=20, C=3, 62, 62,
      127), on the round3 engines' inputs of every round (cls B=128,
      N=1024, k=20, C=3, 62, 62, 127; partseg B=32, N=2048, k=40, C=3, 80,
@@ -47,7 +49,14 @@ exits non-zero:
      of tests/test_fused_train.py (cosine >= 0.99 on d(src), >= 0.9 on
      each gradient of 8 or more entries) and, tighter than their 5e-2 /
      2e-1, all gradients together within 1e-3 relative (parameter
-     gradients are summed in another order, d(src) with atomics)
+     gradients are summed in another order, d(src) with atomics); the
+     worst relative error over all training-round calls is printed.
+     The conv-round block where neither the MMA tile (16) nor the edge
+     tile (32 centres x 2 ranks) divides (CONV_FORCED: IN1=28, S_out=13,
+     N=1000 and 1001, k=7 and 33, then cls conv4's and partseg conv3's
+     widths at ragged N and k): B2, B10b, B10a and B10c, binary and FP,
+     every output bitwise; B6 at those odd widths, (8, 1000, 7), both
+     modes, to the bars above
      B3/B3r: x within rtol=1e-4, atol=1e-5 of the plain version, and
      whether x and the pooled outputs are bitwise equal is printed.
      B7 (edge_gather, forward and scatter-add backward) at the slice's
@@ -206,6 +215,7 @@ class Report:
     def __init__(self):
         self.err: dict[str, float] = {}
         self.ms: dict[str, list] = {}
+        self.grad_rel: dict[str, float] = {}  # training rounds, per call
 
     def add(self, name, err, ms=None, plain_ms=None, bound=None, library_ms=None):
         self.err[name] = max(self.err.get(name, 0.0), err)
@@ -304,12 +314,17 @@ def check_close(tag, got, want, cols=None):
 
 
 def compare_round(rep, tag, name, kern, plain, feats, time_it, cost,
-                  view=lambda out: out):
+                  view=lambda out: out, bitwise=False):
     """Kernel outputs (s, v, gate stats, wins) against the plain version's;
     cost = (flops, bytes) of the call; ``view`` shows a row-major round's
-    outputs channel-major, ids (B, k, N). Returns the plain outputs."""
+    outputs channel-major, ids (B, k, N); ``bitwise``: every output and id
+    must be torch.equal (a binary conv round's contract). Returns the plain
+    outputs."""
     ko, po = kern(), plain()
     sync(ko[0].device)
+    same = all(torch_equal(g, w) for g, w in zip(ko, po))
+    if bitwise and not same:
+        check_equal(tag, ko, po)  # raises with the largest difference
     kv, pv = view(ko), view(po)
     agree = check_ids(tag, kv[3], pv[3], feats)
     err = max(check_close(tag + " s", kv[0], pv[0], agree),
@@ -322,8 +337,8 @@ def compare_round(rep, tag, name, kern, plain, feats, time_it, cost,
     if time_it:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
     log(f"  {tag}: outputs max abs err {err:.3g} on {int(agree.sum())} "
-        f"of {agree.numel()} points; kernel {ms} ms, plain {plain_ms} ms, "
-        f"bound {bound(*cost)}")
+        f"of {agree.numel()} points, bitwise {same}; kernel {ms} ms, plain "
+        f"{plain_ms} ms, bound {bound(*cost)}")
     rep.add(name, err, ms, plain_ms, bound(*cost))
     return po
 
@@ -395,7 +410,8 @@ def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
         return compare_round(
             rep, label, names[1],
             lambda: r_k(src, f, emit_wins=True, **kw),
-            lambda: r_p(src, f, **kw), feats, time_it, cost, view)
+            lambda: r_p(src, f, **kw), feats, time_it, cost, view,
+            bitwise=e.binary)
 
     def gated(p, out):
         g = se_gate(p, out[2]).repeat(1, 3)
@@ -1177,6 +1193,7 @@ def compare_train(rep, tag, names, fwd, x, idx, kp, d, gen, time_it, total):
     pd, pg = kr.train_bwd_plain(x, idx, kp, d, saved, dso, dvo, dss)
     sync(x.device)
     berr, rel = check_grads(tag, kg, pg, total, (kd, pd))
+    rep.grad_rel[tag] = rel
     log(f"  {tag}: forward max abs err {err:.3g}, argmax ranks agree {same:.6f}")
     if not time_it:
         rep.add(names[0], err)
@@ -1201,6 +1218,97 @@ def compare_train(rep, tag, names, fwd, x, idx, kp, d, gen, time_it, total):
     rep.add(names[0], err, t[0], t[1], bound(*fwd_cost))
     rep.add(names[1], berr, t[2], t[3], bound(*bwd_cost))
     return po
+
+
+# (B, N, k, S, V, S_out, V_out) of the conv-round block where neither the
+# MMA tile (16 rows, columns, depth) nor the edge tile (32 centres x 2
+# ranks) divides: IN1 = 2S + 6V = 28, S_out = 13; then cls conv4's and
+# partseg conv3's widths at ragged N and k
+CONV_FORCED = ((2, 1000, 7, 5, 3, 13, 7), (2, 1001, 33, 5, 3, 13, 7),
+               (2, 1001, 7, 64, 21, 128, 42), (1, 1000, 33, 32, 16, 64, 24))
+
+
+def round_weights(S, V, S_out, V_out, binary, gen, dev):
+    """Seeded folded weights of a conv round at any widths (signs when
+    binary, as the fold gives them)."""
+    import torch
+
+    IN1 = 2 * S + 6 * V
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    w1, w2 = r(IN1, S_out), r(2 * V, V_out)
+    if binary:
+        w1, w2 = torch.sign(w1), torch.sign(w2)
+    f = {"wz": r(2 * V, 3), "w1": w1,
+         "beta": 0.3 * r(1, IN1) if binary else torch.zeros(1, IN1),
+         "a1": r(1, S_out), "b1": r(1, S_out), "w2": w2,
+         "scale2": r(1, V_out).abs() + 0.1, "a2": r(1, V_out), "b2": r(1, V_out)}
+    return {name: t.to(dev) for name, t in f.items()}
+
+
+def round_params(S, V, S_out, V_out, binary, gen, dev):
+    """The flax-named subtree of an edge round's SVBlock (2S scalars, 2V
+    vectors in) at any widths, initialised as the model initialises it."""
+    from svnet_tpu_torch.nn.sv_layers import SVBlock
+    from svnet_tpu_torch.train.steps import tree_map
+    from svnet_tpu_torch.utils.convert import module_tree
+
+    block = SVBlock(2 * S, 2 * V, S_out, V_out, binary, gen)
+    return tree_map(lambda t: t.to(dev), module_tree(block)["params"])
+
+
+def phase2_forced(rep, dev):
+    """The conv-round block at CONV_FORCED, binary and FP: B2
+    (channel-major), B10b and B10a (row-major) with their own selection and
+    B10c (gated) on B4's ids, every output and id bitwise its plain
+    version's; B6 at the odd widths (5, 3) -> (13, 7) at (8, 1000, 7), both
+    modes, to the bars of phase 2."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.ops.kernels import sv_round3_train as krt
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    for b, n, k, S, V, S_out, V_out in CONV_FORCED:
+        for binary in (True, False):
+            f = round_weights(S, V, S_out, V_out, binary, gen, dev)
+            src = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+            src_cm = src.transpose(1, 2).contiguous()
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary)
+            idx = knn(src, k)
+            gate = torch.rand(b, V_out, generator=gen).to(dev)
+            label = (f"B={b} N={n} k={k} ({S},{V})->({S_out},{V_out}) "
+                     f"{'binary' if binary else 'fp'}")
+            for name, kern, plain in (
+                    ("sv_round3", lambda: kr.sv_round3(src_cm, f, emit_wins=True, **kw),
+                     lambda: kr.sv_round3_plain(src_cm, f, **kw)),
+                    ("sv_round2 cls", lambda: k2.sv_round2(src, f, emit_wins=True, **kw),
+                     lambda: k2.sv_round2_plain(src, f, **kw)),
+                    ("sv_round", lambda: k1.sv_round(src, f, **kw),
+                     lambda: k1.sv_round_plain(src, f, **kw)),
+                    ("sv_edge_block", lambda: ke.sv_edge_block(src, idx, gate, f, **kw),
+                     lambda: ke.sv_edge_block_plain(src, idx, gate, f, **kw))):
+                check_equal(f"{name} {label}", kern(), plain())
+                rep.add(name, 0.0)
+            log(f"  conv block {label}: B2, B10b, B10a, B10c bitwise their plain "
+                "versions")
+    b, n, k, (S, V, S_out, V_out) = 8, N_RAGGED, 7, CONV_FORCED[0][3:]
+    x = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+    idx = knn(x, k)
+    for binary in (True, False):
+        d = krt.RoundDims(S, V, S_out, V_out, k, binary)
+        kp = krt.kernel_params(round_params(S, V, S_out, V_out, binary, gen, dev), d)
+        compare_train(rep, f"sv_round3_train B={b} N={n} k={k} ({S},{V})->"
+                      f"({S_out},{V_out}) {'binary' if binary else 'fp'}",
+                      ("sv_round3_train_fwd", "sv_round3_train_bwd"),
+                      (krt.sv_round3_train_fwd, krt.sv_round3_train_bwd), x, idx,
+                      kp, d, gen, False, 1e-3)
 
 
 def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
@@ -1595,6 +1703,10 @@ def main() -> int:
     phase2_train(rep, p_bin, p_fp, gen, dev)
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
                  rounds=("conv2",))
+    phase2_forced(rep, dev)
+    worst = max(rep.grad_rel, key=rep.grad_rel.get)
+    log(f"phase 2: worst relative gradient error of the training rounds "
+        f"{rep.grad_rel[worst]:.3g} ({worst}; bar 1e-3)")
     pn = pointnet_engines(dev)
     phase2_pointnet(rep, pn, gen, dev)
     phase2_gather(rep, gen, dev)

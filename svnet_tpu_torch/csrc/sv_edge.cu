@@ -14,7 +14,9 @@
 // statistics.
 //
 // What bounds it on the H100: with no selection inside, the block math --
-// linear1 in f32 on the CUDA cores (+-1 by +-1 products when binary). The
+// frames, invariants and linear2 in f32 on the CUDA cores; a binary
+// linear1 (+-1 by +-1) runs on the tensor cores, exact, an FP one in f32
+// in row order (sv_rounds.cuh). The
 // launchers run the row-major block kernels of the round kernels
 // (sv_rounds.cuh) on the caller's ids: a neighbour is one contiguous row,
 // gathered straight from device memory by consecutive threads on

@@ -11,7 +11,7 @@
 // order, the same gather, the same block. So the launchers run the same
 // row-major templates of sv_rounds.cuh, and their outputs are bitwise
 // B10b's; what bounds them on the H100 is what bounds B10b (the distance
-// pass and linear1 in f32 on the CUDA cores).
+// pass and the block's real-valued work in f32 on the CUDA cores).
 #include "sv_rounds.cuh"
 
 // pts (B, N, 3) row-major; aa (B, N) scratch; wins (B, N, k) out; s_out

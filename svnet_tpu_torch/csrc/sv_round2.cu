@@ -13,7 +13,8 @@
 // gone: a neighbour is one contiguous row here.
 //
 // What bounds it on the H100: as for the round3 kernels, the distance
-// pass and linear1 in f32 on the CUDA cores. The selection stages chunks
+// pass and the block's real-valued work in f32 on the CUDA cores (a binary
+// linear1 runs on the tensor cores, exact). The selection stages chunks
 // of candidate rows in shared memory with coalesced row loads, transposed
 // to the channel-major tiles of the other layout (sv_common.cuh, ROW); the block kernel (sv_rounds.cuh, ROW) gathers each
 // neighbour's row with consecutive threads on consecutive channels and

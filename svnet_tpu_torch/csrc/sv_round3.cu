@@ -9,22 +9,27 @@
 // sums of the edge scalars for the SE gate.
 //
 // What bounds it on the H100: at the cls shapes (C = 62..127, N = 1024,
-// k = 20) the distance pass is B*N*N*C multiply-adds and linear1 is
-// B*N*k*(2S+6V)*S_out, both in f32 on the CUDA cores (the distance is
-// rounded op by op, no FMA, so that self-distances are exactly 0). The
-// selection kernel (sv_common.cuh) tiles the distances over 8 centres x 4
-// candidates per lane and keeps a top-k list per centre, not its N keys. The block kernel
-// (sv_rounds.cuh) stages R3_TP centres x R3_G ranks of edge features in
-// shared memory -- the gather reads neighbour rows straight from device
-// memory, where the TPU needed one-hot int8 matmuls over byte planes --
-// and runs linear1 as a register-tiled block GEMM over them, so each
-// weight load serves four edges. Pooled maxima and sums stay in shared memory across rank chunks;
-// nothing of shape (B, N, k, C) reaches device memory. The gate
+// k = 20) the distance pass is B*N*N*C multiply-adds in f32 on the CUDA
+// cores (rounded op by op, no FMA, so that self-distances are exactly 0),
+// and the block's real-valued work per edge -- frames, invariants and
+// linear2 (3 * 2V * V_out products) -- also on the CUDA cores; linear1,
+// B*N*k*(2S+6V)*S_out products of signs by signs, runs on the tensor cores
+// (bf16, exact), far below their rate. The selection kernel
+// (sv_common.cuh) tiles the distances over 8 centres x 4 candidates per
+// lane and keeps a top-k list per centre, not its N keys. The block kernel
+// (sv_rounds.cuh) walks tiles of 32 centres x 2 ranks on a persistent grid
+// with the sign weights staged once per block; the gather reads neighbour
+// rows straight from device memory, where the TPU needed one-hot int8
+// matmuls over byte planes. The wrapper hands both kernels a row-major
+// copy of the source (one read and one write of it), so a neighbour is one
+// contiguous row. Pooled maxima and sums stay in shared memory across rank
+// chunks; nothing of shape (B, N, k, C) reaches device memory. The gate
 // statistics leave as per-point sums over the ranks, reduced over N
 // outside (no float atomics: run-independent).
 #include "sv_rounds.cuh"
 
-// src (B, S+3V, N) channel-major [s | v i-major]; aa (B, N) scratch;
+// src (B, N, S+3V) row-major [s | v i-major] (the wrapper's copy of the
+// round's channel-major source); aa (B, N) scratch;
 // folded weights in the JAX fold's orientation (wz (2V, 3), w1 (2S+6V,
 // S_out), w2 (2V, V_out), per-channel vectors); outputs s_out (B, S_out,
 // N), v_out (B, 3V_out, N) ungated, ssum (B, 2S, N) per-point sums of

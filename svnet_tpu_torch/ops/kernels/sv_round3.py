@@ -253,13 +253,14 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
          _build.check_arg(f["a2"], "a2", (1, V_out), dev),
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
+    rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
     ssum = torch.empty((B, 2 * S, N), device=dev)
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_launch(
-        src.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
+        rows.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
         ssum.data_ptr(), wins.data_ptr(), B, N, S, V, S_out, V_out, k,
         int(binary), _build.stream_ptr(dev))
     _build.check(err, "sv_round3")

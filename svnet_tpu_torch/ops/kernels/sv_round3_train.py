@@ -55,7 +55,7 @@ from svnet_tpu_torch.utils.convert import flatten, nest
 
 BN_EPS = 1e-5
 NSQ_FLOOR = 1e-12
-TILE = 8  # centre points per tile (TR_TP in csrc/sv_train.cuh)
+TILE = 8  # the smallest tile of centre points (csrc/sv_train.cuh)
 PHASE = {"f1": 0, "f2": 1, "b1": 2, "b2": 3}
 # pointer slots of the launch functions, in csrc/sv_train.cuh's P_* order
 SLOTS = ("src", "idx", "wz0", "wz", "scalez", "w1", "w1t", "beta", "scale1",
@@ -311,7 +311,9 @@ def train_bwd_plain(src, idx, kp, d: RoundDims, saved, dso, dvo, dssum):
 
 
 def _nblocks(dev, d: RoundDims, B: int, N: int) -> int:
-    """Persistent grid: two blocks per SM, at most one per tile."""
+    """Rows of per-block partial sums: two per SM, at most one per tile.
+    The kernel runs as many blocks as the card holds at once, at most this
+    many, and zeroes the rows of the blocks it does not run."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(B * -(-N // TILE), 2 * sms))
 

@@ -4,8 +4,9 @@ it runs on the GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(``--noconftest``: the suite's conftest.py imports JAX.) Skips without a
-CUDA device.
+(``--noconftest``: the suite's conftest.py imports JAX.) The ``cuda``
+tests skip without a CUDA device; the unmarked ones at the end check the
+block kernels' host-side helpers and run everywhere.
 """
 
 import pytest
@@ -490,3 +491,195 @@ def test_edge_gather_unaligned_rows_on_card(c):
     keep[0, 3, 2] = keep[1, 7, 0] = False
     idx[0, 3, 2], idx[1, 7, 0] = 0, 0
     assert torch.equal(out[keep], eg.edge_gather_fwd_plain(src, idx)[keep])
+
+
+def _round_weights(S, V, S_out, V_out, binary, gen):
+    """Seeded folded weights of a conv round at any widths (signs when
+    binary, as the fold gives them)."""
+    IN1 = 2 * S + 6 * V
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    w1, w2 = r(IN1, S_out), r(2 * V, V_out)
+    if binary:
+        w1, w2 = torch.sign(w1), torch.sign(w2)
+    return {"wz": r(2 * V, 3), "w1": w1,
+            "beta": 0.3 * r(1, IN1) if binary else torch.zeros(1, IN1),
+            "a1": r(1, S_out), "b1": r(1, S_out), "w2": w2,
+            "scale2": r(1, V_out).abs() + 0.1, "a2": r(1, V_out),
+            "b2": r(1, V_out)}
+
+
+# (B, N, k, S, V, S_out, V_out): IN1 = 2S + 6V = 28 and S_out = 13 divide
+# no MMA tile (16) and N, k no edge tile (32 centres x 2 ranks); then the
+# cls conv4 and partseg conv3 widths at ragged N and k
+CONV_FORCED = [(2, 1000, 7, 5, 3, 13, 7), (2, 1001, 33, 5, 3, 13, 7),
+               (2, 1001, 7, 64, 21, 128, 42), (1, 1000, 33, 32, 16, 64, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+@pytest.mark.parametrize("shape", CONV_FORCED,
+                         ids=[f"N{s[1]}-k{s[2]}-S{s[3]}-V{s[4]}-So{s[5]}-Vo{s[6]}"
+                              for s in CONV_FORCED])
+def test_conv_block_shape_forced_on_card(shape, binary):
+    """The conv-round block kernel bitwise against the plain versions where
+    neither the MMA tile nor the edge tile divides the widths, N or k: B2
+    (channel-major), B10b and B10a (row-major) with their own selection,
+    B10c (gated) on B4's ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    b, n, k, S, V, S_out, V_out = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(14)
+    f = {name: t.to(dev) for name, t in
+         _round_weights(S, V, S_out, V_out, binary, gen).items()}
+    src = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary)
+    src_cm = src.transpose(1, 2).contiguous()
+    got = sv_round3(src_cm, f, emit_wins=True, **kw)
+    for g, w in zip(got, sv_round3_plain(src_cm, f, **kw)):
+        assert torch.equal(g, w)
+    got = k2.sv_round2(src, f, emit_wins=True, **kw)
+    for g, w in zip(got, k2.sv_round2_plain(src, f, **kw)):
+        assert torch.equal(g, w)
+    for g, w in zip(k1.sv_round(src, f, **kw), k1.sv_round_plain(src, f, **kw)):
+        assert torch.equal(g, w)
+    idx = knn(src, k)
+    gate = torch.rand(b, V_out, generator=gen).to(dev)
+    got = ke.sv_edge_block(src, idx, gate, f, **kw)
+    for g, w in zip(got, ke.sv_edge_block_plain(src, idx, gate, f, **kw)):
+        assert torch.equal(g, w)
+
+
+def _round_params(S, V, S_out, V_out, binary, gen):
+    """The flax-named subtree of an edge round's SVBlock (2S scalars, 2V
+    vectors in) at any widths, initialised as the model initialises it."""
+    from svnet_tpu_torch.nn.sv_layers import SVBlock
+    from svnet_tpu_torch.utils.convert import module_tree
+
+    return module_tree(SVBlock(2 * S, 2 * V, S_out, V_out, binary, gen))["params"]
+
+
+TRAIN_FORCED = [(8, 1000, 7, 5, 3, 13, 7), (8, 1000, 7, 64, 21, 128, 42)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+@pytest.mark.parametrize("shape", TRAIN_FORCED,
+                         ids=[f"N{s[1]}-k{s[2]}-S{s[3]}-V{s[4]}-So{s[5]}-Vo{s[6]}"
+                              for s in TRAIN_FORCED])
+def test_train_round_shape_forced_on_card(shape, binary):
+    """B6 at a ragged (8, 1000, 7) where neither the MMA tile nor the edge
+    tile divides IN1 or S_out, and at conv4's widths, and B5 at the same
+    B, N, k: forward within rtol 1e-4, atol 1e-5 (equal in fact), argmax
+    ranks equal, gradients within the bars of phase 2 (all together 1e-3
+    relative, cosines 0.99 on d(src) and 0.9 per gradient)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import sv_first_train as kf
+    from svnet_tpu_torch.ops.kernels import sv_round3_train as kr
+    from svnet_tpu_torch.ops.kernels.knn import knn
+    from svnet_tpu_torch.train.steps import tree_map
+
+    b, n, k, S, V, S_out, V_out = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(15)
+    to = lambda t: t.to(dev)  # noqa: E731
+    x = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+    model = tree_map(to, init_params(40, k, binary, gen)["params"])
+    # the model's own conv4 at its widths, seeded weights at the odd ones
+    sub = {m: model["conv4"][m] for m in ("v2s", "linear1", "bn1", "linear2", "bn2")} \
+        if (S, V, S_out, V_out) == (64, 21, 128, 42) else \
+        tree_map(to, _round_params(S, V, S_out, V_out, binary, gen))
+    cases = [(x, kr.RoundDims(S, V, S_out, V_out, k, binary), sub,
+              "sv_round3_train_launch")]
+    p = tree_map(to, init_params(40, k, False, gen)["params"])
+    cases.append((torch.randn(b, n, 3, generator=gen).to(dev),
+                  kf.first_dims(32, 10, k),
+                  {"init_scalar": p["init_scalar"], **p["conv1"]},
+                  "sv_first_train_launch"))
+    for x, d, sub, symbol in cases:
+        idx = knn(x, k)
+        kp = kr.kernel_params(sub, d)
+        got = kr.train_fwd_kernel(symbol, x, idx, kp, d)
+        want = kr.train_fwd_plain(x, idx, kp, d)
+        for g, w in zip(got[:3] + got[3], want[:3] + want[3]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        assert torch.equal(got[4], want[4])
+        dso = torch.randn(b, n, d.S_out, generator=gen).to(dev)
+        dvo = torch.randn(b, n, 3 * d.V_out, generator=gen).to(dev)
+        dss = torch.randn(b, d.SX, generator=gen).to(dev) * 1e-3
+        saved = (want[4], want[3][0], want[3][2], want[3][3], want[3][5])
+        gd, gg = kr.train_bwd_kernel(symbol, x, idx, kp, d, saved, dso, dvo, dss)
+        wd, wg = kr.train_bwd_plain(x, idx, kp, d, saved, dso, dvo, dss)
+        assert _cos(gd, wd) >= 0.99
+        for name, w in wg.items():
+            if w.numel() >= 8 and w.norm() > 1e-10:
+                assert _cos(gg[name], w) >= 0.9, name
+        a = torch.cat([gg[name].flatten() for name in wg])
+        w = torch.cat([wg[name].flatten() for name in wg])
+        assert float((a - w).norm() / w.norm()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# host-side helpers of the block kernels: no card needed, run everywhere
+# ---------------------------------------------------------------------------
+
+
+def _split3(x: torch.Tensor):
+    """csrc/sv_mma.cuh::sv_split3 in PyTorch: bf16 pieces hi, mid, lo of
+    f32 x, each rounded to nearest even from what the previous left."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("scale", [1e-25, 1e-6, 1.0, 1e6, 1e30])
+def test_bf16_three_pieces_carry_f32_exactly(scale):
+    """B6's backward multiplies a real cotangent split into three bf16
+    pieces by signs on the tensor cores: the pieces must add back to the
+    f32 value exactly (in any order), so that each product is exact."""
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(4096, generator=gen) * scale
+    x[:4] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -23, -(2.0 - 2.0 ** -23)])
+    hi, mid, lo = _split3(x)
+    d = x.double()
+    assert torch.equal(hi.double() + mid.double() + lo.double(), d)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+
+
+def test_stage_split_anchors_track_the_kernels():
+    """Every stage the stage-split tool compiles out is found exactly once
+    in this revision's block kernels, and ``if (0)`` lands in front of it;
+    the split is base minus variant, the rest what the stages leave."""
+    from pathlib import Path
+
+    from svnet_tpu_torch.utils import stage_split as ss
+
+    csrc = Path(ss.ROOT) / "svnet_tpu_torch" / "csrc"
+    rounds = (csrc / "sv_rounds.cuh").read_text()
+    train = (csrc / "sv_train.cuh").read_text()
+    assert "RB_TP" in rounds and "sv_mma.cuh" in train  # this revision's
+    for text, stages in ((rounds, ss.SERVE_NEW), (train, ss.TRAIN_NEW)):
+        for _, anchors in stages:
+            out = ss.without(text, anchors)
+            assert out.count("if (0) ") == text.count("if (0) ") + len(anchors)
+    with pytest.raises(ValueError):
+        ss.without(rounds, ["no such statement"])
+    got = ss.split({"": 10.0, "serve:a": 7.0, "serve:b": 9.5, "train:c": 1.0},
+                   "serve:")
+    assert got == {"kernel_ms": 10.0, "a": 3.0, "b": 0.5, "rest": 6.5}
