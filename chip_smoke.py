@@ -57,8 +57,12 @@ exits non-zero:
      widths at ragged N and k): B2, B10b, B10a and B10c, binary and FP,
      every output bitwise; B6 at those odd widths, (8, 1000, 7), both
      modes, to the bars above
-     B3/B3r: x within rtol=1e-4, atol=1e-5 of the plain version, and
-     whether x and the pooled outputs are bitwise equal is printed.
+     B3/B3r: x and the pooled outputs bitwise the plain version's, binary
+     and FP (the binary linear1 runs on the tensor cores in int8, exact);
+     B8, B3 and B3r also where neither the K chunk (32) nor the MMA tile
+     divides the widths and no point tile N (POINT_FORCED: (5, 3) ->
+     (13, 7) at N=1001 and 1000, conv_fuse's and partseg conv5's widths
+     at N=1001 and 1000, B3 with two vector blocks), binary and FP.
      B7 (edge_gather, forward and scatter-add backward) at the slice's
      shape (32, 1024, 20, C=3), at C=62 and C=127 (each timed beside
      torch.gather and index_add_) and at a ragged (8, 1000, 7) with C=5,
@@ -159,7 +163,7 @@ REQUESTS = 5
 SEED = 0
 # SV-PointNet part segmentation: the JAX bench's shapes (bench.py:177-182)
 B_PSEG, N_PSEG, K_PSEG, PARTS = 32, 2048, 40, 50
-N_RAGGED_POINT = 1001  # divides by neither block size of B8 (16, 8)
+N_RAGGED_POINT = 1001  # divides by no tile of B8 (binary 128, 64, 32; FP 16, 8)
 N_RAGGED = 1000  # the SV-DGCNN kernels' ragged case: no tile divides it
 # the least time of a kernel's work: bytes over the HBM rate; real-valued
 # operations over the f32 rate outside the tensor cores, and the products of
@@ -432,12 +436,10 @@ def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
 
         ko, pl = kern(), plain()
         sync(dev)
-        x_k, x_p = (ko[0].transpose(1, 2), pl[0].transpose(1, 2)) if rm else (
-            ko[0], pl[0])
-        err = max(check_close(f"{label} x", x_k, x_p),
-                  check_close(f"{label} s5_max", ko[1], pl[1]),
-                  check_close(f"{label} v5_mean", ko[2], pl[2]))
-        same = [bool(torch.equal(g, w)) for g, w in zip(ko, pl)]
+        check_equal(f"{label} binary", ko, pl)
+        kw_fp = dict(kw, binary=False)
+        check_equal(f"{label} fp", p_k(src5, g5, eng_fp.folded_point, **kw_fp),
+                    p_p(src5, g5, eng_fp.folded_point, **kw_fp))
         ms = plain_ms = None
         if time_it:
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
@@ -450,9 +452,9 @@ def phase2(rep, tag, eng, eng_fp, gen, dev, b, n, k):
         cost = bound(bb * nn * per_point,
                      4.0 * bb * nn * (S + 3 * V + S5 + 3 * V5),
                      bb * nn * 2.0 * (S + 3 * V) * S5)
-        log(f"  {label}: max abs err {err:.3g}; bitwise x, s5_max, v5_mean "
-            f"{same}; kernel {ms} ms, plain {plain_ms} ms, bound {cost}")
-        rep.add(names[2], err, ms, plain_ms, cost if time_it else None)
+        log(f"  {label}: x, s5_max, v5_mean bitwise (binary and fp); kernel "
+            f"{ms} ms, plain {plain_ms} ms, bound {cost}")
+        rep.add(names[2], 0.0, ms, plain_ms, cost if time_it else None)
 
     # main shapes, inputs chained through the plain versions; B4 on the
     # round3 engine's inputs of each round (the edge trunk's shapes)
@@ -603,7 +605,7 @@ def phase2_pointnet(rep, pn, gen, dev):
                 rep.add(b8_name(tag, key), 0.0, ms, plain_ms, cost)
             del tap
 
-        # ragged: N divides by neither block size
+        # ragged: N divides by no block size
         name = "conv_fuse" if tag == "cls" else "conv5"
         for binary in (True, False):
             (S, V, S_out, V_out), folded, _ = engs[
@@ -615,8 +617,8 @@ def phase2_pointnet(rep, pn, gen, dev):
                      f"ragged B=8 N={N_RAGGED_POINT}")
             check_equal(label, kb.sv_block_point(src, gate, folded, **bkw),
                         kb.sv_block_point_plain(src, gate, folded, **bkw))
-            log(f"  {label} ({kb.points_per_block(S, V, S_out, V_out)} points "
-                "per block): bitwise")
+            log(f"  {label} ({kb.points_per_block(S, V, S_out, V_out, binary)} "
+                "points per block): bitwise")
 
 
 def serve(tag, eng, oracle, requests, counters, want_per, card):
@@ -1228,23 +1230,26 @@ CONV_FORCED = ((2, 1000, 7, 5, 3, 13, 7), (2, 1001, 33, 5, 3, 13, 7),
                (2, 1001, 7, 64, 21, 128, 42), (1, 1000, 33, 32, 16, 64, 24))
 
 
-def round_weights(S, V, S_out, V_out, binary, gen, dev):
+def round_weights(S, V, S_out, V_out, binary, gen, dev, point=False):
     """Seeded folded weights of a conv round at any widths (signs when
-    binary, as the fold gives them)."""
+    binary, as the fold gives them); ``point``: of a per-point block (B8,
+    B3: S + 3V inputs, V vectors, and B3's wzf)."""
     import torch
 
-    IN1 = 2 * S + 6 * V
+    IN1, Vi = (S + 3 * V, V) if point else (2 * S + 6 * V, 2 * V)
 
     def r(*shape):
         return torch.randn(*shape, generator=gen)
 
-    w1, w2 = r(IN1, S_out), r(2 * V, V_out)
+    w1, w2 = r(IN1, S_out), r(Vi, V_out)
     if binary:
         w1, w2 = torch.sign(w1), torch.sign(w2)
-    f = {"wz": r(2 * V, 3), "w1": w1,
+    f = {"wz": r(Vi, 3), "w1": w1,
          "beta": 0.3 * r(1, IN1) if binary else torch.zeros(1, IN1),
          "a1": r(1, S_out), "b1": r(1, S_out), "w2": w2,
          "scale2": r(1, V_out).abs() + 0.1, "a2": r(1, V_out), "b2": r(1, V_out)}
+    if point:
+        f["wzf"] = r(V_out, 3)
     return {name: t.to(dev) for name, t in f.items()}
 
 
@@ -1309,6 +1314,50 @@ def phase2_forced(rep, dev):
                       ("sv_round3_train_fwd", "sv_round3_train_bwd"),
                       (krt.sv_round3_train_fwd, krt.sv_round3_train_bwd), x, idx,
                       kp, d, gen, False, 1e-3)
+
+
+# (kernel, B, N, S, V, S_out, V_out) where no K chunk (32) or MMA tile of
+# the per-point tile kernel divides Cin = 14 and S_out = 13; conv_fuse's
+# and partseg conv5's widths (64- and 32-point tiles) at ragged N; B3
+# channel-major with two vector blocks, pooled outputs included
+POINT_FORCED = (("B8", 2, 1001, 5, 3, 13, 7), ("B8", 1, 1001, 1024, 340, 512, 170),
+                ("B8", 1, 1000, 256, 85, 1024, 341), ("B3", 2, 1001, 5, 3, 13, 7),
+                ("B3", 1, 1001, 256, 96, 512, 168), ("B3r", 2, 1000, 5, 3, 13, 7),
+                ("B3r", 1, 1000, 256, 96, 512, 168))
+
+
+def phase2_point_forced(rep, dev):
+    """B8, B3 and B3r at POINT_FORCED, binary and FP: every output,
+    pooled ones included, bitwise its plain version's."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_block_point as kb
+    from svnet_tpu_torch.ops.kernels import sv_point as kp
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    for kern, b, n, S, V, S_out, V_out in POINT_FORCED:
+        for binary in (True, False):
+            f = round_weights(S, V, S_out, V_out, binary, gen, dev, point=True)
+            gate = torch.rand(b, V_out, generator=gen).to(dev)
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+            label = (f"{kern} B={b} N={n} ({S},{V})->({S_out},{V_out}) "
+                     f"{'binary' if binary else 'fp'}")
+            if kern == "B3":
+                src = torch.randn(b, S + 3 * V, n, generator=gen).to(dev)
+                V1 = max(1, V // 2)
+                kw["v_off"] = ((S, V1), (S + 3 * V1, V - V1))
+                fn, plain, name = (kp.sv_point_block_cm, kp.sv_point_block_cm_plain,
+                                   "sv_point_block_cm")
+            else:
+                src = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+                fn, plain, name = ((kb.sv_block_point, kb.sv_block_point_plain, None)
+                                   if kern == "B8" else
+                                   (kp.sv_point_block, kp.sv_point_block_plain,
+                                    "sv_point_block cls"))
+            check_equal(label, fn(src, gate, f, **kw), plain(src, gate, f, **kw))
+            if name:
+                rep.add(name, 0.0)
+            log(f"  point block {label}: bitwise its plain version")
 
 
 def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
@@ -1704,6 +1753,7 @@ def main() -> int:
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
                  rounds=("conv2",))
     phase2_forced(rep, dev)
+    phase2_point_forced(rep, dev)
     worst = max(rep.grad_rel, key=rep.grad_rel.get)
     log(f"phase 2: worst relative gradient error of the training rounds "
         f"{rep.grad_rel[worst]:.3g} ({worst}; bar 1e-3)")

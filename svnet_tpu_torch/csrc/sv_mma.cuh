@@ -1,24 +1,28 @@
 // Tile products on the tensor cores for the block kernels (sv_rounds.cuh,
-// sv_train.cuh): warp-level bf16 mma.sync m16n8k16 with f32 accumulation,
-// operands read from shared memory with ldmatrix.
+// sv_train.cuh, sv_point_tile.cuh): warp-level mma.sync with f32 (bf16)
+// or s32 (int8) accumulation, operands read from shared memory with
+// ldmatrix.
 //
-// Why bf16 and not int8: the serving rounds and B6's forward multiply
-// sign(x + beta) by the folded sign weights, both in {-1, 0, +1}, so every
-// product is exact and every partial sum an integer of magnitude at most
-// IN1 (272 at the widest round), which f32 holds exactly: the product is
-// exact in any order, as with int8 and s32 accumulation. B6's backward
-// multiplies a real cotangent by the sign weights or signs; split into
-// three bf16 pieces (sv_split3) each product is exact again and only the
-// order of the f32 sum differs, which int8 cannot carry. One operand type
-// serves both; int8's twice the rate would shorten only the serving
-// block's linear1, a minority of its time (python -m
-// svnet_tpu_torch.utils.stage_split measures each stage).
+// Exactness. The serving rounds, B6's forward and the per-point blocks
+// multiply sign(x + beta) by the folded sign weights, both in {-1, 0, +1},
+// so every product is exact and every partial sum an integer of magnitude
+// at most the depth (Cin <= 2044, the SV-PointNet classifier's conv_fuse;
+// IN1 <= 272 in the rounds), below 2^24: f32 holds it exactly, so the
+// product is exact in any order, in bf16 with f32 accumulation as in int8
+// with s32. B6's backward multiplies a real cotangent by the sign weights
+// or signs; split into three bf16 pieces (sv_split3) each product is
+// exact again and only the order of the f32 sum differs, which int8
+// cannot carry: the rounds and B6 use bf16 (sv_mma). The per-point blocks
+// have no backward and stream W1's signs packed as int8 from device
+// memory, so they use int8 (sv_mma_s8): half the bytes and twice the rate.
 //
 // Layouts. A bf16 operand with K columns is stored with row stride
 // sv_mma_ld(K) elements: K padded with zeros to the MMA depth 16, plus 8,
 // so the 8 rows one ldmatrix phase reads lie in 8 distinct 16-byte bank
 // groups (no conflicts). Padding rows and columns hold zeros, which add
-// nothing; the caller masks the ragged edge of its tiles.
+// nothing; the caller masks the ragged edge of its tiles. An int8 operand
+// is read by the same ldmatrix calls, as b16 pairs: a 16 x 32 int8 tile
+// is a 16 x 16 b16 one, and its fragments are those of m16n8k32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,6 +62,18 @@ static __device__ __forceinline__ void sv_mma(float (&d)[4], const unsigned (&a)
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same product on int8 operands: d += a (16x32) . b (32x8), s32
+// accumulators laid out as sv_mma's f32 ones; a and b loaded with
+// sv_ldsm4 from int8 rows read as b16 pairs.
+static __device__ __forceinline__ void sv_mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                                 unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

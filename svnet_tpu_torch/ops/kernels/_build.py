@@ -34,7 +34,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: (argtypes), all return an int (a
-# cudaError_t, but for sv_block_point_ppb)
+# cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
 SIGNATURES = {
     # pts, aa, 8 weights, s_out, v_out, ssum, wins; B N k S_out V_out cross;
     # stream
@@ -42,15 +42,15 @@ SIGNATURES = {
     # src, aa, 9 weights, s_out, v_out, ssum, wins; B N S V S_out V_out k
     # binary; stream
     "sv_round3_launch": [_P] * 15 + [_I] * 8 + [_P],
-    # src, gate, vrow, 10 weights, x_out, smax, vsum; B N S V S_out V_out
-    # binary; stream
-    "sv_point_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # src, gate, vrow, 10 weights and W1's packed signs (after w1), x_out,
+    # smax, vsum; B N S V S_out V_out binary; stream
+    "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],
     # the row-major twins: sv_round2_first_launch as sv_round3_first_launch,
     # sv_round2_launch as sv_round3_launch, sv_point_rm_launch as
     # sv_point_launch without vrow
     "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
-    "sv_point_rm_launch": [_P] * 15 + [_I] * 7 + [_P],
+    "sv_point_rm_launch": [_P] * 16 + [_I] * 7 + [_P],
     # B10a, as the round2 entry points
     "sv_round_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round_launch": [_P] * 15 + [_I] * 8 + [_P],
@@ -61,10 +61,15 @@ SIGNATURES = {
     "sv_edge_launch": [_P] * 14 + [_I] * 8 + [_P],
     # xp, wp, out; M N L; stream
     "xnor_popcount_launch": [_P] * 3 + [_I] * 3 + [_P],
-    # src, gate, 9 weights, s_out, v_out; B N S V S_out V_out binary; stream
-    "sv_block_point_launch": [_P] * 13 + [_I] * 7 + [_P],
-    # S V S_out V_out -> points per block
-    "sv_block_point_ppb": [_I] * 4,
+    # src, gate, 9 weights and W1's packed signs (after w1), s_out, v_out;
+    # B N S V S_out V_out binary; stream
+    "sv_block_point_launch": [_P] * 14 + [_I] * 7 + [_P],
+    # S V S_out V_out binary -> points per block
+    "sv_block_point_ppb": [_I] * 5,
+    # K S_out -> bytes of W1's packed signs
+    "sv_pack_bytes": [_I] * 2,
+    # w1, out; K S_out; stream
+    "sv_pack_signs_launch": [_P] * 2 + [_I] * 2 + [_P],
     # x, aa, ids; B N C k; stream
     "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
     # src, idx, out; B n_src M k C; stream

@@ -13,6 +13,7 @@ kernels and ``(1, C)`` affines.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List
 
 import torch
@@ -20,6 +21,34 @@ import torch
 from svnet_tpu_torch.config import BN_EPS
 
 Folded = Dict[str, torch.Tensor]
+
+
+# id(w1) -> (weak reference to w1, its version, the packed signs)
+_PACKED: dict = {}
+
+
+def packed_signs(w1: torch.Tensor, S_out: int) -> torch.Tensor:
+    """W1's signs (the folded ``(K, S_out)`` sign weights on the card)
+    packed once as int8 rows for the per-point tile kernels
+    (csrc/sv_point_tile.cuh), kept while ``w1`` lives and rebuilt if it
+    is changed in place: the folded dict keeps its keys, and a serving
+    call reuses the copy."""
+    from svnet_tpu_torch.ops.kernels import _build
+
+    key = id(w1)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is w1 and hit[1] == w1._version:
+        return hit[2]
+    lib = _build.lib()
+    K = w1.shape[0]
+    out = torch.empty(lib.sv_pack_bytes(K, S_out), dtype=torch.int8,
+                      device=w1.device)
+    _build.check(lib.sv_pack_signs_launch(w1.data_ptr(), out.data_ptr(), K,
+                                          S_out, _build.stream_ptr(w1.device)),
+                 "sv_pack_signs")
+    _PACKED[key] = (weakref.ref(w1, lambda _, k=key: _PACKED.pop(k, None)),
+                    w1._version, out)
+    return out
 
 
 def _jmajor(offset: int, n: int) -> List[int]:

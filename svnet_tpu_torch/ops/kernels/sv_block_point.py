@@ -21,7 +21,7 @@ import torch
 from svnet_tpu_torch.config import require_cuda
 from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
 from svnet_tpu_torch.ops.kernels import _build
-from svnet_tpu_torch.ops.kernels.fold import Folded
+from svnet_tpu_torch.ops.kernels.fold import Folded, packed_signs
 from svnet_tpu_torch.ops.kernels.sv_round3 import (
     _leaky,
     jmajor,
@@ -73,6 +73,7 @@ def sv_block_point(src: torch.Tensor, gate: torch.Tensor, folded: Folded, *,
          _build.check_arg(f["scale2"], "scale2", (1, V_out), dev),
          _build.check_arg(f["a2"], "a2", (1, V_out), dev),
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
+    w.insert(2, packed_signs(f["w1"], S_out).data_ptr() if binary else None)
     lib = _build.lib()
     s = torch.empty((B, N, S_out), device=dev)
     v = torch.empty((B, N, 3 * V_out), device=dev)
@@ -87,7 +88,10 @@ def sv_block_point(src: torch.Tensor, gate: torch.Tensor, folded: Folded, *,
 sv_block_point.launches = 0
 
 
-def points_per_block(S: int, V: int, S_out: int, V_out: int) -> int:
-    """The points one block of the kernel stages in shared memory at these
-    widths (16, or fewer where 16 do not fit; 0 if not even one does)."""
-    return int(_build.lib().sv_block_point_ppb(S, V, S_out, V_out))
+def points_per_block(S: int, V: int, S_out: int, V_out: int,
+                     binary: bool = True) -> int:
+    """The points one block of the kernel takes at these widths: binary,
+    the tile of csrc/sv_point_tile.cuh (128 where S_out <= 256, 64 where
+    S_out <= 512, else 32); FP, 16, or fewer where 16 do not fit; 0 if not
+    even one does."""
+    return int(_build.lib().sv_block_point_ppb(S, V, S_out, V_out, int(binary)))

@@ -27,7 +27,7 @@ import torch
 from svnet_tpu_torch.config import require_cuda
 from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
 from svnet_tpu_torch.ops.kernels import _build
-from svnet_tpu_torch.ops.kernels.fold import Folded
+from svnet_tpu_torch.ops.kernels.fold import Folded, packed_signs
 from svnet_tpu_torch.ops.kernels.sv_round3 import (
     _leaky,
     jmajor,
@@ -99,11 +99,14 @@ def sv_point_block_cm_plain(src: torch.Tensor, gate: torch.Tensor,
     return x.transpose(1, 2), s5_max, v5_mean
 
 
-def _weights(f: Folded, S: int, V: int, S_out: int, V_out: int, dev) -> list:
-    """The folded weights' pointers, in the launch functions' order."""
+def _weights(f: Folded, S: int, V: int, S_out: int, V_out: int, dev,
+             binary: bool) -> list:
+    """The folded weights' pointers, in the launch functions' order (W1's
+    packed signs after w1 when binary)."""
     Cin = S + 3 * V
-    return [_build.check_arg(f["wz"], "wz", (V, 3), dev),
-            _build.check_arg(f["w1"], "w1", (Cin, S_out), dev),
+    w1 = _build.check_arg(f["w1"], "w1", (Cin, S_out), dev)
+    return [_build.check_arg(f["wz"], "wz", (V, 3), dev), w1,
+            packed_signs(f["w1"], S_out).data_ptr() if binary else None,
             _build.check_arg(f["beta"], "beta", (1, Cin), dev),
             _build.check_arg(f["a1"], "a1", (1, S_out), dev),
             _build.check_arg(f["b1"], "b1", (1, S_out), dev),
@@ -130,7 +133,7 @@ def sv_point_block_cm(src: torch.Tensor, gate: torch.Tensor, folded: Folded,
     dev = require_cuda(src.device)
     _build.check_arg(src, "src", (B, Cin, N), dev)
     _build.check_arg(gate, "gate", (B, V_out), dev)
-    w = _weights(folded, S, V, S_out, V_out, dev)
+    w = _weights(folded, S, V, S_out, V_out, dev, binary)
     lib = _build.lib()
     vrow = torch.tensor(rows, dtype=torch.int32, device=dev)
     Cout = S_out + 3 * V_out
@@ -173,7 +176,7 @@ def sv_point_block(src: torch.Tensor, gate: torch.Tensor, folded: Folded, *,
     dev = require_cuda(src.device)
     _build.check_arg(src, "src", (B, N, Cin), dev)
     _build.check_arg(gate, "gate", (B, V_out), dev)
-    w = _weights(folded, S, V, S_out, V_out, dev)
+    w = _weights(folded, S, V, S_out, V_out, dev, binary)
     x = torch.empty((B, N, S_out + 3 * V_out), device=dev)
     nblk = (N + _BLOCK - 1) // _BLOCK
     smax = torch.empty((B, nblk, S_out), device=dev)

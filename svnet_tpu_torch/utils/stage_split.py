@@ -1,27 +1,31 @@
-"""Where the conv-round block kernels spend their time, stage by stage.
+"""Where the block kernels spend their time, stage by stage.
 
-    python -m svnet_tpu_torch.utils.stage_split [--csrc DIR]
+    python -m svnet_tpu_torch.utils.stage_split [--csrc DIR] [--kernels rounds,point]
 
 Needs the card and nvcc. Builds, beside the kernel library and never into
-it (in ``build/stage_split/``), one copy of ``sv_rounds.cuh`` and
-``sv_train.cuh`` from DIR (default: this package's ``csrc``) as they are
-and one per stage with that stage's loop compiled out, and times each on
-the same inputs (CUDA events, two
-rounds in turns, the smaller reading kept). A stage's time is the whole
-kernel's minus the kernel's without it; what the stages leave over
-("rest") is barriers, tile set-up and the outputs. A stage removed leaves
-its buffers unwritten, which changes no control flow that costs time.
-(``clock64()`` marks after each barrier were tried first and misplaced
-time between stages that share warps: the differences are what the card
-saves without the stage.)
+it (in ``build/stage_split/``), one copy of a group's sources from DIR
+(default: this package's ``csrc``) as they are and one per stage with
+that stage's statement compiled out, and times each on the same inputs
+(CUDA events, two rounds in turns, the smaller reading kept). A stage's
+time is the whole kernel's minus the kernel's without it; what the stages
+leave over ("rest") is barriers, tile set-up and the outputs. A stage
+removed leaves its buffers unwritten, which changes no control flow that
+costs time. (``clock64()`` marks after each barrier were tried first and
+misplaced time between stages that share warps: the differences are what
+the card saves without the stage.)
 
-Runs the serving conv-round block (``sv_round_block_kernel``: B2, B10a,
-B10b, B10c; binary, random ids and weights) at cls conv2 and conv4 and
-partseg conv4, and B6's forward (F1 + F2) and backward (B1 + B2) passes
-(``sv_train_kernel``) at conv4 of the training shape (B=32, N=1024,
-k=20). Prints the card's name and power limit, then one JSON line per
-kernel and shape. Knows this revision's kernels and the ones before them
-(``--csrc`` of an older checkout).
+Two groups. ``rounds``: the serving conv-round block
+(``sv_round_block_kernel``: B2, B10a, B10b, B10c; binary, random ids and
+weights) at cls conv2 and conv4 and partseg conv4, and B6's forward (F1 +
+F2) and backward (B1 + B2) passes (``sv_train_kernel``) at conv4 of the
+training shape (B=32, N=1024, k=20). ``point``: the per-point blocks,
+binary, random weights: B8 (``sv_block_point_launch``) at the SV-PointNet
+classifier's conv_fuse and conv3 (B=128, N=1024) and the part segmenter's
+conv5 (B=32, N=2048); B3 (``sv_point_launch``, channel-major) and B3r
+(``sv_point_rm_launch``) at SV-DGCNN cls conv5 (B=128, N=1024). Prints
+the card's name and power limit, then one JSON line per kernel and shape.
+Knows this revision's kernels and the ones before them (``--csrc`` of an
+older checkout).
 """
 
 from __future__ import annotations
@@ -105,6 +109,48 @@ TRAIN_NEW = [
 ]
 
 
+# The per-point blocks before the tensor-core redesign (sv_block_point.cu
+# and sv_point.cu alone; since then the FP mode's kernels)
+B8_OLD = [
+    ("staging", ["for (int i = tid; i < np * IN; i += nth) {\n    const int p = i / IN, ch = i % IN;"]),
+    ("frames", ["for (int i = tid; i < np * 9; i += nth) {"]),
+    ("invariants", ["for (int i = tid; i < np * V3; i += nth) {"]),
+    ("sign", ["for (int i = tid; i < np * IN; i += nth)\n      X[i] = sv_sign"]),
+    ("linear1, BN, leaky and s writes", ["sv_block_gemm<4, 4>(X, IN, np, w1,"]),
+    ("linear2", ["sv_block_gemm<4, 4>(VV, V, 3 * np, w2,"]),
+    ("VectorBN, gate and v writes", ["for (int i = tid; i < np * V_out; i += nth) {"]),
+]
+# The shared per-point tile routine (sv_point_tile.cuh) of B8, B3 and B3r;
+# the FUSE stages save nothing in B8
+TILE_NEW = [
+    ("vector chunks (cp.async)", ["stage(0, 0);", "if (ch + 1 < nch) stage("]),
+    ("frames", ["if (frame)  // z_i[j]"]),
+    ("linear2", ["if (active)  // linear2"]),
+    ("VectorBN and gate", ["if (active)\n#pragma unroll"]),
+    ("v writes (B8)", ["for (int e = tid; e < np * V3o; e += nth) vo[e]"]),
+    ("SVFuse frame", ["if (tid < 3 * P) {"]),
+    ("SVFuse invariants and x writes (vectors)", ["for (int e = tid; e < P * V3o; e += nth) {"]),
+    ("vector sums", ["for (int e = tid; e < MT * V3o; e += nth) {"]),
+    ("W1 ring (cp.async)", ["if (s < nk) load_w(s, s);", "if (kc + PT_NST - 1 < nk) load_w("]),
+    ("operand (signs)", ["for (int e0 = tid; e0 < nA; e0 += PT_U * nth) {"]),
+    ("linear1 (tensor cores)", ["if (busy) {\n      const sv_bf16* st"]),
+    ("BN, leaky, s or x writes, maxima", ["if (busy)\n#pragma unroll"]),
+]
+B3_OLD = [
+    ("staging", ["if constexpr (ROW) {  // [s | v i-major] rows of Cin channels"]),
+    ("frames", ["for (int i = tid; i < PT_P * 9; i += nth) {\n    const int p = i / 9, i3 = (i % 9) / 3, j = i % 3;\n    const float* v = VV"]),
+    ("invariants", ["for (int i = tid; i < PT_P * 3 * V; i += nth) {\n    const int p = i / (3 * V), j"]),
+    ("sign", ["for (int i = tid; i < PT_P * IN; i += nth)\n      X[i] = sv_sign"]),
+    ("linear1, BN and leaky", ["sv_block_gemm<4, 4>(X, IN, PT_P, w1,"]),
+    ("linear2", ["sv_block_gemm<4, 4>(VV, V, 3 * PT_P, w2,"]),
+    ("VectorBN and gate", ["for (int i = tid; i < PT_P * V_out; i += nth) {"]),
+    ("SVFuse frame", ["for (int i = tid; i < PT_P * 9; i += nth) {\n    const int p = i / 9, i3 = (i % 9) / 3, j = i % 3;\n    const float* v = WL"]),
+    ("x writes (scalars)", ["for (int i = tid; i < PT_P * S_out; i += nth) {"]),
+    ("SVFuse invariants and x writes (vectors)", ["for (int i = tid; i < PT_P * 3 * V_out; i += nth) {"]),
+    ("pooling", ["for (int o = tid; o < S_out; o += nth) {", "for (int q = tid; q < 3 * V_out; q += nth) {"]),
+]
+
+
 def without(text: str, anchors) -> str:
     for a in anchors:
         if text.count(a) != 1:
@@ -113,39 +159,69 @@ def without(text: str, anchors) -> str:
     return text
 
 
-def build_all(csrc: Path):
-    """{variant: loaded library}; variant "" is the kernels as they are."""
-    rounds = (csrc / "sv_rounds.cuh").read_text()
-    train = (csrc / "sv_train.cuh").read_text()
-    serve = SERVE_NEW if "RB_TP" in rounds else SERVE_OLD
-    trn = TRAIN_NEW if "sv_mma.cuh" in train else TRAIN_OLD
-    variants = {"": (rounds, train)}
-    variants.update({f"serve:{n}": (without(rounds, a), train) for n, a in serve})
-    variants.update({f"train:{n}": (rounds, without(train, a)) for n, a in trn})
+def point_stages(csrc: Path) -> list:
+    """(variant prefix, file, stages) of the per-point blocks of the
+    revision in csrc: the shared tile routine's stages when it has one,
+    else each kernel's own."""
+    if (csrc / "sv_point_tile.cuh").exists():
+        return [("tile:", "sv_point_tile.cuh", TILE_NEW)]
+    return [("b8:", "sv_block_point.cu", B8_OLD), ("b3:", "sv_point.cu", B3_OLD)]
+
+
+def variants(csrc: Path, groups) -> dict:
+    """{variant: (group, {file: text})}; variants "rounds" and "point" are
+    their group's kernels as they are."""
+    out = {}
+    if "rounds" in groups:
+        rounds = (csrc / "sv_rounds.cuh").read_text()
+        train = (csrc / "sv_train.cuh").read_text()
+        serve = SERVE_NEW if "RB_TP" in rounds else SERVE_OLD
+        trn = TRAIN_NEW if "sv_mma.cuh" in train else TRAIN_OLD
+        base = {"sv_rounds.cuh": rounds, "sv_train.cuh": train, "stage.cu": LAUNCH}
+        out["rounds"] = ("rounds", base)
+        out.update({f"serve:{n}": ("rounds", {**base, "sv_rounds.cuh": without(rounds, a)})
+                    for n, a in serve})
+        out.update({f"train:{n}": ("rounds", {**base, "sv_train.cuh": without(train, a)})
+                    for n, a in trn})
+    if "point" in groups:
+        names = ["sv_block_point.cu", "sv_point.cu", "sv_point_tile.cuh"]
+        base = {n: (csrc / n).read_text() for n in names if (csrc / n).exists()}
+        out["point"] = ("point", base)
+        for prefix, name, stages in point_stages(csrc):
+            out.update({f"{prefix}{n}": ("point", {**base, name: without(base[name], a)})
+                        for n, a in stages})
+    return out
+
+
+def build_all(csrc: Path, groups=("rounds", "point")):
+    """{variant: loaded library}, every variant built by its own nvcc,
+    all started together."""
     if STAGE.exists():
         shutil.rmtree(STAGE)
     jobs = {}
-    for i, (name, (r, t)) in enumerate(variants.items()):
+    for i, (name, (group, files)) in enumerate(variants(csrc, groups).items()):
         d = STAGE / f"v{i}"
         d.mkdir(parents=True)
-        (d / "sv_rounds.cuh").write_text(r)
-        (d / "sv_train.cuh").write_text(t)
-        (d / "stage.cu").write_text(LAUNCH)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
+        srcs = (["stage.cu"] if group == "rounds"
+                else ["sv_block_point.cu", "sv_point.cu"])
         cmd = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-shared",
-               "-I", str(csrc), "-o", str(d / "lib.so"), str(d / "stage.cu")]
+               "-I", str(csrc), "-o", str(d / "lib.so"), *[str(d / s) for s in srcs]]
         jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (d, proc) in jobs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name or 'base'}:\n{out}\n{err}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}\n{err}")
         lib = ctypes.CDLL(str(d / "lib.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.st_conv_block.argtypes = [I] + [P] * 14 + [I] * 8 + [P]
-        lib.sv_round3_train_launch.argtypes = [I, P, P, P]
-        lib.sv_round3_train_launch.restype = I
+        if hasattr(lib, "st_conv_block"):
+            lib.st_conv_block.argtypes = [I] + [P] * 14 + [I] * 8 + [P]
+            lib.sv_round3_train_launch.argtypes = [I, P, P, P]
+            lib.sv_round3_train_launch.restype = I
         libs[name] = lib
     return libs
 
@@ -163,42 +239,36 @@ def device_ms(fn, reps=3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def split(times: dict, prefix: str, key=lambda t: t) -> dict:
+def split(times: dict, base: str, prefix: str, key=lambda t: t) -> dict:
     """Base time, each stage's saving and the rest, in ms."""
-    base = key(times[""])
-    out = {"kernel_ms": round(base, 3)}
+    whole = key(times[base])
+    out = {"kernel_ms": round(whole, 3)}
     for name, t in times.items():
         if name.startswith(prefix):
-            out[name[len(prefix):]] = round(base - key(t), 3)
-    out["rest"] = round(base - sum(v for n, v in out.items() if n != "kernel_ms"), 3)
+            out[name[len(prefix):]] = round(whole - key(t), 3)
+    out["rest"] = round(whole - sum(v for n, v in out.items() if n != "kernel_ms"), 3)
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--csrc", type=Path, default=ROOT / "svnet_tpu_torch" / "csrc")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("stage_split: needs a CUDA device", file=sys.stderr)
-        return 1
+def timed(libs: dict, names, call) -> dict:
+    """{variant: least ms of call(lib)} over two rounds in turns."""
+    times = {}
+    for _ in range(2):
+        for name in names:
+            t = device_ms(lambda lib=libs[name]: call(lib))
+            times[name] = min(times.get(name, t), t)
+    return times
+
+
+def run_rounds(libs: dict, dev, gen, rnd):
     from svnet_tpu_torch.models.sv_dgcnn import init_params
     from svnet_tpu_torch.ops.kernels import _build
     from svnet_tpu_torch.ops.kernels import sv_round3_train as kr
     from svnet_tpu_torch.train.fused import ROUNDS, SUB
     from svnet_tpu_torch.train.steps import tree_map
 
-    libs = build_all(args.csrc.resolve())
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen).to(dev)
-
-    serve = [n for n in libs if n == "" or n.startswith("serve:")]
+    serve = [n for n in libs if n == "rounds" or n.startswith("serve:")]
+    stream = torch.cuda.current_stream().cuda_stream
     for tag, (B, N, k, S, V, So, Vo) in (
             ("cls conv2", (128, 1024, 20, 32, 10, 32, 10)),
             ("cls conv4", (128, 1024, 20, 64, 21, 128, 42)),
@@ -210,21 +280,17 @@ def main(argv=None) -> int:
              rnd(1, So), torch.sign(rnd(2 * V, Vo)), rnd(1, Vo).abs(), rnd(1, Vo),
              rnd(1, Vo)]
         outs = [torch.empty(B * N * n, device=dev) for n in (So, 3 * Vo, 2 * S)]
-        stream = torch.cuda.current_stream().cuda_stream
-        times = {}
-        for _ in range(2):
-            for name in serve:
-                def call(lib=libs[name]):
-                    err = lib.st_conv_block(
-                        1, src.data_ptr(), ids.data_ptr(), *[t.data_ptr() for t in w],
-                        *[o.data_ptr() for o in outs], B, N, S, V, So, Vo, k, 1, stream)
-                    if err != 0:
-                        raise RuntimeError(f"st_conv_block: error {err}")
-                t = device_ms(call)
-                times[name] = min(times.get(name, t), t)
+
+        def call(lib):
+            err = lib.st_conv_block(
+                1, src.data_ptr(), ids.data_ptr(), *[t.data_ptr() for t in w],
+                *[o.data_ptr() for o in outs], B, N, S, V, So, Vo, k, 1, stream)
+            if err != 0:
+                raise RuntimeError(f"st_conv_block: error {err}")
         print(json.dumps({"kernel": "sv_round_block_kernel (binary)", "shape": tag,
                           "B": B, "N": N, "k": k,
-                          "ms": split(times, "serve:")}), flush=True)
+                          "ms": split(timed(libs, serve, call), "rounds", "serve:")}),
+              flush=True)
 
     B, N, k = 32, 1024, 20
     S, V, So, Vo = ROUNDS["conv4"]
@@ -237,7 +303,7 @@ def main(argv=None) -> int:
     sym = "sv_round3_train_launch"
     times = {}
     for _ in range(2):
-        for name in [n for n in libs if n == "" or n.startswith("train:")]:
+        for name in [n for n in libs if n == "rounds" or n.startswith("train:")]:
             _build.lib = lambda lib=libs[name]: lib  # the wrappers look up their entry here
             out = kr.train_fwd_kernel(sym, x, idx, kp, d)
             saved = (out[4], out[3][0], out[3][2], out[3][3], out[3][5])
@@ -249,8 +315,118 @@ def main(argv=None) -> int:
     for i, label in enumerate(("forward (F1 + F2)", "backward (B1 + B2)")):
         print(json.dumps({"kernel": f"sv_train_kernel {label} (binary)",
                           "shape": "train conv4", "B": B, "N": N, "k": k,
-                          "ms": split(times, "train:", key=lambda t, i=i: t[i])}),
+                          "ms": split(times, "rounds", "train:",
+                                      key=lambda t, i=i: t[i])}),
               flush=True)
+
+
+# (label, kernel, B, N, S, V, S_out, V_out) of the per-point blocks' splits
+POINT_SHAPES = (
+    ("cls conv_fuse", "B8", 128, 1024, 1024, 340, 512, 170),
+    ("cls conv3", "B8", 128, 1024, 64, 21, 512, 170),
+    ("partseg conv5", "B8", 32, 2048, 256, 85, 1024, 341),
+    ("cls conv5", "B3", 128, 1024, 256, 83, 512, 170),
+    ("cls conv5", "B3r", 128, 1024, 256, 83, 512, 170),
+)
+
+
+def run_point(libs: dict, csrc: Path, dev, gen, rnd):
+    """B8, B3 and B3r, binary, on every point variant. A revision with the
+    shared tile routine takes W1's signs packed once (its launch functions
+    have the packed operand after w1)."""
+    from svnet_tpu_torch.infer import POINT_V_OFF
+    from svnet_tpu_torch.ops.kernels.sv_point import vector_rows
+
+    packed = (csrc / "sv_point_tile.cuh").exists()
+    prefixes = [prefix for prefix, _, _ in point_stages(csrc)]
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for lib in (lib for n, lib in libs.items() if n == "point" or n.startswith(tuple(prefixes))):
+        lib.sv_block_point_launch.argtypes = [P] * (13 + packed) + [I] * 7 + [P]
+        lib.sv_point_launch.argtypes = [P] * (16 + packed) + [I] * 7 + [P]
+        lib.sv_point_rm_launch.argtypes = [P] * (15 + packed) + [I] * 7 + [P]
+        if packed:
+            lib.sv_pack_bytes.argtypes = [I, I]
+            lib.sv_pack_signs_launch.argtypes = [P, P, I, I, P]
+    for tag, kern, B, N, S, V, So, Vo in POINT_SHAPES:
+        Cin = S + 3 * V
+        src = rnd(B, N, Cin) if kern != "B3" else rnd(B, Cin, N)
+        gate = torch.rand(B, Vo, generator=gen).to(dev)
+        w1 = torch.sign(rnd(Cin, So))
+        w = [0.1 * rnd(V, 3), w1, 0.3 * rnd(1, Cin), rnd(1, So), rnd(1, So),
+             torch.sign(rnd(V, Vo)), rnd(1, Vo).abs() + 0.1, rnd(1, Vo), rnd(1, Vo)]
+        if kern != "B8":
+            w.append(rnd(Vo, 3))
+        nblk = (N + 15) // 16
+        if kern == "B8":
+            outs = [torch.empty(B, N, So, device=dev), torch.empty(B, N, 3 * Vo, device=dev)]
+        else:
+            outs = [torch.empty(B, N * (So + 3 * Vo), device=dev),
+                    torch.empty(B, nblk, So, device=dev),
+                    torch.empty(B, nblk, 3 * Vo, device=dev)]
+        vrow = torch.tensor(vector_rows(POINT_V_OFF, S, V) if kern == "B3" else [0],
+                            dtype=torch.int32, device=dev)
+        packs = {}  # W1's signs, packed once by each variant's library
+
+        def call(lib):
+            ws = [t.data_ptr() for t in w]
+            if packed:
+                if id(lib) not in packs:
+                    out = torch.empty(lib.sv_pack_bytes(Cin, So), dtype=torch.int8, device=dev)
+                    err = lib.sv_pack_signs_launch(w1.data_ptr(), out.data_ptr(), Cin, So, stream)
+                    if err != 0:
+                        raise RuntimeError(f"sv_pack_signs_launch: error {err}")
+                    packs[id(lib)] = out
+                ws.insert(2, packs[id(lib)].data_ptr())
+            dims = (B, N, S, V, So, Vo, 1, stream)
+            ptrs = [t.data_ptr() for t in outs]
+            if kern == "B8":
+                err = lib.sv_block_point_launch(src.data_ptr(), gate.data_ptr(), *ws,
+                                                *ptrs, *dims)
+            elif kern == "B3":
+                err = lib.sv_point_launch(src.data_ptr(), gate.data_ptr(), vrow.data_ptr(),
+                                          *ws, *ptrs, *dims)
+            else:
+                err = lib.sv_point_rm_launch(src.data_ptr(), gate.data_ptr(), *ws,
+                                             *ptrs, *dims)
+            if err != 0:
+                raise RuntimeError(f"{kern}: error {err}")
+        # the tile routine's stages serve every kernel, the old ones their own
+        prefix = "tile:" if packed else ("b8:" if kern == "B8" else "b3:")
+        names = ["point"] + [n for n in libs if n.startswith(prefix)]
+        print(json.dumps({"kernel": f"{kern} (binary)", "shape": tag, "B": B, "N": N,
+                          "ms": split(timed(libs, names, call), "point", prefix)}),
+              flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", type=Path, default=ROOT / "svnet_tpu_torch" / "csrc")
+    ap.add_argument("--kernels", default="rounds,point",
+                    help="comma-separated groups: rounds, point")
+    args = ap.parse_args(argv)
+    groups = args.kernels.split(",")
+    if not set(groups) <= {"rounds", "point"}:
+        ap.error(f"--kernels: unknown group in {args.kernels!r}")
+    if not torch.cuda.is_available():
+        print("stage_split: needs a CUDA device", file=sys.stderr)
+        return 1
+    csrc = args.csrc.resolve()
+    libs = build_all(csrc, groups)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    if "point" in groups:
+        run_point(libs, csrc, dev, gen, rnd)
+    if "rounds" in groups:
+        run_rounds(libs, dev, gen, rnd)
     return 0
 
 

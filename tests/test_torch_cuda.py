@@ -61,8 +61,10 @@ def test_kernels_match_plain_on_card():
 @pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
 def test_pointnet_kernels_match_plain_on_card(binary):
     """B1 with cross (ids and outputs) and B8 bitwise against their plain
-    versions: B8 at a narrow, a 512-wide and the conv_fuse-wide shape (8
-    points per block there, 16 elsewhere), N ragged for both block sizes."""
+    versions: B8 at a narrow, a 512-wide and the conv_fuse-wide shape
+    (binary: tensor-core tiles of 128 points at the narrow shape, 64 at
+    the others; FP: 8 points per block at conv_fuse, 16 elsewhere), N
+    ragged for every block size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from svnet_tpu_torch import config
@@ -85,9 +87,10 @@ def test_pointnet_kernels_match_plain_on_card(binary):
     want = sv_round3_first_plain(pts, eng.folded_first, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    for name, ppb in (("conv1", 16), ("conv3", 16), ("conv_fuse", 8)):
+    for name, ppb in (("conv1", (128, 16)), ("conv3", (64, 16)),
+                      ("conv_fuse", (64, 8))):
         (S, V, S_out, V_out), folded, _ = eng.blocks[name]
-        assert points_per_block(S, V, S_out, V_out) == ppb
+        assert points_per_block(S, V, S_out, V_out, binary) == ppb[0 if binary else 1]
         src = torch.randn(2, 203, S + 3 * V, generator=gen).to(dev)
         gate = torch.rand(2, V_out, generator=gen).to(dev)
         kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
@@ -493,22 +496,26 @@ def test_edge_gather_unaligned_rows_on_card(c):
     assert torch.equal(out[keep], eg.edge_gather_fwd_plain(src, idx)[keep])
 
 
-def _round_weights(S, V, S_out, V_out, binary, gen):
+def _round_weights(S, V, S_out, V_out, binary, gen, point=False):
     """Seeded folded weights of a conv round at any widths (signs when
-    binary, as the fold gives them)."""
-    IN1 = 2 * S + 6 * V
+    binary, as the fold gives them); ``point``: of a per-point block (B8,
+    B3: S + 3V inputs, V vectors, and B3's wzf)."""
+    IN1, Vi = (S + 3 * V, V) if point else (2 * S + 6 * V, 2 * V)
 
     def r(*shape):
         return torch.randn(*shape, generator=gen)
 
-    w1, w2 = r(IN1, S_out), r(2 * V, V_out)
+    w1, w2 = r(IN1, S_out), r(Vi, V_out)
     if binary:
         w1, w2 = torch.sign(w1), torch.sign(w2)
-    return {"wz": r(2 * V, 3), "w1": w1,
-            "beta": 0.3 * r(1, IN1) if binary else torch.zeros(1, IN1),
-            "a1": r(1, S_out), "b1": r(1, S_out), "w2": w2,
-            "scale2": r(1, V_out).abs() + 0.1, "a2": r(1, V_out),
-            "b2": r(1, V_out)}
+    f = {"wz": r(Vi, 3), "w1": w1,
+         "beta": 0.3 * r(1, IN1) if binary else torch.zeros(1, IN1),
+         "a1": r(1, S_out), "b1": r(1, S_out), "w2": w2,
+         "scale2": r(1, V_out).abs() + 0.1, "a2": r(1, V_out),
+         "b2": r(1, V_out)}
+    if point:
+        f["wzf"] = r(V_out, 3)
+    return f
 
 
 # (B, N, k, S, V, S_out, V_out): IN1 = 2S + 6V = 28 and S_out = 13 divide
@@ -557,6 +564,60 @@ def test_conv_block_shape_forced_on_card(shape, binary):
     gate = torch.rand(b, V_out, generator=gen).to(dev)
     got = ke.sv_edge_block(src, idx, gate, f, **kw)
     for g, w in zip(got, ke.sv_edge_block_plain(src, idx, gate, f, **kw)):
+        assert torch.equal(g, w)
+
+
+# (kernel, B, N, S, V, S_out, V_out): Cin = 14 and S_out = 13 divide no K
+# chunk (32) and no MMA tile; conv_fuse's and partseg conv5's widths (the
+# 64- and 32-point tiles) at ragged N; B3 channel-major with two vector
+# blocks (v_off) and its pooled outputs, B3r at N = 1000
+POINT_FORCED = [("B8", 2, 1001, 5, 3, 13, 7), ("B8", 1, 1001, 1024, 340, 512, 170),
+                ("B8", 1, 1000, 256, 85, 1024, 341), ("B3", 2, 1001, 5, 3, 13, 7),
+                ("B3", 1, 1001, 256, 96, 512, 168), ("B3r", 2, 1000, 5, 3, 13, 7),
+                ("B3r", 1, 1000, 256, 96, 512, 168)]
+
+
+def two_blocks(S, V):
+    """A v_off of two vector blocks tiling [S, S + 3V)."""
+    V1 = max(1, V // 2)
+    return ((S, V1), (S + 3 * V1, V - V1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+@pytest.mark.parametrize("shape", POINT_FORCED,
+                         ids=[f"{s[0]}-N{s[2]}-S{s[3]}-V{s[4]}-So{s[5]}-Vo{s[6]}"
+                              for s in POINT_FORCED])
+def test_point_block_shape_forced_on_card(shape, binary):
+    """B8, B3 and B3r bitwise against their plain versions (pooled outputs
+    included) where no K chunk, MMA tile or point tile divides the widths
+    and N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import sv_block_point as kb
+    from svnet_tpu_torch.ops.kernels import sv_point as kp
+
+    kern, b, n, S, V, S_out, V_out = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(15)
+    f = {name: t.to(dev) for name, t in
+         _round_weights(S, V, S_out, V_out, binary, gen, point=True).items()}
+    gate = torch.rand(b, V_out, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+    if kern == "B3":
+        src = torch.randn(b, S + 3 * V, n, generator=gen).to(dev)
+        kw["v_off"] = two_blocks(S, V)
+        got = kp.sv_point_block_cm(src, gate, f, **kw)
+        want = kp.sv_point_block_cm_plain(src, gate, f, **kw)
+    else:
+        src = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+        fn, plain = ((kb.sv_block_point, kb.sv_block_point_plain) if kern == "B8"
+                     else (kp.sv_point_block, kp.sv_point_block_plain))
+        got, want = fn(src, gate, f, **kw), plain(src, gate, f, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
@@ -664,8 +725,10 @@ def test_bf16_three_pieces_carry_f32_exactly(scale):
 
 def test_stage_split_anchors_track_the_kernels():
     """Every stage the stage-split tool compiles out is found exactly once
-    in this revision's block kernels, and ``if (0)`` lands in front of it;
-    the split is base minus variant, the rest what the stages leave."""
+    in this revision's block kernels (the conv-round blocks and the
+    per-point tile routine), and ``if (0)`` lands in front of it; each
+    group's variants carry their group's files; the split is base minus
+    variant, the rest what the stages leave."""
     from pathlib import Path
 
     from svnet_tpu_torch.utils import stage_split as ss
@@ -673,13 +736,20 @@ def test_stage_split_anchors_track_the_kernels():
     csrc = Path(ss.ROOT) / "svnet_tpu_torch" / "csrc"
     rounds = (csrc / "sv_rounds.cuh").read_text()
     train = (csrc / "sv_train.cuh").read_text()
+    tile = (csrc / "sv_point_tile.cuh").read_text()
     assert "RB_TP" in rounds and "sv_mma.cuh" in train  # this revision's
-    for text, stages in ((rounds, ss.SERVE_NEW), (train, ss.TRAIN_NEW)):
+    assert ss.point_stages(csrc) == [("tile:", "sv_point_tile.cuh", ss.TILE_NEW)]
+    for text, stages in ((rounds, ss.SERVE_NEW), (train, ss.TRAIN_NEW),
+                         (tile, ss.TILE_NEW)):
         for _, anchors in stages:
             out = ss.without(text, anchors)
             assert out.count("if (0) ") == text.count("if (0) ") + len(anchors)
     with pytest.raises(ValueError):
         ss.without(rounds, ["no such statement"])
-    got = ss.split({"": 10.0, "serve:a": 7.0, "serve:b": 9.5, "train:c": 1.0},
-                   "serve:")
+    var = ss.variants(csrc, ["point"])
+    assert set(var) == {"point"} | {f"tile:{n}" for n, _ in ss.TILE_NEW}
+    assert all(group == "point" and "if (0) " not in files["sv_block_point.cu"]
+               for group, files in var.values())
+    got = ss.split({"rounds": 10.0, "serve:a": 7.0, "serve:b": 9.5, "train:c": 1.0},
+                   "rounds", "serve:")
     assert got == {"kernel_ms": 10.0, "a": 3.0, "b": 0.5, "rest": 6.5}
