@@ -57,6 +57,11 @@ exits non-zero:
      widths at ragged N and k): B2, B10b, B10a and B10c, binary and FP,
      every output bitwise; B6 at those odd widths, (8, 1000, 7), both
      modes, to the bars above
+     The first-round block where no centre tile (128) or rank chunk (2)
+     divides N or k (FIRST_FORCED: N=1000, 1001 and 50, k=1, 7, 33, 40),
+     at every instantiation (edge channels 2 and 3, V_out 10 and 16): B1
+     (channel-major) and B10b (row-major) with their own selection, B10d
+     on B4's ids; outputs and ids bitwise
      B3/B3r: x and the pooled outputs bitwise the plain version's, binary
      and FP (the binary linear1 runs on the tensor cores in int8, exact);
      B8, B3 and B3r also where neither the K chunk (32) nor the MMA tile
@@ -136,8 +141,10 @@ exits non-zero:
      launches the round2 kernels only (sv_round2_first once, sv_round2
      three times, sv_point_block once)
  15  the XNOR-popcount product (B9) through the bench's main at
-     (M, K, N) = (4096, 2048, 512) and a ragged (1000, 96, 77): exact
-     against the dense +-1 product and bitwise against the plain version;
+     (M, K, N) = (4096, 2048, 512), a ragged (1000, 96, 77) and
+     XNOR_RAGGED (M and N off the MMA and both block tiles, K/32 = 1,
+     7, 10 and 33 words): exact against the dense +-1 product and bitwise
+     against the plain version;
      the kernel's time, torch._int_mm's on int8 operands and a bf16
      torch.mm's with f32 output
 
@@ -165,14 +172,19 @@ SEED = 0
 B_PSEG, N_PSEG, K_PSEG, PARTS = 32, 2048, 40, 50
 N_RAGGED_POINT = 1001  # divides by no tile of B8 (binary 128, 64, 32; FP 16, 8)
 N_RAGGED = 1000  # the SV-DGCNN kernels' ragged case: no tile divides it
-# the least time of a kernel's work: bytes over the HBM rate; real-valued
-# operations over the f32 rate outside the tensor cores, and the products of
-# +-1 by +-1 (a binary round's linear1, B9) over the dense int8 tensor-core
-# rate, the fastest at which the card computes them exactly; NVIDIA H100
-# SXM data sheet, at its 700 W limit
+# the least time of a kernel's work: bytes over the HBM rate and real-valued
+# operations over the f32 rate outside the tensor cores (NVIDIA H100 SXM
+# data sheet, at its 700 W limit); the products of +-1 by +-1 (a binary
+# round's linear1, B9) over the rate of the binary tensor cores' AND +
+# popcount, the fastest at which the card computes them exactly (one AND
+# product a +-1 product, with row and column popcounts). The data sheet
+# gives no binary rate: this is the one that `python -m
+# svnet_tpu_torch.utils.bench_binary_matmul --rates` measured on an NVIDIA
+# H100 80GB HBM3 at 700 W (mma.sync m16n8k256, the faster of its two grids),
+# 5.2 times the data sheet's dense int8 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-PM1_OPS_PER_S = 1979e12
+PM1_OPS_PER_S = 10241e12
 
 
 def log(*args):
@@ -976,18 +988,25 @@ def phase14(dg, eng3, gen, dev, counters, card):
     return out
 
 
+# (M, K, N) of B9 off its 16 x 8 MMA tiles and its 64 x 64 and 128 x 128
+# block tiles (the last shape runs on the 128 x 128), with 1, 7, 10 and 33
+# packed words a row (the MMA depth is 8, a chunk 16)
+XNOR_RAGGED = ((130, 32, 9), (257, 224, 129), (17, 320, 250), (300, 1056, 131),
+               (2100, 320, 2100))
+
+
 def phase15(rep, counters, card):
-    """Kernel B9 through the bench's main at the bench's shape and at a
-    ragged one: exact against the dense product and bitwise against the
-    plain version (main raises otherwise), and the kernel's, the int8
-    and the bf16 library products' times. Its launches are the bench's:
-    the checks and every timed call."""
+    """Kernel B9 through the bench's main at the bench's shape, a ragged
+    one and XNOR_RAGGED: exact against the dense product and bitwise
+    against the plain version (main raises otherwise), and the kernel's,
+    the int8 and the bf16 library products' times. Its launches are the
+    bench's: the checks and every timed call."""
     from svnet_tpu_torch.ops.kernels import binary_matmul as kb
     from svnet_tpu_torch.utils import bench_binary_matmul
 
     for fn in counters:
         fn.launches = 0
-    for M, Kd, Nd in ((4096, 2048, 512), (1000, 96, 77)):
+    for M, Kd, Nd in ((4096, 2048, 512), (1000, 96, 77), *XNOR_RAGGED):
         res = bench_binary_matmul.main(M, Kd, Nd)
         L = Kd // 32
         cost = bound(0.0, 4.0 * (M * L + Nd * L + M * Nd), 2.0 * M * Kd * Nd)
@@ -1314,6 +1333,57 @@ def phase2_forced(rep, dev):
                       ("sv_round3_train_fwd", "sv_round3_train_bwd"),
                       (krt.sv_round3_train_fwd, krt.sv_round3_train_bwd), x, idx,
                       kp, d, gen, False, 1e-3)
+
+
+# (B, N, k) where the first-round block's centre tile (128) and rank chunk
+# (2) divide neither N nor k, and N below one tile
+FIRST_FORCED = ((2, 1000, 1), (2, 1001, 7), (1, 1000, 33), (1, 1001, 40),
+                (3, 50, 33))
+
+
+def phase2_first_forced(rep, dev):
+    """The first-round block at FIRST_FORCED and every instantiation (2
+    and 3 edge channels, V_out 10 and 16, both layouts): B1 and B10b with
+    their own selection and B10d on B4's ids, outputs and ids bitwise
+    their plain versions'."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    for b, n, k in FIRST_FORCED:
+        for cross in (False, True):
+            for V_out in (10, 16):
+                n_ch = 3 if cross else 2
+                f = {name: torch.randn(*shape, generator=gen).to(dev)
+                     for name, shape in (("wz0", (n_ch, 3)), ("wz1", (n_ch, 3)),
+                                         ("w1", (6 * n_ch, 32)), ("a1", (1, 32)),
+                                         ("b1", (1, 32)), ("w2", (n_ch, V_out)),
+                                         ("a2", (1, V_out)), ("b2", (1, V_out)))}
+                pts = torch.randn(b, n, 3, generator=gen).to(dev)
+                kw = dict(S_out=32, V_out=V_out, k=k, cross=cross)
+                label = (f"B={b} N={n} k={k} {'cross' if cross else 'xyz'} "
+                         f"V_out={V_out}")
+                check_equal(f"sv_round3_first {label}",
+                            kr.sv_round3_first(pts, f, emit_wins=True, **kw),
+                            kr.sv_round3_first_plain(pts, f, **kw))
+                check_equal(f"sv_round2_first {label}",
+                            k2.sv_round2_first(pts, f, emit_wins=True, **kw),
+                            k2.sv_round2_first_plain(pts, f, **kw))
+                rep.add("sv_round3_first", 0.0)
+                rep.add("sv_round2_first cls", 0.0)
+                if not cross:
+                    idx = knn(pts, k)
+                    kw.pop("cross")
+                    check_equal(f"sv_edge_first_block {label}",
+                                kf.sv_edge_first_block(pts, idx, f, **kw),
+                                kf.sv_edge_first_block_plain(pts, idx, f, **kw))
+                    rep.add("sv_edge_first_block", 0.0)
+                log(f"  first block {label}: B1, B10b"
+                    + ("" if cross else ", B10d") + " bitwise their plain versions")
 
 
 # (kernel, B, N, S, V, S_out, V_out) where no K chunk (32) or MMA tile of
@@ -1753,6 +1823,7 @@ def main() -> int:
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
                  rounds=("conv2",))
     phase2_forced(rep, dev)
+    phase2_first_forced(rep, dev)
     phase2_point_forced(rep, dev)
     worst = max(rep.grad_rel, key=rep.grad_rel.get)
     log(f"phase 2: worst relative gradient error of the training rounds "

@@ -17,8 +17,10 @@
 // drops every candidate below its k-th entry at once (sv_common.cuh), so
 // no rank costs an N-wide pass. The TPU's one-hot int8
 // gather and byte planes are gone: a thread reads its neighbours' three
-// coordinates directly. The block math is one thread per centre, all of it
-// in registers. The gate statistics leave as per-point sums over the
+// coordinates directly. The block math runs near the CUDA cores' issue
+// rate: a block of 128 centres splits each edge's work over shared memory
+// between three thread maps, so no thread holds the whole block's state
+// (sv_rounds.cuh). The gate statistics leave as per-point sums over the
 // ranks, reduced over N outside (no float atomics: run-independent).
 #include "sv_rounds.cuh"
 

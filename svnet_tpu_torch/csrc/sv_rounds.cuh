@@ -19,18 +19,41 @@
 // ---------------------------------------------------------------------------
 // first round (xyz edges, FP block)
 // ---------------------------------------------------------------------------
-// One thread per centre point, all of its block math in registers: edges
-// [nbr - ctr, ctr] (NCH = 2, DGCNN) or [nbr - ctr, ctr, nbr x ctr]
+// Edges [nbr - ctr, ctr] (NCH = 2, DGCNN) or [nbr - ctr, ctr, nbr x ctr]
 // (NCH = 3, SV-PointNet), init Vector2Scalar (wz0) and the block's
 // Vector2Scalar (wz1), FP linear1 + folded BN + leaky 0.2 -> max over k,
 // linear2 + VectorBN -> mean over k, and the init-scalar sums the gate
 // reads. S_out is 32; VO, the vector width, is 10 (SV_DGCNN_CLS,
 // SV-PointNet) or 16 (SV_DGCNN_PSEG's make_divisible widths).
+//
+// A block of FB_THREADS threads owns FB_TP centres and walks their ranks
+// in chunks of FB_G; per chunk, two barriers and three phases:
+//   edges       a thread per edge (rank slot, centre): the edge, both
+//               frames and the invariants xc (6*NCH floats, j-major) into
+//               XC, the edge's vectors into VE. The neighbour's
+//               coordinates were loaded during the previous chunk and its
+//               id the chunk before that, so no id -> coordinate chain
+//               waits on device memory.
+//   linear1     lane = output o (S_out = 32 = a warp), w1's column o in
+//               registers for the whole kernel; a warp owns FB_CW centres,
+//               reads each edge's xc as broadcast float4s and sums
+//               xc . w1[:, o] over q in order, then BN, leaky and the
+//               running max (registers).
+//   linear2     thread = (centre, half of the VO outputs): linear2 over
+//               the channels in order, VectorBN, the vector sums over the
+//               ranks in rank order (registers); the first half also sums
+//               the init scalars (the gate's statistics) in rank order.
+// The outputs leave through shared memory, coalesced in both layouts.
+// Every product and sum is the plain version's (first_block_rows), in
+// its order, f32 with no FMA: bitwise equal outputs.
 #define F_S_OUT 32
-#define F_THREADS 128
+#define FB_TP 128                       // centres per block
+#define FB_G 2                          // ranks per chunk
+#define FB_THREADS (FB_TP * FB_G)       // one edge a thread in the edge phase
+#define FB_CW (FB_TP / (FB_THREADS / 32))  // centres per warp in linear1
 
 template <int NCH, int VO, bool ROW>
-static __global__ void __launch_bounds__(F_THREADS)
+static __global__ void __launch_bounds__(FB_THREADS, 2)
 sv_first_block_kernel(
     const float* __restrict__ pts, const int* __restrict__ wins,
     const float* __restrict__ wz0, const float* __restrict__ wz1,
@@ -39,108 +62,197 @@ sv_first_block_kernel(
     const float* __restrict__ a2, const float* __restrict__ b2,
     float* __restrict__ s_out, float* __restrict__ v_out,
     float* __restrict__ ssum, int N, int k) {
-  constexpr int NSS = 3 * NCH, NX = 6 * NCH;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * F_THREADS + threadIdx.x;
+  constexpr int NSS = 3 * NCH, NX = 6 * NCH, NXP = (NX + 3) & ~3;
+  constexpr int VG = VO / 2;                // linear2 outputs a thread
+  constexpr int NO = F_S_OUT + 3 * VO + 1;  // a centre's row of OUT (odd)
+  constexpr int XCW = FB_G * FB_TP * NXP, VEW = FB_G * 3 * NCH * FB_TP;
+  constexpr int SMW = XCW + VEW > FB_TP * NO ? XCW + VEW : FB_TP * NO;
+  __shared__ __align__(16) float sm[SMW];
+  __shared__ float wzs[6 * NCH], w2s[NCH * VO], a2s[VO], b2s[VO];
+  float* XC = sm;        // (G, TP, NXP) invariants [init | block]
+  float* VE = sm + XCW;  // (G, 3, NCH, TP) the edges' vectors
+  float* OUT = sm;       // after the ranks: (TP, NO) [s | v i-major]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, n0 = blockIdx.x * FB_TP;
+  // this thread's centre and rank slot (edge phase) or output half (linear2)
+  const int t = tid % FB_TP, g1 = tid / FB_TP, n = n0 + t;
   const bool valid = n < N;
   const float* x = pts + (size_t)b * 3 * N;
-  // coordinate i of point m
   auto coord = [&](int m, int i) {
     return ROW ? x[(size_t)m * 3 + i] : x[(size_t)i * N + m];
   };
+  auto id_at = [&](int r) {
+    return valid && r < k ? (ROW ? wins[((size_t)b * N + n) * k + r]
+                                 : wins[((size_t)b * k + r) * N + n])
+                          : -1;
+  };
 
-  float ctr[3];
+  for (int i = tid; i < 6 * NCH; i += FB_THREADS)
+    wzs[i] = i < 3 * NCH ? wz0[i] : wz1[i - 3 * NCH];
+  for (int i = tid; i < NCH * VO; i += FB_THREADS) w2s[i] = w2[i];
+  for (int i = tid; i < VO; i += FB_THREADS) a2s[i] = a2[i], b2s[i] = b2[i];
+  float ctr[3], nb[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) ctr[i] = valid ? coord(n, i) : 0.f;
-  float sacc[F_S_OUT], vacc[3][VO], ss[NSS];
+  int row = id_at(g1);
 #pragma unroll
-  for (int o = 0; o < F_S_OUT; ++o) sacc[o] = -INFINITY;
+  for (int i = 0; i < 3; ++i) nb[i] = row >= 0 ? coord(row, i) : 0.f;
+  int nrow = id_at(FB_G + g1);
+
+  float w1r[NX];  // linear1: column o = lane of w1
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int q = 0; q < NX; ++q) w1r[q] = w1[q * F_S_OUT + lane];
+  const float a1r = a1[lane], b1r = b1[lane];
+  float sacc[FB_CW];
 #pragma unroll
-    for (int o = 0; o < VO; ++o) vacc[i][o] = 0.f;
+  for (int c = 0; c < FB_CW; ++c) sacc[c] = -INFINITY;
+  float vacc[VG][3], ss[NSS];
+#pragma unroll
+  for (int o = 0; o < VG; ++o)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) vacc[o][i] = 0.f;
 #pragma unroll
   for (int j = 0; j < NSS; ++j) ss[j] = 0.f;
+  __syncthreads();  // the staged weights
 
-  for (int r = 0; valid && r < k; ++r) {
-    const int row = ROW ? wins[((size_t)b * N + n) * k + r]
-                        : wins[((size_t)b * k + r) * N + n];
-    float nb[3], ve[3][NCH];  // per component i: [nbr - ctr, ctr(, cross)]
+  for (int r0 = 0; r0 < k; r0 += FB_G) {
+    const int g = min(FB_G, k - r0);
+    {  // edges: this thread's edge (rank r0 + g1 of centre t)
+      float ve[3][NCH];  // per component i: [nbr - ctr, ctr(, cross)]
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      nb[i] = coord(row, i);
-      ve[i][0] = nb[i] - ctr[i];
-      ve[i][1] = ctr[i];
-    }
-    if constexpr (NCH == 3) {
-      ve[0][2] = nb[1] * ctr[2] - nb[2] * ctr[1];
-      ve[1][2] = nb[2] * ctr[0] - nb[0] * ctr[2];
-      ve[2][2] = nb[0] * ctr[1] - nb[1] * ctr[0];
-    }
-    // Vector2Scalar invariants, j-major rows j*NCH + c: init_scalar (wz0)
-    // then the block's v2s (wz1); frames summed over c in order
-    float xc[NX];
+      for (int i = 0; i < 3; ++i) {
+        ve[i][0] = nb[i] - ctr[i];
+        ve[i][1] = ctr[i];
+      }
+      if constexpr (NCH == 3) {
+        ve[0][2] = nb[1] * ctr[2] - nb[2] * ctr[1];
+        ve[1][2] = nb[2] * ctr[0] - nb[0] * ctr[2];
+        ve[2][2] = nb[0] * ctr[1] - nb[1] * ctr[0];
+      }
+      {  // the edge's vectors, for linear2
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* wz = h == 0 ? wz0 : wz1;
-      float z[3][3];
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            VE[((g1 * 3 + i) * NCH + c) * FB_TP + t] = ve[i][c];
+      }
+      {  // frames and invariants, rows j*NCH + c: init_scalar (wz0) then
+         // the block's v2s (wz1); frames summed over c in order
+        float xc[NXP];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* wz = wzs + h * 3 * NCH;
+          float z[3][3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              float acc = ve[i][0] * wz[j];
+#pragma unroll
+              for (int c = 1; c < NCH; ++c) acc += ve[i][c] * wz[c * 3 + j];
+              z[i][j] = acc;
+            }
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+#pragma unroll
+            for (int c = 0; c < NCH; ++c)
+              xc[h * NSS + j * NCH + c] =
+                  ve[0][c] * z[0][j] + ve[1][c] * z[1][j] + ve[2][c] * z[2][j];
+        }
+#pragma unroll
+        for (int q = NX; q < NXP; ++q) xc[q] = 0.f;
+        float4* dst = (float4*)(XC + (size_t)(g1 * FB_TP + t) * NXP);
+#pragma unroll
+        for (int q = 0; q < NXP / 4; ++q)
+          dst[q] = make_float4(xc[4 * q], xc[4 * q + 1], xc[4 * q + 2], xc[4 * q + 3]);
+      }
+    }
+    {  // gather: the next chunk's neighbour, and the id of the one after
+      row = nrow;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) nb[i] = row >= 0 ? coord(row, i) : 0.f;
+      nrow = id_at(r0 + 2 * FB_G + g1);
+    }
+    __syncthreads();
+    for (int gg = 0; gg < g; ++gg) {  // linear1, BN, leaky, running max
+#pragma unroll
+      for (int c = 0; c < FB_CW; ++c) {
+        const float4* xr =
+            (const float4*)(XC + (size_t)(gg * FB_TP + warp * FB_CW + c) * NXP);
+        float h = 0.f;
+#pragma unroll
+        for (int q4 = 0; q4 < NXP / 4; ++q4) {
+          const float4 v = xr[q4];
+          const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (4 * q4 + u < NX) h += xv[u] * w1r[4 * q4 + u];
+        }
+        sacc[c] = fmaxf(sacc[c], sv_leaky(h * a1r + b1r));
+      }
+    }
+    for (int gg = 0; gg < g; ++gg) {  // linear2, VectorBN, vector sums
+      float ve[3][NCH];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          float acc = ve[i][0] * wz[j];
-#pragma unroll
-          for (int c = 1; c < NCH; ++c) acc += ve[i][c] * wz[c * 3 + j];
-          z[i][j] = acc;
-        }
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
         for (int c = 0; c < NCH; ++c)
-          xc[h * NSS + j * NCH + c] =
-              ve[0][c] * z[0][j] + ve[1][c] * z[1][j] + ve[2][c] * z[2][j];
-    }
+          ve[i][c] = VE[((gg * 3 + i) * NCH + c) * FB_TP + t];
 #pragma unroll
-    for (int j = 0; j < NSS; ++j) ss[j] += xc[j];
+      for (int oo = 0; oo < VG; ++oo) {
+        const int o = g1 * VG + oo;
+        float wl[3];
 #pragma unroll
-    for (int o = 0; o < F_S_OUT; ++o) {
-      float h = 0.f;
+        for (int i = 0; i < 3; ++i) {
+          float acc = ve[i][0] * w2s[o];
 #pragma unroll
-      for (int q = 0; q < NX; ++q) h += xc[q] * w1[q * F_S_OUT + o];
-      sacc[o] = fmaxf(sacc[o], sv_leaky(h * a1[o] + b1[o]));
-    }
+          for (int c = 1; c < NCH; ++c) acc += ve[i][c] * w2s[c * VO + o];
+          wl[i] = acc;
+        }
+        const float nrm = sqrtf(wl[0] * wl[0] + wl[1] * wl[1] + wl[2] * wl[2]) + SV_EPS;
+        const float f = a2s[o] + b2s[o] / nrm;
 #pragma unroll
-    for (int o = 0; o < VO; ++o) {
-      float wl[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float acc = ve[i][0] * w2[o];
-#pragma unroll
-        for (int c = 1; c < NCH; ++c) acc += ve[i][c] * w2[c * VO + o];
-        wl[i] = acc;
+        for (int i = 0; i < 3; ++i) vacc[oo][i] += wl[i] * f;
       }
-      const float nrm = sqrtf(wl[0] * wl[0] + wl[1] * wl[1] + wl[2] * wl[2]) + SV_EPS;
-      const float f = a2[o] + b2[o] / nrm;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) vacc[i][o] += wl[i] * f;
     }
+    if (g1 == 0)  // ss sums: the init scalars over the ranks, in order
+      for (int gg = 0; gg < g; ++gg)
+#pragma unroll
+        for (int j = 0; j < NSS; ++j) ss[j] += XC[(size_t)(gg * FB_TP + t) * NXP + j];
+    __syncthreads();
   }
 
-  if (valid) {
-    const float inv_k = (float)(1.0 / k);
 #pragma unroll
-    for (int o = 0; o < F_S_OUT; ++o)
-      s_out[ROW ? ((size_t)b * N + n) * F_S_OUT + o
-                : ((size_t)b * F_S_OUT + o) * N + n] = sacc[o];
+  for (int c = 0; c < FB_CW; ++c) OUT[(warp * FB_CW + c) * NO + lane] = sacc[c];
+  const float inv_k = (float)(1.0 / k);
+#pragma unroll
+  for (int oo = 0; oo < VG; ++oo)
 #pragma unroll
     for (int i = 0; i < 3; ++i)
+      OUT[t * NO + F_S_OUT + i * VO + g1 * VG + oo] = vacc[oo][i] * inv_k;
+  __syncthreads();
+  {  // writes, coalesced: the block's rows (ROW), else its columns
+    const int nt = min(FB_TP, N - n0);
+    if (valid && g1 == 0)
 #pragma unroll
-      for (int o = 0; o < VO; ++o)
-        v_out[ROW ? ((size_t)b * N + n) * 3 * VO + i * VO + o
-                  : ((size_t)b * 3 * VO + i * VO + o) * N + n] =
-            vacc[i][o] * inv_k;
-#pragma unroll
-    for (int j = 0; j < NSS; ++j) ssum[((size_t)b * NSS + j) * N + n] = ss[j];
+      for (int j = 0; j < NSS; ++j) ssum[((size_t)b * NSS + j) * N + n] = ss[j];
+    if constexpr (ROW) {
+      for (int i = tid; i < nt * F_S_OUT; i += FB_THREADS)
+        s_out[((size_t)b * N + n0) * F_S_OUT + i] = OUT[(i / F_S_OUT) * NO + i % F_S_OUT];
+      for (int i = tid; i < nt * 3 * VO; i += FB_THREADS)
+        v_out[((size_t)b * N + n0) * 3 * VO + i] =
+            OUT[(i / (3 * VO)) * NO + F_S_OUT + i % (3 * VO)];
+    } else {
+      for (int i = tid; i < FB_TP * F_S_OUT; i += FB_THREADS)
+        if (i % FB_TP < nt)
+          s_out[((size_t)b * F_S_OUT + i / FB_TP) * N + n0 + i % FB_TP] =
+              OUT[(i % FB_TP) * NO + i / FB_TP];
+      for (int i = tid; i < FB_TP * 3 * VO; i += FB_THREADS)
+        if (i % FB_TP < nt)
+          v_out[((size_t)b * 3 * VO + i / FB_TP) * N + n0 + i % FB_TP] =
+              OUT[(i % FB_TP) * NO + F_S_OUT + i / FB_TP];
+    }
   }
 }
 
@@ -155,9 +267,9 @@ static int sv_first_block(const float* pts, const int* wins, const float* wz0,
                           int V_out, int cross, cudaStream_t st) {
   if (S_out != F_S_OUT || (V_out != 10 && V_out != 16))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + F_THREADS - 1) / F_THREADS, B);
+  dim3 grid((N + FB_TP - 1) / FB_TP, B);
 #define SV_FIRST(NCH, VO)                                                   \
-  sv_first_block_kernel<NCH, VO, ROW><<<grid, F_THREADS, 0, st>>>(          \
+  sv_first_block_kernel<NCH, VO, ROW><<<grid, FB_THREADS, 0, st>>>(         \
       pts, wins, wz0, wz1, w1, a1, b1, w2, a2, b2, s_out, v_out, ssum, N, k)
   if (cross) {
     if (V_out == 10) SV_FIRST(3, 10); else SV_FIRST(3, 16);

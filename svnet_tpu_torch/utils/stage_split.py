@@ -1,6 +1,6 @@
 """Where the block kernels spend their time, stage by stage.
 
-    python -m svnet_tpu_torch.utils.stage_split [--csrc DIR] [--kernels rounds,point]
+    python -m svnet_tpu_torch.utils.stage_split [--csrc DIR] [--kernels rounds,point,first]
 
 Needs the card and nvcc. Builds, beside the kernel library and never into
 it (in ``build/stage_split/``), one copy of a group's sources from DIR
@@ -14,7 +14,7 @@ costs time. (``clock64()`` marks after each barrier were tried first and
 misplaced time between stages that share warps: the differences are what
 the card saves without the stage.)
 
-Two groups. ``rounds``: the serving conv-round block
+Three groups. ``rounds``: the serving conv-round block
 (``sv_round_block_kernel``: B2, B10a, B10b, B10c; binary, random ids and
 weights) at cls conv2 and conv4 and partseg conv4, and B6's forward (F1 +
 F2) and backward (B1 + B2) passes (``sv_train_kernel``) at conv4 of the
@@ -22,8 +22,16 @@ training shape (B=32, N=1024, k=20). ``point``: the per-point blocks,
 binary, random weights: B8 (``sv_block_point_launch``) at the SV-PointNet
 classifier's conv_fuse and conv3 (B=128, N=1024) and the part segmenter's
 conv5 (B=32, N=2048); B3 (``sv_point_launch``, channel-major) and B3r
-(``sv_point_rm_launch``) at SV-DGCNN cls conv5 (B=128, N=1024). Prints
-the card's name and power limit, then one JSON line per kernel and shape.
+(``sv_point_rm_launch``) at SV-DGCNN cls conv5 (B=128, N=1024).
+``first``: the first-round block (``sv_first_block``: B1, B1 cross, B10a
+and B10b first, B10d) on random ids at B10d's cls shape (row-major, two
+edge channels), B1's and B1 cross's (channel-major, two and three) and
+partseg's (V_out = 16; cross at N = 2048, k = 40); it also prints, per
+instantiation, the registers and spill bytes ``nvcc -Xptxas -v`` reports
+for sv_round3_first.cu and sv_edge.cu. Where a register-resident stage is
+compiled out, a cheap stand-in keeps its consumers alive (otherwise the
+compiler drops them with it). Prints the card's name and power limit,
+then one JSON line per kernel and shape.
 Knows this revision's kernels and the ones before them (``--csrc`` of an
 older checkout).
 """
@@ -42,6 +50,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 STAGE = ROOT / "build" / "stage_split"
+
+FIRST_LAUNCH = r"""#include "sv_rounds.cuh"
+extern "C" int st_first_block(int row, const float* pts, const int* ids,
+    const float* wz0, const float* wz1, const float* w1, const float* a1,
+    const float* b1, const float* w2, const float* a2, const float* b2,
+    float* s_out, float* v_out, float* ssum, int B, int N, int k, int V_out,
+    int cross, void* st) {
+  if (row)
+    return sv_first_block<true>(pts, ids, wz0, wz1, w1, a1, b1, w2, a2, b2, s_out,
+        v_out, ssum, B, N, k, 32, V_out, cross, (cudaStream_t)st);
+  return sv_first_block<false>(pts, ids, wz0, wz1, w1, a1, b1, w2, a2, b2, s_out,
+      v_out, ssum, B, N, k, 32, V_out, cross, (cudaStream_t)st);
+}
+"""
 
 LAUNCH = r"""#include "sv_rounds.cuh"
 #include "sv_train.cuh"
@@ -109,6 +131,41 @@ TRAIN_NEW = [
 ]
 
 
+# The first-round block before its redesign: one thread per centre, all in
+# registers. An anchor may come as (anchor, stand-in): the stand-in goes in
+# front of "if (0) anchor" and keeps what the stage fed alive (a loop
+# first where "#pragma unroll" precedes the anchor).
+_NOOP = "for (int q = 0; q < 0; ++q) {}\n    "
+FIRST_OLD = [
+    ("gather (ids, neighbour coordinates, edge)",
+     [("nb[i] = coord(row, i);", "nb[i] = ctr[i] * (float)(r + i); ")]),
+    ("frames and invariants",
+     [("for (int h = 0; h < 2; ++h) {\n      const float* wz",
+       "for (int q = 0; q < NX; ++q) xc[q] = ve[q % 3][q % NCH];\n    ")]),
+    ("linear1, BN, leaky and the running max",
+     [("for (int o = 0; o < F_S_OUT; ++o) {\n      float h = 0.f;",
+       "for (int q = 0; q < NX; ++q) sacc[q] = fmaxf(sacc[q], xc[q]);\n    ")]),
+    ("linear2, VectorBN and the vector sums",
+     [("for (int o = 0; o < VO; ++o) {\n      float wl[3];", _NOOP)]),
+    ("ss sums", [("for (int j = 0; j < NSS; ++j) ss[j] += xc[j];", _NOOP)]),
+    ("writes", [("if (valid) {\n    const float inv_k",
+                 "if (valid) {\n    float t = 0.f;\n#pragma unroll\n"
+                 "    for (int o = 0; o < F_S_OUT; ++o) t += sacc[o];\n#pragma unroll\n"
+                 "    for (int i = 0; i < 3 * VO; ++i) t += vacc[i / VO][i % VO];\n"
+                 "#pragma unroll\n    for (int j = 0; j < NSS; ++j) t += ss[j];\n"
+                 "    s_out[(size_t)b * N + n] = t;\n  }\n  ")]),
+]
+# The redesigned block: three phases over shared memory (sv_rounds.cuh)
+FIRST_NEW = [
+    ("gather and the edge", ["{  // gather: the next chunk's neighbour",
+                             "{  // the edge's vectors"]),
+    ("frames and invariants", ["{  // frames and invariants"]),
+    ("linear1, BN, leaky and the running max", ["for (int gg = 0; gg < g; ++gg) {  // linear1"]),
+    ("linear2, VectorBN and the vector sums", ["for (int gg = 0; gg < g; ++gg) {  // linear2"]),
+    ("ss sums", ["if (g1 == 0)  // ss sums"]),
+    ("writes", ["{  // writes, coalesced"]),
+]
+
 # The per-point blocks before the tensor-core redesign (sv_block_point.cu
 # and sv_point.cu alone; since then the FP mode's kernels)
 B8_OLD = [
@@ -153,10 +210,17 @@ B3_OLD = [
 
 def without(text: str, anchors) -> str:
     for a in anchors:
+        a, standin = a if isinstance(a, tuple) else (a, "")
         if text.count(a) != 1:
             raise ValueError(f"anchor not found once: {a!r}")
-        text = text.replace(a, "if (0) " + a)
+        text = text.replace(a, standin + "if (0) " + a)
     return text
+
+
+def first_stages(rounds: str) -> list:
+    """The first-round block's stages of the revision whose sv_rounds.cuh
+    is ``rounds``."""
+    return FIRST_NEW if "FB_TP" in rounds else FIRST_OLD
 
 
 def point_stages(csrc: Path) -> list:
@@ -183,6 +247,12 @@ def variants(csrc: Path, groups) -> dict:
                     for n, a in serve})
         out.update({f"train:{n}": ("rounds", {**base, "sv_train.cuh": without(train, a)})
                     for n, a in trn})
+    if "first" in groups:
+        rounds = (csrc / "sv_rounds.cuh").read_text()
+        base = {"sv_rounds.cuh": rounds, "stage.cu": FIRST_LAUNCH}
+        out["first"] = ("first", base)
+        out.update({f"first:{n}": ("first", {**base, "sv_rounds.cuh": without(rounds, a)})
+                    for n, a in first_stages(rounds)})
     if "point" in groups:
         names = ["sv_block_point.cu", "sv_point.cu", "sv_point_tile.cuh"]
         base = {n: (csrc / n).read_text() for n in names if (csrc / n).exists()}
@@ -193,7 +263,7 @@ def variants(csrc: Path, groups) -> dict:
     return out
 
 
-def build_all(csrc: Path, groups=("rounds", "point")):
+def build_all(csrc: Path, groups=("rounds", "point", "first")):
     """{variant: loaded library}, every variant built by its own nvcc,
     all started together."""
     if STAGE.exists():
@@ -204,8 +274,8 @@ def build_all(csrc: Path, groups=("rounds", "point")):
         d.mkdir(parents=True)
         for fname, text in files.items():
             (d / fname).write_text(text)
-        srcs = (["stage.cu"] if group == "rounds"
-                else ["sv_block_point.cu", "sv_point.cu"])
+        srcs = (["sv_block_point.cu", "sv_point.cu"] if group == "point"
+                else ["stage.cu"])
         cmd = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-shared",
                "-I", str(csrc), "-o", str(d / "lib.so"), *[str(d / s) for s in srcs]]
@@ -222,6 +292,8 @@ def build_all(csrc: Path, groups=("rounds", "point")):
             lib.st_conv_block.argtypes = [I] + [P] * 14 + [I] * 8 + [P]
             lib.sv_round3_train_launch.argtypes = [I, P, P, P]
             lib.sv_round3_train_launch.restype = I
+        if hasattr(lib, "st_first_block"):
+            lib.st_first_block.argtypes = [I] + [P] * 13 + [I] * 5 + [P]
         libs[name] = lib
     return libs
 
@@ -399,14 +471,90 @@ def run_point(libs: dict, csrc: Path, dev, gen, rnd):
               flush=True)
 
 
+def ptxas_report(csrc: Path) -> list:
+    """[{file, function, registers, spill_stores, spill_loads}] of each
+    first-block instantiation in sv_round3_first.cu and sv_edge.cu, from
+    ``nvcc -Xptxas -v`` with the kernel library's flags."""
+    import re
+
+    from svnet_tpu_torch.ops.kernels._build import NVCC_FLAGS
+
+    STAGE.mkdir(parents=True, exist_ok=True)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    rows = []
+    for f in ("sv_round3_first.cu", "sv_edge.cu"):
+        res = subprocess.run(
+            ["/usr/local/cuda/bin/nvcc", *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", str(STAGE / "ptxas.o"), str(csrc / f)],
+            capture_output=True, text=True, check=True)
+        fn = None
+        for line in res.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                rows.append({"file": f, "function": fn})
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                rows[-1]["registers"] = int(m.group(1))
+    rows = [r for r in rows if "first_block" in r["function"]]
+    if Path(filt).exists():
+        names = subprocess.run([filt], input="\n".join(r["function"] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, name in zip(rows, names):  # drop the parameter list
+            r["function"] = name[:name.index(">(") + 1] if ">(" in name else name
+    return rows
+
+
+# (label, row-major, cross, B, N, k, V_out) of the first block's splits
+FIRST_SHAPES = (
+    ("B10d cls", 1, 0, 128, 1024, 20, 10),
+    ("B1 cls", 0, 0, 128, 1024, 20, 10),
+    ("B1 cross cls", 0, 1, 128, 1024, 20, 10),
+    ("B1 partseg (V_out=16)", 0, 0, 32, 2048, 40, 16),
+    ("B1 cross partseg", 0, 1, 32, 2048, 40, 10),
+)
+
+
+def run_first(libs: dict, csrc: Path, dev, gen, rnd):
+    """The first-round block on random ids, every first variant."""
+    for r in ptxas_report(csrc):
+        print(json.dumps({"ptxas": r}), flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = [n for n in libs if n == "first" or n.startswith("first:")]
+    for tag, row, cross, B, N, k, Vo in FIRST_SHAPES:
+        nch = 3 if cross else 2
+        pts = rnd(B, N, 3) if row else rnd(B, 3, N)
+        ids = torch.randint(0, N, (B, N, k) if row else (B, k, N), generator=gen,
+                            dtype=torch.int32).to(dev)
+        w = [0.5 * rnd(nch, 3), 0.5 * rnd(nch, 3), rnd(6 * nch, 32), rnd(1, 32),
+             rnd(1, 32), rnd(nch, Vo), rnd(1, Vo).abs(), rnd(1, Vo)]
+        outs = [torch.empty(B * N * n, device=dev) for n in (32, 3 * Vo, 3 * nch)]
+
+        def call(lib):
+            err = lib.st_first_block(row, pts.data_ptr(), ids.data_ptr(),
+                                     *[t.data_ptr() for t in w],
+                                     *[o.data_ptr() for o in outs], B, N, k, Vo,
+                                     cross, stream)
+            if err != 0:
+                raise RuntimeError(f"st_first_block: error {err}")
+        print(json.dumps({"kernel": "sv_first_block", "shape": tag, "B": B, "N": N,
+                          "k": k, "ms": split(timed(libs, names, call), "first",
+                                              "first:")}),
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=Path, default=ROOT / "svnet_tpu_torch" / "csrc")
-    ap.add_argument("--kernels", default="rounds,point",
-                    help="comma-separated groups: rounds, point")
+    ap.add_argument("--kernels", default="rounds,point,first",
+                    help="comma-separated groups: rounds, point, first")
     args = ap.parse_args(argv)
     groups = args.kernels.split(",")
-    if not set(groups) <= {"rounds", "point"}:
+    if not set(groups) <= {"rounds", "point", "first"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
     if not torch.cuda.is_available():
         print("stage_split: needs a CUDA device", file=sys.stderr)
@@ -427,6 +575,8 @@ def main(argv=None) -> int:
         run_point(libs, csrc, dev, gen, rnd)
     if "rounds" in groups:
         run_rounds(libs, dev, gen, rnd)
+    if "first" in groups:
+        run_first(libs, csrc, dev, gen, rnd)
     return 0
 
 

@@ -1,7 +1,8 @@
 """Kernel B9 of the port: ``pack_signs`` and the XNOR-popcount product's
 plain version against the JAX package's (``xnor_popcount_matmul`` in
-interpret mode, at tests/test_binary_matmul.py's shapes), exactly, and the
-bench's ``main`` on the CPU. Operands are zero-free +-1 from a seed."""
+interpret mode, at tests/test_binary_matmul.py's shapes), exactly, the
+kernel's AND-only identity against the plain version, and the bench's
+``main`` on the CPU. Operands are zero-free +-1 from a seed."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ from svnet_tpu_torch.ops.kernels.binary_matmul import (
     pack_signs,
     xnor_popcount,
     xnor_popcount_matmul,
+    xnor_popcount_plain,
 )
 from svnet_tpu_torch.utils import bench_binary_matmul
 
@@ -44,6 +46,40 @@ def test_xnor_plain_matches_jax(M, K, N):
     assert xnor_popcount.launches == before  # the CPU runs no kernel
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), x @ w)
+
+
+def _popc(x: torch.Tensor) -> torch.Tensor:
+    """Bits set per int32 word."""
+    return sum((x >> b) & 1 for b in range(32))
+
+
+def xnor_by_and(xp: torch.Tensor, wp: torch.Tensor, K: int) -> torch.Tensor:
+    """csrc/binary_matmul.cu's arithmetic in PyTorch: words zero-padded to
+    the MMA depth of 8, agreements popc(x & w) + popc(~x & ~w) summed over
+    every word (a padding word adds 32), out = 2 * c - (64 * Lp - 32 * L)."""
+    M, L = xp.shape
+    Lp = -(-L // 8) * 8
+    xq = torch.cat([xp, xp.new_zeros(M, Lp - L)], 1)[:, None, :]
+    wq = torch.cat([wp, wp.new_zeros(wp.shape[0], Lp - L)], 1)[None, :, :]
+    c = (_popc(xq & wq) + _popc(~xq & ~wq)).sum(-1)
+    return (2 * c - (64 * Lp - 32 * L)).to(torch.float32)
+
+
+@pytest.mark.parametrize("M,K,N", [(130, 32, 9), (57, 224, 129), (17, 320, 50),
+                                   (40, 1056, 31)])
+def test_and_popcount_identity_matches_plain(M, K, N):
+    """The kernel's identity K - 2 popc(x ^ w) = 2 (popc(x & w) + popc(~x &
+    ~w)) - K, with its zero padding to 8 words, bitwise the plain version
+    at word counts 1, 7, 10 and 33, sign words with bit 31 set."""
+    x, w = _pm1(M + K, M, K), _pm1(N + K, K, N)
+    x[:, 31::32] = 1.0
+    w[31::32, :2] = 1.0
+    xp = pack_signs(torch.from_numpy(x))
+    wp = pack_signs(torch.from_numpy(w).T.contiguous())
+    assert bool((xp < 0).any()) and bool((wp < 0).any())
+    want = xnor_popcount_plain(xp, wp, K)
+    assert torch.equal(xnor_by_and(xp, wp, K), want)
+    np.testing.assert_array_equal(want.numpy(), x @ w)
 
 
 def test_bench_main_on_cpu(capsys):

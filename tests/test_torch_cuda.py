@@ -371,12 +371,21 @@ def test_cls_round_and_edge_engines_on_card():
         w, 40, 10, True, device=dev, rounds_impl="round2")(pts))
 
 
+# (M, K, N) of B9: even; then M and N off the MMA tiles (16 x 8) and the
+# block's 64 x 64 and 128 x 128, with L = K/32 words 3, 1, 7 (odd), 10
+# (not a multiple of the MMA depth, 8 words) and 33 (three 16-word chunks,
+# the last ragged); the last on the 128 x 128 tile (289 blocks of it)
+XNOR_SHAPES = [(128, 64, 128), (1000, 96, 77), (130, 32, 9), (257, 224, 129),
+               (17, 320, 250), (300, 1056, 131), (2100, 320, 2100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(128, 64, 128), (1000, 96, 77)],
-                         ids=["even", "ragged"])
+@pytest.mark.parametrize("shape", XNOR_SHAPES, ids=[f"M{s[0]}-K{s[1]}-N{s[2]}"
+                                                    for s in XNOR_SHAPES])
 def test_xnor_popcount_matches_plain_on_card(shape):
     """B9 exact against the dense +-1 product and bitwise against its plain
-    version; M, N and the word count ragged to its tiles."""
+    version; M, N and the word count ragged to its tiles, sign words with
+    bit 31 set on both sides."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from svnet_tpu_torch.ops.kernels import binary_matmul as kb
@@ -386,9 +395,35 @@ def test_xnor_popcount_matches_plain_on_card(shape):
     dev = torch.device("cuda", torch.cuda.current_device())
     x, w = operands(M, K, N, 0, dev)
     xp, wp = kb.pack_signs(x), kb.pack_signs(w.T).contiguous()
+    assert bool((xp < 0).any()) and bool((wp < 0).any())  # bit 31 set
     before = kb.xnor_popcount.launches
     got = kb.xnor_popcount(xp, wp, K)
     assert kb.xnor_popcount.launches == before + 1
+    assert torch.equal(got, (x.double() @ w.double()).float())
+    assert torch.equal(got, kb.xnor_popcount_plain(xp, wp, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 256, 72), (2100, 128, 2100)],
+                         ids=["tile64", "tile128"])
+def test_xnor_popcount_offset_operands_on_card(shape):
+    """B9 on packed operands that start 4 bytes past a 16-byte boundary
+    (contiguous views at a storage offset of one word) with L a multiple of
+    4: the kernel takes its 4-byte copies and stays exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import binary_matmul as kb
+    from svnet_tpu_torch.utils.bench_binary_matmul import operands
+
+    M, K, N = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x, w = operands(M, K, N, 1, dev)
+    xp, wp = kb.pack_signs(x), kb.pack_signs(w.T).contiguous()
+    xo, wo = (torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)[1:]
+              .view(t.shape).copy_(t) for t in (xp, wp))
+    assert xo.is_contiguous() and xo.data_ptr() % 16 and wo.data_ptr() % 16
+    got = kb.xnor_popcount(xo, wo, K)
+    torch.cuda.synchronize()
     assert torch.equal(got, (x.double() @ w.double()).float())
     assert torch.equal(got, kb.xnor_popcount_plain(xp, wp, K))
 
@@ -516,6 +551,60 @@ def _round_weights(S, V, S_out, V_out, binary, gen, point=False):
     if point:
         f["wzf"] = r(V_out, 3)
     return f
+
+
+# (B, N, k) of the first-round block: N off its 128-centre tile (1000,
+# 1001) and below one tile (50), k off its 2-rank chunk (1, 7, 33) and
+# even (40)
+FIRST_FORCED = [(2, 1000, 1), (2, 1001, 7), (1, 1000, 33), (1, 1001, 40), (3, 50, 33)]
+
+
+def _first_weights(n_ch, V_out, gen):
+    """Seeded folded weights of a first round with n_ch edge channels."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    return {"wz0": r(n_ch, 3), "wz1": r(n_ch, 3), "w1": r(6 * n_ch, 32),
+            "a1": r(1, 32), "b1": r(1, 32), "w2": r(n_ch, V_out),
+            "a2": r(1, V_out), "b2": r(1, V_out)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V_out", [10, 16])
+@pytest.mark.parametrize("cross", [False, True], ids=["xyz", "cross"])
+@pytest.mark.parametrize("shape", FIRST_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}" for s in FIRST_FORCED])
+def test_first_block_shape_forced_on_card(shape, cross, V_out):
+    """The first-round block at every instantiation (edge channels 2 and
+    3, V_out 10 and 16, both layouts) bitwise against the plain versions
+    where no centre tile or rank chunk divides N or k: B1 (channel-major)
+    and B10b (row-major) with their own selection, ids included, and B10d
+    on B4's ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    b, n, k = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(17)
+    f = {name: t.to(dev) for name, t in _first_weights(3 if cross else 2, V_out,
+                                                       gen).items()}
+    pts = torch.randn(b, n, 3, generator=gen).to(dev)
+    kw = dict(S_out=32, V_out=V_out, k=k, cross=cross)
+    got = sv_round3_first(pts, f, emit_wins=True, **kw)
+    for g, w in zip(got, sv_round3_first_plain(pts, f, **kw)):
+        assert torch.equal(g, w)
+    got = k2.sv_round2_first(pts, f, emit_wins=True, **kw)
+    for g, w in zip(got, k2.sv_round2_first_plain(pts, f, **kw)):
+        assert torch.equal(g, w)
+    if not cross:
+        idx = knn(pts, k)
+        kw.pop("cross")
+        for g, w in zip(kf.sv_edge_first_block(pts, idx, f, **kw),
+                        kf.sv_edge_first_block_plain(pts, idx, f, **kw)):
+            assert torch.equal(g, w)
 
 
 # (B, N, k, S, V, S_out, V_out): IN1 = 2S + 6V = 28 and S_out = 13 divide
@@ -739,13 +828,21 @@ def test_stage_split_anchors_track_the_kernels():
     tile = (csrc / "sv_point_tile.cuh").read_text()
     assert "RB_TP" in rounds and "sv_mma.cuh" in train  # this revision's
     assert ss.point_stages(csrc) == [("tile:", "sv_point_tile.cuh", ss.TILE_NEW)]
+    assert ss.first_stages(rounds) is ss.FIRST_NEW
     for text, stages in ((rounds, ss.SERVE_NEW), (train, ss.TRAIN_NEW),
-                         (tile, ss.TILE_NEW)):
+                         (tile, ss.TILE_NEW), (rounds, ss.FIRST_NEW)):
         for _, anchors in stages:
             out = ss.without(text, anchors)
             assert out.count("if (0) ") == text.count("if (0) ") + len(anchors)
     with pytest.raises(ValueError):
         ss.without(rounds, ["no such statement"])
+    # an anchor with a stand-in (the register-resident parent kernel's):
+    # the stand-in lands in front of the statement compiled out
+    assert ss.without("a; b; c;", [("b;", "s; ")]) == "a; s; if (0) b; c;"
+    var = ss.variants(csrc, ["first"])
+    assert set(var) == {"first"} | {f"first:{n}" for n, _ in ss.FIRST_NEW}
+    assert all(group == "first" and set(files) == {"sv_rounds.cuh", "stage.cu"}
+               for group, files in var.values())
     var = ss.variants(csrc, ["point"])
     assert set(var) == {"point"} | {f"tile:{n}" for n, _ in ss.TILE_NEW}
     assert all(group == "point" and "if (0) " not in files["sv_block_point.cu"]
