@@ -1,9 +1,12 @@
 """Settings the port reads, and the device/precision helpers.
 
-Only exact mode is ported: f32-exact neighbour ordering (sortable-int key
-of the f32 distance, ties to the minimum row id) and f32 arithmetic
-throughout. The JAX package's fast/approx modes and serving knobs
-(svnet_tpu/config.py) are not ported yet.
+Two of the JAX package's serving modes are ported. "exact": f32-exact
+neighbour ordering (sortable-int key of the f32 distance, ties to the
+minimum row id) and f32 arithmetic throughout. "fast", on the round3
+trunk only (B1, B2): 18-bit packed distance keys per key tile and a
+fixed-point gather grid of ``fast_gather_bits`` (ops/kernels/quant.py).
+Approx mode and the other serving knobs (svnet_tpu/config.py) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -12,12 +15,28 @@ import torch
 
 EPS = 1e-6  # VectorBN norm epsilon (svnet_tpu/nn/sv_layers.py:34)
 BN_EPS = 1e-5  # BatchNorm epsilon (torch BN1d default)
-MODES = ("exact",)
+MODES = ("exact", "fast")
+fast_gather_bits: int = 16  # fast mode's gather grid: 16 or 8 bits
 
 
-def check_mode(mode: str) -> str:
+def set_fast_gather_bits(bits: int) -> None:
+    """Fast mode's gather grid (svnet_tpu/config.py::set_fast_gather_bits):
+    16 bits (scale 32704 / amax) or 8 (127 / amax); it also moves the key
+    tile T (quant.round3_tiles)."""
+    global fast_gather_bits
+    if bits not in (8, 16):
+        raise ValueError(f"fast_gather_bits must be 8 or 16, got {bits}")
+    fast_gather_bits = bits
+
+
+def check_mode(mode: str, trunk: str = "round3") -> str:
+    """``mode`` if it is ported on ``trunk``: exact everywhere, fast on
+    the round3 trunk (B1, B2) only."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported; supported: {MODES}")
+    if mode != "exact" and trunk != "round3":
+        raise ValueError(f"mode {mode!r} is ported on the round3 trunk only, "
+                         f"not on {trunk!r}")
     return mode
 
 

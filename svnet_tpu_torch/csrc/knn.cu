@@ -24,3 +24,13 @@ extern "C" int sv_knn_launch(const float* x, float* aa, int* ids, int B,
   return (int)sv_knn_select(x, aa, ids, B, N, C, k, (cudaStream_t)stream,
                             /*point_major=*/true);
 }
+
+// Fast mode's pre-pass (sv_common.cuh::sv_neg_min): x (B, N, C) row-major;
+// aa (B, N) scratch; neg_min (B, N), each centre's least negative squared
+// distance over all N candidates, which quant.py::tile_scales turns into
+// the key tiles' scales.
+extern "C" int sv_neg_min_launch(const float* x, float* aa, float* neg_min,
+                                 int B, int N, int C, void* stream) {
+  return (int)sv_neg_min(x, aa, neg_min, B, N, C, (cudaStream_t)stream,
+                         /*row_major=*/true);
+}

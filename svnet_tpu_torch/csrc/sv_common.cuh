@@ -1,8 +1,9 @@
-// Shared device code of the exact-mode round kernels (sv_rounds.cuh, for
+// Shared device code of the round kernels (sv_rounds.cuh, for
 // sv_round3_first.cu, sv_round3.cu and sv_round2.cu) and the point block
-// (sv_point.cu): the exact-mode kNN selection kernel over a channel-major
-// (B, C, N) or a row-major (B, N, C) source, a shared-memory block GEMM,
-// and small helpers.
+// (sv_point.cu): the kNN selection kernel over a channel-major (B, C, N)
+// or a row-major (B, N, C) source, by exact mode's key or fast mode's, the
+// fast key's pre-pass (each centre's farthest candidate), a shared-memory
+// block GEMM, and small helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,6 +53,25 @@ static __device__ __forceinline__ unsigned sv_ukey(float neg) {
   return ((unsigned)key) ^ 0x80000000u;
 }
 
+// Fast mode's key tiles (svnet_tpu/ops/pallas/sv_round3.py:199-206): the
+// distance of centre n quantized on the scale of its tile of T centres,
+// q = floor(neg * scale[b][n / T]) clamped to [qlo, qhi]
+// (ops/kernels/quant.py::packed_keys), with the sign bit flipped so the
+// unsigned order is q's. The JAX package packs q with the row into one
+// int32 (q * 2^ib + 2^ib - 1 - row); sv_pack below gives the same order.
+// A null scale selects exact mode's key.
+struct SvKeyTiles {
+  const float* scale;  // (B, N / T)
+  int T;
+  float qlo, qhi;
+};
+
+static __device__ __forceinline__ unsigned sv_fast_ukey(float neg, float scale,
+                                                        float qlo, float qhi) {
+  const float q = fminf(fmaxf(floorf(__fmul_rn(neg, scale)), qlo), qhi);
+  return ((unsigned)(int)q) ^ 0x80000000u;
+}
+
 // (key, row) packed into one unique value: the low word is N-1-row, so
 // among equal keys the smallest row is the largest value -- the min-row
 // tie-break of sv_round3.py:441-451. The order of packed values is that of
@@ -87,7 +107,7 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// exact-mode kNN selection
+// kNN selection
 // ---------------------------------------------------------------------------
 // A block of SEL_WARPS warps owns SEL_TC centre points of one cloud, 8 per
 // warp, and streams all N candidates past them in tiles of SEL_TM.
@@ -122,7 +142,8 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
 // the plain version's. A k above 64 is selected in rounds of 64 ranks,
 // each pass keeping only keys below the last one the previous round took.
 // Winners go to wins (B, k, N), rank-major like the JAX kernel's emit_wins
-// output, or (B, N, k) point-major.
+// output, or (B, N, k) point-major. Fast mode only changes the key a
+// distance becomes (sv_fast_ukey): its packed keys are unique too.
 #define SEL_WARPS 8
 #define SEL_TC (8 * SEL_WARPS)  // centres per block
 #define SEL_TM 128              // candidates per tile, 4 per lane
@@ -232,11 +253,47 @@ static __device__ __forceinline__ void sv_merge(sv_u64 (&L)[KW], sv_u64 x, int l
   }
 }
 
-template <bool ROW, int KW>
+// The distance stage of a tile: acc[i][j] = <centre n0 + t0 + i,
+// candidate m0 + 4 * lane + j>, summed from 0.f channel by channel with
+// __fmul_rn / __fadd_rn (see the selection below). Every thread of the
+// block calls it: it stages the chunks between __syncthreads.
+template <bool ROW>
+static __device__ __forceinline__ void sv_tile_inner(
+    float (&acc)[8][4], float* ctr_s, float* cand_s,
+    const float* __restrict__ x, int n0, int m0, int t0, int lane, int N,
+    int C) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += SEL_KC) {
+    const int nc = min(SEL_KC, C - c0);
+    __syncthreads();  // the previous chunk, or tile's keys, is consumed
+    sv_stage<ROW, SEL_TC>(ctr_s, x, n0, c0, nc, N, C);
+    sv_stage<ROW, SEL_TM>(cand_s, x, m0, c0, nc, N, C);
+    __syncthreads();
+#pragma unroll 4
+    for (int cc = 0; cc < nc; ++cc) {
+      const float4 qa = *(const float4*)(ctr_s + cc * SEL_CS + t0);
+      const float4 qb = *(const float4*)(ctr_s + cc * SEL_CS + t0 + 4);
+      const float4 p = *(const float4*)(cand_s + cc * SEL_MS + 4 * lane);
+      const float q[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(pv[j], q[i]));
+    }
+  }
+}
+
+// FAST: fast mode's key on the tiles' scales (SvKeyTiles), else exact's.
+template <bool ROW, int KW, bool FAST>
 static __global__ void __launch_bounds__(SEL_WARPS * 32, 3)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
-                     int N, int C, int k, int rs, int ps) {
+                     int N, int C, int k, int rs, int ps, SvKeyTiles kt) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
   float* ctr_s = (float*)sv_smem;           // (SEL_KC, SEL_CS) centres
   float* cand_s = ctr_s + SEL_KC * SEL_CS;  // (SEL_KC, SEL_MS) candidates
@@ -256,6 +313,10 @@ sv_knn_select_kernel(const float* __restrict__ src,
     const int n = n0 + t0 + i;
     ctr_sq[i] = n < N ? a[n] : 0.f;
   }
+  // fast mode: this warp's centres' key-tile scales, read where the keys
+  // are made (from L1), not held in registers across the distance stage
+  const float* wscale = nullptr;
+  if constexpr (FAST) wscale = kt.scale + (size_t)b * (N / kt.T);
   if (lane < 8) upper[t0 + lane] = ~0ull;
 
   for (int r0 = 0; r0 < k; r0 += 32 * KW) {
@@ -264,30 +325,7 @@ sv_knn_select_kernel(const float* __restrict__ src,
     // block-uniform trip counts: every warp reaches every __syncthreads
     for (int m0 = 0; m0 < N; m0 += SEL_TM) {
       float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int c0 = 0; c0 < C; c0 += SEL_KC) {
-        const int nc = min(SEL_KC, C - c0);
-        __syncthreads();  // the previous chunk, or tile's keys, is consumed
-        sv_stage<ROW, SEL_TC>(ctr_s, x, n0, c0, nc, N, C);
-        sv_stage<ROW, SEL_TM>(cand_s, x, m0, c0, nc, N, C);
-        __syncthreads();
-#pragma unroll 4
-        for (int cc = 0; cc < nc; ++cc) {
-          const float4 qa = *(const float4*)(ctr_s + cc * SEL_CS + t0);
-          const float4 qb = *(const float4*)(ctr_s + cc * SEL_CS + t0 + 4);
-          const float4 p = *(const float4*)(cand_s + cc * SEL_MS + 4 * lane);
-          const float q[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-          const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(pv[j], q[i]));
-        }
-      }
+      sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
       float cand_sq[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -297,12 +335,22 @@ sv_knn_select_kernel(const float* __restrict__ src,
       __syncthreads();  // every warp is done with the staged chunk
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        uint4 kv;
-        kv.x = sv_ukey(sv_neg_dist(acc[i][0], ctr_sq[i], cand_sq[0]));
-        kv.y = sv_ukey(sv_neg_dist(acc[i][1], ctr_sq[i], cand_sq[1]));
-        kv.z = sv_ukey(sv_neg_dist(acc[i][2], ctr_sq[i], cand_sq[2]));
-        kv.w = sv_ukey(sv_neg_dist(acc[i][3], ctr_sq[i], cand_sq[3]));
-        *(uint4*)(wkeys + i * SEL_TM + 4 * lane) = kv;
+        unsigned kv[4];
+        float scale = 0.f;
+        if constexpr (FAST) {
+          const int n = n0 + t0 + i;
+          scale = n < N ? wscale[n / kt.T] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float neg = sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq[j]);
+          if constexpr (FAST)
+            kv[j] = sv_fast_ukey(neg, scale, kt.qlo, kt.qhi);
+          else
+            kv[j] = sv_ukey(neg);
+        }
+        *(uint4*)(wkeys + i * SEL_TM + 4 * lane) =
+            make_uint4(kv[0], kv[1], kv[2], kv[3]);
       }
       __syncwarp();
 #pragma unroll 1
@@ -355,47 +403,146 @@ sv_knn_select_kernel(const float* __restrict__ src,
   }
 }
 
-template <bool ROW, int KW>
+template <bool ROW, int KW, bool FAST>
 static cudaError_t sv_knn_select_launch(const float* src, const float* aa,
                                         int* wins, int B, int N, int C, int k,
-                                        cudaStream_t stream, bool point_major) {
+                                        cudaStream_t stream, bool point_major,
+                                        SvKeyTiles kt) {
   const size_t smem = sv_select_smem(KW);
   cudaError_t err = cudaFuncSetAttribute(
-      sv_knn_select_kernel<ROW, KW>,
+      sv_knn_select_kernel<ROW, KW, FAST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
-  sv_knn_select_kernel<ROW, KW><<<grid, SEL_WARPS * 32, smem, stream>>>(
-      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1);
+  sv_knn_select_kernel<ROW, KW, FAST><<<grid, SEL_WARPS * 32, smem, stream>>>(
+      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1, kt);
   return cudaGetLastError();
 }
 
+// aa[b*N + m] = |x_m|^2 for the selection and its pre-pass.
 template <bool ROW>
-static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
-                                   int B, int N, int C, int k,
-                                   cudaStream_t stream, bool point_major) {
-  if (k > N || k < 1 || C < 1) return cudaErrorInvalidValue;
+static cudaError_t sv_sqnorm(const float* src, float* aa, int B, int N, int C,
+                             cudaStream_t stream) {
   const long long BN = (long long)B * N;
   sv_sqnorm_kernel<ROW><<<(unsigned)((BN + 255) / 256), 256, 0, stream>>>(
       src, aa, B, N, C);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <bool ROW, bool FAST>
+static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
+                                   int B, int N, int C, int k,
+                                   cudaStream_t stream, bool point_major,
+                                   SvKeyTiles kt) {
+  cudaError_t err = sv_sqnorm<ROW>(src, aa, B, N, C, stream);
   if (err != cudaSuccess) return err;
-  return k <= 32 ? sv_knn_select_launch<ROW, 1>(src, aa, wins, B, N, C, k,
-                                                stream, point_major)
-                 : sv_knn_select_launch<ROW, 2>(src, aa, wins, B, N, C, k,
-                                                stream, point_major);
+  return k <= 32 ? sv_knn_select_launch<ROW, 1, FAST>(src, aa, wins, B, N, C, k,
+                                                      stream, point_major, kt)
+                 : sv_knn_select_launch<ROW, 2, FAST>(src, aa, wins, B, N, C, k,
+                                                      stream, point_major, kt);
+}
+
+// Row bits of fast mode's packed key at N rows (quant.py::idx_bits).
+static int sv_idx_bits(int N) {
+  int b = 13;
+  while ((1 << b) < N) ++b;
+  return b;
 }
 
 // Squared norms + selection for a channel-major (B, C, N) source, or a
 // row-major (B, N, C) one when row_major. aa is a (B, N) scratch buffer the
 // wrapper allocated. wins is (B, k, N), or (B, N, k) when point_major.
+// With tile_scale (B, N / T), fast mode's key on tiles of T centres
+// (SvKeyTiles), else exact mode's.
 static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
                                  int B, int N, int C, int k,
                                  cudaStream_t stream, bool point_major = false,
-                                 bool row_major = false) {
-  return row_major
-             ? sv_knn_select_t<true>(src, aa, wins, B, N, C, k, stream, point_major)
-             : sv_knn_select_t<false>(src, aa, wins, B, N, C, k, stream, point_major);
+                                 bool row_major = false,
+                                 const float* tile_scale = nullptr, int T = 0) {
+  if (k > N || k < 1 || C < 1) return cudaErrorInvalidValue;
+  const int ib = sv_idx_bits(N);
+  SvKeyTiles kt{tile_scale, T, (float)(-(1 << (18 < 31 - ib ? 18 : 31 - ib)) + 1),
+                (float)((1 << (31 - ib)) - 1)};
+  if (tile_scale != nullptr && (T < 1 || N % T != 0 || ib > 30))
+    return cudaErrorInvalidValue;
+  if (tile_scale != nullptr)
+    return row_major ? sv_knn_select_t<true, true>(src, aa, wins, B, N, C, k,
+                                                   stream, point_major, kt)
+                     : sv_knn_select_t<false, true>(src, aa, wins, B, N, C, k,
+                                                    stream, point_major, kt);
+  return row_major ? sv_knn_select_t<true, false>(src, aa, wins, B, N, C, k,
+                                                  stream, point_major, kt)
+                   : sv_knn_select_t<false, false>(src, aa, wins, B, N, C, k,
+                                                   stream, point_major, kt);
+}
+
+// ---------------------------------------------------------------------------
+// fast mode's pre-pass: each centre's farthest candidate
+// ---------------------------------------------------------------------------
+// neg_min[b*N + n] = min over all N candidates m of neg(n, m), by the
+// selection's own distance stage (sv_tile_inner, sv_neg_dist), so that
+// the key tiles' scales (quant.py::tile_scales, the min over each tile of
+// T centres, taken outside) come from the very values the selection
+// quantizes. The TPU kernel holds its whole (N, T) block of distances and
+// takes that min for free; here it costs one distance pass. A block of 8
+// warps owns 64 centres, as in the selection; a min has no order, so the
+// result is exact.
+template <bool ROW>
+static __global__ void __launch_bounds__(SEL_WARPS * 32)
+sv_neg_min_kernel(const float* __restrict__ src, const float* __restrict__ aa,
+                  float* __restrict__ neg_min, int N, int C) {
+  __shared__ __align__(16) float sm[SEL_KC * (SEL_CS + SEL_MS)];
+  float* ctr_s = sm;
+  float* cand_s = sm + SEL_KC * SEL_CS;
+  const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t0 = warp * 8;
+  const float* x = src + (size_t)b * C * N;
+  const float* a = aa + (size_t)b * N;
+  float ctr_sq[8], mn[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + t0 + i;
+    ctr_sq[i] = n < N ? a[n] : 0.f;
+    mn[i] = INFINITY;
+  }
+  for (int m0 = 0; m0 < N; m0 += SEL_TM) {
+    float acc[8][4];
+    sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + 4 * lane + j;
+      if (m >= N) break;
+      const float cand_sq = a[m];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        mn[i] = fminf(mn[i], sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mn[i] = fminf(mn[i], __shfl_xor_sync(0xffffffffu, mn[i], off));
+    const int n = n0 + t0 + i;
+    if (lane == 0 && n < N) neg_min[(size_t)b * N + n] = mn[i];
+  }
+}
+
+// Squared norms + the pre-pass over a channel-major (B, C, N) source, or a
+// row-major (B, N, C) one when row_major; aa is (B, N) scratch.
+static cudaError_t sv_neg_min(const float* src, float* aa, float* neg_min,
+                              int B, int N, int C, cudaStream_t stream,
+                              bool row_major) {
+  if (N < 1 || C < 1) return cudaErrorInvalidValue;
+  cudaError_t err = row_major ? sv_sqnorm<true>(src, aa, B, N, C, stream)
+                              : sv_sqnorm<false>(src, aa, B, N, C, stream);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
+  if (row_major)
+    sv_neg_min_kernel<true><<<grid, SEL_WARPS * 32, 0, stream>>>(src, aa, neg_min, N, C);
+  else
+    sv_neg_min_kernel<false><<<grid, SEL_WARPS * 32, 0, stream>>>(src, aa, neg_min, N, C);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-// First SV-DGCNN / SV-PointNet round, exact mode, on Hopper.
+// First SV-DGCNN / SV-PointNet round, exact or fast mode, on Hopper.
 //
 // Replaces svnet_tpu/ops/pallas/sv_round3.py::sv_round3_first (kernel
 // _round3_first_kernel): xyz kNN (sortable-int key, min-row tie-break),
@@ -22,20 +22,28 @@
 // between three thread maps, so no thread holds the whole block's state
 // (sv_rounds.cuh). The gate statistics leave as per-point sums over the
 // ranks, reduced over N outside (no float atomics: run-independent).
+//
+// Fast mode: the selection ranks by the packed key on the key tiles'
+// scales (sv_round3.cu), and the block reads the points through the
+// gather grid (centres too, so a self-edge is 0).
 #include "sv_rounds.cuh"
 
 // pts (B, 3, N) channel-major; aa (B, N) scratch; wins (B, k, N) out;
 // s_out (B, 32, N), v_out (B, 3*V_out, N) ungated, ssum (B, 3*n_ch, N)
 // per-point sums over the ranks of the init scalars, j-major (j*n_ch + c);
 // n_ch is 3 with cross, else 2 (wz0, wz1 (n_ch, 3), w1 (6*n_ch, 32), w2
-// (n_ch, V_out)); V_out is 10 or 16, anything else is refused.
+// (n_ch, V_out)); V_out is 10 or 16, anything else is refused. Fast mode:
+// pts_q (B, 3, N) the points through the gather grid, tile_scale
+// (B, N / T) the key tiles' scales; exact mode passes both null and T = 0.
 extern "C" int sv_round3_first_launch(
     const float* pts, float* aa, const float* wz0, const float* wz1,
     const float* w1, const float* a1, const float* b1, const float* w2,
     const float* a2, const float* b2, float* s_out, float* v_out,
-    float* ssum, int* wins, int B, int N, int k, int S_out, int V_out,
-    int cross, void* stream) {
+    float* ssum, int* wins, const float* pts_q, const float* tile_scale,
+    int B, int N, int k, int S_out, int V_out, int cross, int T,
+    void* stream) {
   return sv_first_round<false>(pts, aa, wz0, wz1, w1, a1, b1, w2, a2, b2,
                                s_out, v_out, ssum, wins, B, N, k, S_out,
-                               V_out, cross, (cudaStream_t)stream);
+                               V_out, cross, (cudaStream_t)stream, pts_q,
+                               tile_scale, T);
 }

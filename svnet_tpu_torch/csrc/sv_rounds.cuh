@@ -1,8 +1,9 @@
-// The block kernels of the exact-mode fused rounds, shared by the
-// channel-major round3 launchers (sv_round3_first.cu, sv_round3.cu), the
-// row-major round2 and round launchers (sv_round2.cu, sv_round.cu) and the
-// row-major launchers that take the caller's neighbour ids (sv_edge.cu,
-// through sv_first_block and sv_conv_block). Each kernel is a template
+// The block kernels of the fused rounds (exact mode; fast mode through B1
+// and B2), shared by the channel-major round3 launchers
+// (sv_round3_first.cu, sv_round3.cu), the row-major round2 and round
+// launchers (sv_round2.cu, sv_round.cu) and the row-major launchers that
+// take the caller's neighbour ids (sv_edge.cu, through sv_first_block and
+// sv_conv_block). Each kernel is a template
 // on the layout: with ROW the outputs and the neighbour ids are row-major
 // -- (B, N, C) and (B, N, k) -- else channel-major (B, C, N) with ids
 // (B, k, N). The first round reads its points in the same layout; the conv
@@ -280,22 +281,28 @@ static int sv_first_block(const float* pts, const int* wins, const float* wz0,
   return (int)cudaGetLastError();
 }
 
-// Selection over the xyz points (C = 3), then the block kernel.
+// Selection over the xyz points (C = 3), then the block kernel. Fast mode
+// (tile_scale (B, N / T), sv_knn_select) selects on the raw points and
+// runs the block on pts_q, the points through the gather grid (neighbours
+// and centres alike, so a self-edge is 0); exact mode leaves pts_q null.
 template <bool ROW>
 static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           const float* wz1, const float* w1, const float* a1,
                           const float* b1, const float* w2, const float* a2,
                           const float* b2, float* s_out, float* v_out,
                           float* ssum, int* wins, int B, int N, int k,
-                          int S_out, int V_out, int cross, cudaStream_t st) {
+                          int S_out, int V_out, int cross, cudaStream_t st,
+                          const float* pts_q = nullptr,
+                          const float* tile_scale = nullptr, int T = 0) {
   if (S_out != F_S_OUT || (V_out != 10 && V_out != 16))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(pts, aa, wins, B, N, 3, k, st,
-                                  /*point_major=*/ROW, /*row_major=*/ROW);
+                                  /*point_major=*/ROW, /*row_major=*/ROW,
+                                  tile_scale, T);
   if (err != cudaSuccess) return (int)err;
-  return sv_first_block<ROW>(pts, wins, wz0, wz1, w1, a1, b1, w2, a2, b2,
-                             s_out, v_out, ssum, B, N, k, S_out, V_out, cross,
-                             st);
+  return sv_first_block<ROW>(pts_q ? pts_q : pts, wins, wz0, wz1, w1, a1, b1,
+                             w2, a2, b2, s_out, v_out, ssum, B, N, k, S_out,
+                             V_out, cross, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -742,7 +749,9 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
 
 // Selection over the joint features of a row-major source, then the block
 // kernel; ROW picks the ids' and outputs' layout (else (B, k, N) ids and
-// channel-major outputs).
+// channel-major outputs). Fast mode (tile_scale (B, N / T)) selects on the
+// raw source and runs the block on src_q, the source through the gather
+// grid (row-major too); exact mode leaves src_q null.
 template <bool ROW>
 static int sv_conv_round(const float* src, float* aa, const float* wz,
                          const float* w1, const float* beta, const float* a1,
@@ -750,13 +759,16 @@ static int sv_conv_round(const float* src, float* aa, const float* wz,
                          const float* a2, const float* b2, float* s_out,
                          float* v_out, float* ssum, int* wins, int B, int N,
                          int S, int V, int S_out, int V_out, int k, int binary,
-                         cudaStream_t st) {
+                         cudaStream_t st, const float* src_q = nullptr,
+                         const float* tile_scale = nullptr, int T = 0) {
   if (rb_layout(S, V, S_out, V_out, binary).total > SV_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(src, aa, wins, B, N, S + 3 * V, k, st,
-                                  /*point_major=*/ROW, /*row_major=*/true);
+                                  /*point_major=*/ROW, /*row_major=*/true,
+                                  tile_scale, T);
   if (err != cudaSuccess) return (int)err;
-  return sv_conv_block<ROW, false>(src, wins, nullptr, wz, w1, beta, a1, b1,
-                                   w2, scale2, a2, b2, s_out, v_out, ssum, B,
-                                   N, S, V, S_out, V_out, k, binary, st);
+  return sv_conv_block<ROW, false>(src_q ? src_q : src, wins, nullptr, wz, w1,
+                                   beta, a1, b1, w2, scale2, a2, b2, s_out,
+                                   v_out, ssum, B, N, S, V, S_out, V_out, k,
+                                   binary, st);
 }

@@ -1,4 +1,4 @@
-"""Fused eval engines, exact mode: SV-DGCNN classification and part
+"""Fused eval engines, exact and fast mode: SV-DGCNN classification and part
 segmentation (counterparts of svnet_tpu/infer.py:227-855) and SV-PointNet
 classification and part segmentation (svnet_tpu/infer.py:857-1167).
 
@@ -35,10 +35,16 @@ The SV-PointNet engines run row-major (B, N, C) after the first round:
 The SE gates, token path and heads run as plain tensor code on the host
 side of the kernels, as in the JAX engines. On a CUDA device every fused
 stage launches its kernel; on the CPU the kernels' plain versions run.
+
+``mode="fast"`` (the JAX engines' default) changes the first round and
+the conv rounds (B1, B2: packed distance keys per key tile, the gather
+grid; ops/kernels/sv_round3.py) and nothing else, so it is taken on the
+round3 trunk and by the SV-PointNet engines; the other trunks refuse it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -308,10 +314,13 @@ class _DGCNNEngine:
     def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
                  k: int, binary: bool, mode: str, device, oracle: bool,
                  trunk: str):
-        self.mode = config.check_mode(mode)
+        self.mode = config.check_mode(mode, trunk)
         self.trunk = trunk
         self.row_major = trunk != "round3"
         self._first, self._round, self._point = TRUNKS[trunk](oracle)
+        if self.mode != "exact":  # the round3 trunk's rounds take the mode
+            self._first = functools.partial(self._first, mode=self.mode)
+            self._round = functools.partial(self._round, mode=self.mode)
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
@@ -380,7 +389,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     float32 points on ``device``: the card unless the caller passes
     ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
     default), the legacy row-major "round2", "round" (kernel B10a) or
-    "edge" (a separate kNN, kernels B10d and B10c).
+    "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact", or
+    "fast" on the round3 trunk.
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
@@ -418,8 +428,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
 
 
 class SVDGCNNPsegEngine(_DGCNNEngine):
-    """SV-DGCNN part segmentation, exact mode (svnet_tpu/infer.py:533-855);
-    built, placed and switched (``rounds_impl``, ``oracle``) as
+    """SV-DGCNN part segmentation (svnet_tpu/infer.py:533-855); built,
+    placed and switched (``rounds_impl``, ``mode``, ``oracle``) as
     ``SVDGCNNClsEngine``, but for "round" and "edge", which run the round2
     trunk, as the JAX engine does. Call on (B, N, 3) float32 points and the
     (B, 16) one-hot object category; returns (B, N, num_part) logits.
@@ -547,7 +557,8 @@ class _PointNetEngine:
     def __init__(self, weights: dict, enc_key: str | None, specs: dict,
                  k: int, binary: bool, mode: str, device, oracle: bool):
         self.mode = config.check_mode(mode)
-        self._first = sv_round3_first_plain if oracle else sv_round3_first
+        self._first = functools.partial(
+            sv_round3_first_plain if oracle else sv_round3_first, mode=mode)
         self._block = sv_block_point_plain if oracle else sv_block_point
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
@@ -615,7 +626,7 @@ class _PointNetEngine:
 
 
 class SVPointNetClsEngine(_PointNetEngine):
-    """SV-PointNet classification, exact mode. Build from a weight tree
+    """SV-PointNet classification, exact or fast mode. Build from a weight tree
     (``models.sv_pointnet.init_params`` or ``utils.convert.from_flax``);
     call on (B, N, 3) float32 points on ``device``, the card unless the
     caller passes ``device="cpu"``. ``oracle=True`` runs the kernels' plain
@@ -651,7 +662,7 @@ class SVPointNetClsEngine(_PointNetEngine):
 
 
 class SVPointNetPsegEngine(_PointNetEngine):
-    """SV-PointNet part segmentation, exact mode; built and placed as
+    """SV-PointNet part segmentation, exact or fast mode; built and placed as
     ``SVPointNetClsEngine``. Call on (B, N, 3) points and the (B, 16)
     one-hot object category; returns (B, N, num_part) logits."""
 

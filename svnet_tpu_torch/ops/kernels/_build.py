@@ -36,17 +36,18 @@ _I = ctypes.c_int
 # C signature of every entry point: (argtypes), all return an int (a
 # cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
 SIGNATURES = {
-    # pts, aa, 8 weights, s_out, v_out, ssum, wins; B N k S_out V_out cross;
-    # stream
-    "sv_round3_first_launch": [_P] * 14 + [_I] * 6 + [_P],
-    # src, aa, 9 weights, s_out, v_out, ssum, wins; B N S V S_out V_out k
-    # binary; stream
-    "sv_round3_launch": [_P] * 15 + [_I] * 8 + [_P],
+    # pts, aa, 8 weights, s_out, v_out, ssum, wins, pts_q, tile_scale; B N
+    # k S_out V_out cross T; stream
+    "sv_round3_first_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # src, aa, 9 weights, s_out, v_out, ssum, wins, src_q, tile_scale; B N S
+    # V S_out V_out k binary T; stream
+    "sv_round3_launch": [_P] * 17 + [_I] * 9 + [_P],
     # src, gate, vrow, 10 weights and W1's packed signs (after w1), x_out,
     # smax, vsum; B N S V S_out V_out binary; stream
     "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],
-    # the row-major twins: sv_round2_first_launch as sv_round3_first_launch,
-    # sv_round2_launch as sv_round3_launch, sv_point_rm_launch as
+    # the row-major twins: sv_round2_first_launch and sv_round2_launch as
+    # the round3 entry points in exact mode (without the last two pointers
+    # and T), sv_point_rm_launch as
     # sv_point_launch without vrow
     "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
@@ -72,6 +73,8 @@ SIGNATURES = {
     "sv_pack_signs_launch": [_P] * 2 + [_I] * 2 + [_P],
     # x, aa, ids; B N C k; stream
     "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, aa, neg_min; B N C; stream
+    "sv_neg_min_launch": [_P] * 3 + [_I] * 3 + [_P],
     # src, idx, out; B n_src M k C; stream
     "sv_edge_gather_fwd_launch": [_P] * 3 + [_I] * 5 + [_P],
     # g, idx, dsrc, scratch; B n_src M k C; stream

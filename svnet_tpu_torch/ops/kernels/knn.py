@@ -9,6 +9,12 @@ ids point-major) or raises. ``knn.launches`` counts kernel launches.
 Both rank by the sortable-int key of the f32 distance, summed channel by
 channel with every product and sum rounded on its own, so their ids are
 identical on any device.
+
+``neg_min(x)`` is fast mode's pre-pass (csrc/knn.cu, sv_neg_min_launch):
+each centre's least negative squared distance, by the same distance
+stage, whence the key tiles' scales (quant.tile_scales). Its plain
+version takes the min of ``pairwise_neg_sqdist``; a min has no order, so
+the two are equal. ``neg_min.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 
 from svnet_tpu_torch.config import require_cuda
 from svnet_tpu_torch.ops.kernels import _build
-from svnet_tpu_torch.ops.knn import knn_plain
+from svnet_tpu_torch.ops.knn import knn_plain, pairwise_neg_sqdist
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -44,3 +50,34 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 knn.launches = 0
+
+
+def neg_min_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) -> (B, N): min over the candidates of the negative squared
+    distances, as the selection ranks them."""
+    return pairwise_neg_sqdist(x.float()).amin(dim=-1)
+
+
+def neg_min(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) float32 -> (B, N) each centre's least negative squared
+    distance (its farthest candidate)."""
+    if x.dim() != 3:
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected (B, N, C)")
+    if x.device.type == "cpu":
+        return neg_min_plain(x)
+    dev = require_cuda(x.device)
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: dtype {x.dtype}, expected torch.float32")
+    B, N, C = x.shape
+    x = x.detach().contiguous()
+    aa = torch.empty((B, N), device=dev)
+    out = torch.empty((B, N), device=dev)
+    err = _build.lib().sv_neg_min_launch(x.data_ptr(), aa.data_ptr(),
+                                         out.data_ptr(), B, N, C,
+                                         _build.stream_ptr(dev))
+    _build.check(err, "neg_min")
+    neg_min.launches += 1
+    return out
+
+
+neg_min.launches = 0

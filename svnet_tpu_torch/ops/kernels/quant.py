@@ -1,0 +1,131 @@
+"""Fast mode's quantization, the port's own copy of the JAX package's
+(svnet_tpu/ops/pallas/sv_round3.py and sv_round2.py).
+
+Fast mode changes two things in a round, and both are part of its result:
+
+  the neighbour key: the f32 negative squared distance ``neg`` (over the
+  raw features) quantized to ``qbits`` bits on a per-(cloud, key tile)
+  scale, packed with the row into one unique int32, larger first
+  (``packed_keys``); the key tile is T centres, T from the JAX package's
+  VMEM heuristic (``round3_tiles``), so T changes which rows tie;
+  the gather grid: the block reads neighbours and centres through a
+  per-channel symmetric fixed-point grid over the whole batch, 16 bits
+  (``config.fast_gather_bits = 16``) or 8 (``grid_rows``), so a self-edge
+  is exactly zero.
+
+Everything here is plain tensor code, run as is on every device: the
+kernels take its results (the grid's rows, the tiles' scales) as inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from svnet_tpu_torch import config
+
+Q_BITS = 18  # the distance field's bits at N <= 8192 (sv_round2.py:57)
+
+
+def idx_bits(N: int) -> int:
+    """Row bits of the packed key: 13 at N <= 8192, more beyond
+    (sv_round2.py:187)."""
+    b = 13
+    while (1 << b) < N:
+        b += 1
+    return b
+
+
+def q_bounds(N: int) -> tuple[int, int]:
+    """(lowest, highest) quantized distance of a packed key at N rows. The
+    lowest is the JAX package's clamp; the highest only keeps a key that
+    rounding made positive inside int32 (JAX's keys wrap there, which no
+    cloud of distinct points reaches)."""
+    ib = idx_bits(N)
+    return -(1 << min(Q_BITS, 31 - ib)) + 1, (1 << (31 - ib)) - 1
+
+
+def tile_scales(neg_min: torch.Tensor, T: int, M: int) -> torch.Tensor:
+    """(B, N) least ``neg`` of each centre over all M candidates -> (B, N/T)
+    f32 key scales, one per tile of T centres:
+    ``-(2^qbits) / min(worst, -1e-12)``, qbits of M rows
+    (sv_round3.py:199-206)."""
+    B, N = neg_min.shape
+    qbits = min(Q_BITS, 31 - idx_bits(M))
+    worst = neg_min.reshape(B, N // T, T).amin(dim=-1)
+    lim = torch.tensor(-1e-12, dtype=torch.float32, device=worst.device)
+    top = torch.tensor(float(-(1 << qbits)), dtype=torch.float32,
+                       device=worst.device)
+    return top / torch.minimum(worst, lim)
+
+
+def packed_keys(neg: torch.Tensor, scale: torch.Tensor, T: int) -> torch.Tensor:
+    """neg (B, N centres, M candidates), scale (B, N/T) -> int32 keys
+    ``q * 2^ib + (2^ib - 1 - row)``, q = floor(neg * scale) clamped; unique
+    along the candidates, larger first, ties of q to the lower row."""
+    B, N, M = neg.shape
+    ib = idx_bits(M)
+    lo, hi = q_bounds(M)
+    s = scale.repeat_interleave(T, dim=1)[:, :, None]
+    q = torch.floor(neg * s).clamp_(lo, hi).to(torch.int32)
+    rows = torch.arange(M, device=neg.device, dtype=torch.int32)
+    return q * (1 << ib) + ((1 << ib) - 1 - rows)
+
+
+def key_rows(keys: torch.Tensor, M: int) -> torch.Tensor:
+    """The row of each packed key (its low ``idx_bits(M)`` bits)."""
+    ib = idx_bits(M)
+    return ((1 << ib) - 1) - (keys & ((1 << ib) - 1))
+
+
+def grid_codes(x: torch.Tensor, bits: int):
+    """Channels-last x (..., C) -> (int16 codes, f32 inv (C,)) of the
+    gather grid over every row of the batch: ``scale = 32704 / amax``
+    (16 bits, pack_planes_fast_t) or ``127 / amax`` clipped to +-127 (8
+    bits, pack_planes_q8_t), codes ``round_half_even(x * scale)``, inv the
+    f32 reciprocal of the scale."""
+    if bits not in (8, 16):
+        raise ValueError(f"bits={bits}: the gather grid has 8 or 16 bits")
+    amax = x.abs().reshape(-1, x.shape[-1]).amax(dim=0)
+    top = 32704.0 if bits == 16 else 127.0
+    scale = torch.tensor(top, dtype=torch.float32, device=x.device) / \
+        torch.clamp(amax, min=1e-30)
+    q = torch.round(x * scale)
+    if bits == 8:
+        q = q.clamp_(-127, 127)
+    return q.to(torch.int16), torch.reciprocal(scale)
+
+
+def grid_rows(x: torch.Tensor, bits: int | None = None) -> torch.Tensor:
+    """x (..., C) through the gather grid: ``float(code) * inv``, what the
+    block reads for neighbours and centres alike. ``bits`` defaults to
+    ``config.fast_gather_bits``."""
+    q, inv = grid_codes(x, config.fast_gather_bits if bits is None else bits)
+    return q.to(torch.float32) * inv
+
+
+def plane_stride(C: int) -> int:
+    return (C + 7) // 8 * 8
+
+
+def round3_tiles(N: int, C: int, mode: str) -> int:
+    """The key tile T of a round over C channels: the JAX package's
+    ``_round3_tiles(...)[0]`` (sv_round3.py:860-893, no graph reuse; its
+    other widths do not reach T) under its ~11 MB VMEM budget, the
+    gather's planes (4 exact, 2 fast, 1 with 8-bit fast gathers) in its
+    fixed part; T = N where no tile of 128-512 divides N."""
+    budget = 11 * 1024 * 1024
+    nplanes = 4 if mode == "exact" else (
+        1 if config.fast_gather_bits == 8 else 2)
+    fixed = N * C * 4 * 2 + N * nplanes * plane_stride(C)
+    per_t = N * 4 * (5 if mode == "exact" else 4)
+    T = max(128, (budget // 2 - fixed) // max(per_t, 1) // 128 * 128)
+    p2 = 128
+    while p2 * 2 <= T:
+        p2 *= 2
+    T = p2
+    while N % T and T > 128:
+        T //= 2
+    T = min(T, 512)
+    if N % T:
+        T = N
+    return T

@@ -1,4 +1,4 @@
-"""Fused SV-DGCNN rounds, exact mode (counterparts of
+"""Fused SV-DGCNN rounds, exact and fast mode (counterparts of
 svnet_tpu/ops/pallas/sv_round3.py::sv_round3_first and ::sv_round3).
 
 Each wrapper keeps the JAX function's channel-major contract: the conv
@@ -16,17 +16,27 @@ product and sum rounded on its own (the kernels are built with
 -fmad=false), so a kernel and its plain version agree bitwise on any
 device: a binarized sign never flips between them, and the whole engine
 can be checked against its plain twin on the card exactly.
+
+``mode="fast"`` (ops/kernels/quant.py) ranks neighbours by the packed
+18-bit key on the scale of each key tile of T centres (T from
+``quant.round3_tiles`` unless given) over the raw features, and runs the
+block on the features through the gather grid of
+``config.fast_gather_bits``. On a CUDA tensor the tiles' scales come
+from the pre-pass kernel (``ops.kernels.knn.neg_min``), then the round's
+kernel runs; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from svnet_tpu_torch import ops
+from svnet_tpu_torch import config, ops
 from svnet_tpu_torch.config import EPS, require_cuda
 from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
-from svnet_tpu_torch.ops.kernels import _build
+from svnet_tpu_torch.ops.kernels import _build, quant
 from svnet_tpu_torch.ops.kernels.fold import Folded
+from svnet_tpu_torch.ops.kernels.knn import neg_min
+from svnet_tpu_torch.ops.knn import knn_fast_plain
 
 
 def jmajor(s: torch.Tensor, multi: int = 3) -> torch.Tensor:
@@ -81,6 +91,42 @@ def first_perm(n_ch: int = 2) -> list[int]:
     return [j * n_ch + c for c in range(n_ch) for j in range(3)]
 
 
+def key_tile(mode: str, N: int, C: int, T: int | None) -> int | None:
+    """A round's key tile: None in exact mode, else ``T`` or the JAX
+    package's heuristic (``quant.round3_tiles``); it must divide N."""
+    if config.check_mode(mode) == "exact":
+        return None
+    T = T or quant.round3_tiles(N, C, mode)
+    if N % T:
+        raise ValueError(f"key tile T={T} must divide N={N}")
+    return T
+
+
+def _select(x: torch.Tensor, k: int, T: int | None):
+    """The plain selection and the block's rows for row-major x (B, N, C):
+    exact mode's (knn_plain, x), or fast mode's on key tiles of T
+    (knn_fast_plain, x through the gather grid)."""
+    if T is None:
+        return ops.knn_plain(x, k), x
+    return knn_fast_plain(x, k, T), quant.grid_rows(x)
+
+
+def _fast_args(x: torch.Tensor, T: int | None, cm: bool):
+    """The kernels' fast-mode arguments for row-major x (B, N, C): the
+    block's rows through the gather grid (channel-major when ``cm``), the
+    key tiles' scales from the pre-pass, and T; in exact mode (None,
+    None, 0). The tensors are returned to outlive the launch."""
+    if T is None:
+        return None, None, 0
+    xq = quant.grid_rows(x)
+    xq = (xq.transpose(1, 2) if cm else xq).contiguous()
+    return xq, quant.tile_scales(neg_min(x), T, x.shape[1]).contiguous(), T
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 # ---------------------------------------------------------------------------
 # B1: the first round
 # ---------------------------------------------------------------------------
@@ -108,39 +154,46 @@ def first_block_rows(points: torch.Tensor, idx: torch.Tensor, folded: Folded,
 
 
 def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
-                     V_out: int, k: int, cross: bool = False):
+                     V_out: int, k: int, cross: bool = False,
+                     T: int | None = None):
     """The first round's function on row-major outputs, shared by the plain
-    versions of both layouts: the kNN, then ``first_block_rows``; (s, v
-    ungated, s_mean, ids (B, N, k) int32)."""
-    idx = ops.knn_plain(points, k)
-    return (*first_block_rows(points, idx, folded, S_out=S_out, V_out=V_out,
+    versions of both layouts: the kNN (fast mode's on key tiles of ``T``
+    when given), then ``first_block_rows``; (s, v ungated, s_mean, ids
+    (B, N, k) int32)."""
+    idx, rows = _select(points, k, T)
+    return (*first_block_rows(rows, idx, folded, S_out=S_out, V_out=V_out,
                               cross=cross), idx)
 
 
 def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
-                          S_out: int, V_out: int, k: int, cross: bool = False):
+                          S_out: int, V_out: int, k: int, cross: bool = False,
+                          mode: str = "exact", T: int | None = None):
     """Plain version of the first round; same outputs as the kernel, with
     the neighbour ids (B, k, N) int32 last."""
+    T = key_tile(mode, points.shape[1], 3, T)
     s, v, s_mean, idx = first_round_rows(points, folded, S_out=S_out,
-                                         V_out=V_out, k=k, cross=cross)
+                                         V_out=V_out, k=k, cross=cross, T=T)
     return s.transpose(1, 2), v.transpose(1, 2), s_mean, idx.transpose(1, 2)
 
 
 def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
                     V_out: int, k: int, cross: bool = False,
+                    mode: str = "exact", T: int | None = None,
                     emit_wins: bool = False):
     """points (B, N, 3) -> (s (B, S_out, N), v (B, 3*V_out, N) ungated,
     s_mean (B, 3*n_ch) c-major[, wins (B, k, N) int32]); the edges carry
     n_ch = 3 channels with ``cross`` (SV-PointNet), else 2. The kernel takes
-    S_out = 32 and V_out = 10 or 16 (SV_DGCNN_PSEG's conv1)."""
+    S_out = 32 and V_out = 10 or 16 (SV_DGCNN_PSEG's conv1). ``mode``
+    "exact" or "fast" (key tiles of ``T``: see the module's docstring)."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
+    T = key_tile(mode, N, 3, T)
     if points.device.type == "cpu":
-        out = sv_round3_first_plain(points, folded, S_out=S_out,
-                                    V_out=V_out, k=k, cross=cross)
+        out = sv_round3_first_plain(points, folded, S_out=S_out, V_out=V_out,
+                                    k=k, cross=cross, mode=mode, T=T)
         return out if emit_wins else out[:3]
     dev = require_cuda(points.device)
     _build.check_arg(points, "points", (B, N, 3), dev)
@@ -155,6 +208,7 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
     pts = points.transpose(1, 2).contiguous()  # (B, 3, N)
+    pts_q, scale, T = _fast_args(points, T, cm=True)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -162,8 +216,8 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_first_launch(
         pts.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), B, N, k, S_out, V_out, int(cross),
-        _build.stream_ptr(dev))
+        ssum.data_ptr(), wins.data_ptr(), _ptr(pts_q), _ptr(scale), B, N, k,
+        S_out, V_out, int(cross), T, _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
     s_mean = ssum.sum(dim=2)[:, first_perm(n_ch)] / (N * k)
@@ -202,43 +256,50 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
 
 
 def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
-                    S_out: int, V_out: int, k: int, binary: bool):
+                    S_out: int, V_out: int, k: int, binary: bool,
+                    T: int | None = None):
     """A conv round's function on row-major x (B, N, S + 3V), shared by the
-    plain versions of both layouts: the kNN, then ``conv_block_rows``;
-    (s (B, N, S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids
-    (B, N, k) int32)."""
+    plain versions of both layouts: the kNN (fast mode's on key tiles of
+    ``T`` when given), then ``conv_block_rows``; (s (B, N, S_out), v
+    (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k) int32)."""
     B, N, _ = x.shape
-    idx = ops.knn_plain(x, k)
-    s, vm, s_e = conv_block_rows(x, idx, folded, S=S, V=V, S_out=S_out,
+    idx, rows = _select(x, k, T)
+    s, vm, s_e = conv_block_rows(rows, idx, folded, S=S, V=V, S_out=S_out,
                                  V_out=V_out, binary=binary)
     se_mean = _point_sums(s_e).sum(dim=2) / (N * k)
     return s, vm.reshape(B, N, 3 * V_out), se_mean, idx
 
 
 def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
-                    S_out: int, V_out: int, k: int, binary: bool):
+                    S_out: int, V_out: int, k: int, binary: bool,
+                    mode: str = "exact", T: int | None = None):
     """Plain version of a conv round on channel-major src (B, S+3V, N);
     same outputs as the kernel, with the neighbour ids (B, k, N) last."""
+    T = key_tile(mode, src.shape[2], S + 3 * V, T)
     s, v, se_mean, idx = conv_round_rows(
         src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k,
-        binary=binary)
+        binary=binary, T=T)
     return s.transpose(1, 2), v.transpose(1, 2), se_mean, idx.transpose(1, 2)
 
 
 def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
               S_out: int, V_out: int, k: int, binary: bool = True,
+              mode: str = "exact", T: int | None = None,
               emit_wins: bool = False):
     """src (B, S+3V, N) channel-major [s | v i-major] -> (s (B, S_out, N),
-    v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)[, wins (B, k, N))]."""
+    v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)[, wins (B, k, N))];
+    ``mode`` "exact" or "fast" (key tiles of ``T``: see the module's
+    docstring)."""
     C = S + 3 * V
     if src.dim() != 3 or src.shape[1] != C:
         raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, {C}, N)")
     B, _, N = src.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
+    T = key_tile(mode, N, C, T)
     if src.device.type == "cpu":
         out = sv_round3_plain(src, folded, S=S, V=V, S_out=S_out,
-                              V_out=V_out, k=k, binary=binary)
+                              V_out=V_out, k=k, binary=binary, mode=mode, T=T)
         return out if emit_wins else out[:3]
     dev = require_cuda(src.device)
     _build.check_arg(src, "src", (B, C, N), dev)
@@ -254,6 +315,7 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
     rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
+    rows_q, scale, T = _fast_args(rows, T, cm=False)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -261,8 +323,8 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_launch(
         rows.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), B, N, S, V, S_out, V_out, k,
-        int(binary), _build.stream_ptr(dev))
+        ssum.data_ptr(), wins.data_ptr(), _ptr(rows_q), _ptr(scale), B, N, S,
+        V, S_out, V_out, k, int(binary), T, _build.stream_ptr(dev))
     _build.check(err, "sv_round3")
     sv_round3.launches += 1
     se_mean = ssum.sum(dim=2) / (N * k)

@@ -1,4 +1,5 @@
-"""Exact k-nearest-neighbour search (counterpart of svnet_tpu/ops/knn.py).
+"""Exact k-nearest-neighbour search (counterpart of svnet_tpu/ops/knn.py),
+and the fast-mode selection of the fused rounds (``knn_fast_plain``).
 
 Ranking is the exact-mode key of the fused round kernels
 (svnet_tpu/ops/pallas/sv_round3.py:194-196, :441-451): the sortable-int
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from svnet_tpu_torch.ops.kernels import quant
 
 def _channel_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_c a[..., c] * b[..., c], one channel at a time in order, each
@@ -60,6 +62,19 @@ def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     included: its distance is ~0, the maximum of the negated distances).
     The ranking key is that of the f32 distances whatever the dtype of x."""
     return topk_rows(pairwise_neg_sqdist(x.float()), k).to(torch.int32)
+
+
+def knn_fast_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
+    """Fast mode's selection (sv_round3.py:199-235, :453-459): (B, N, C)
+    -> (B, N, k) int32 ids by the packed keys of ``pairwise_neg_sqdist``'s
+    distances, each quantized on the scale of the worst distance of its
+    tile of T centres (ops/kernels/quant.py); the keys are unique, so
+    ``topk`` orders them fully."""
+    neg = pairwise_neg_sqdist(x.float())
+    scale = quant.tile_scales(neg.amin(dim=-1), T, x.shape[1])
+    keys = quant.packed_keys(neg, scale, T)
+    top = torch.topk(keys, k, dim=-1, sorted=True).values
+    return quant.key_rows(top, x.shape[1])
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -656,6 +656,63 @@ def test_conv_block_shape_forced_on_card(shape, binary):
         assert torch.equal(g, w)
 
 
+# fast mode: (B, N, k, key tile T (None: the heuristic's, T = N where no
+# tile divides N), duplicated points): N and k that no tile or list of the
+# selection divides, several key tiles a cloud, exact ties of distance
+FAST_FORCED = [(2, 1000, 7, None, False), (2, 1001, 33, None, False),
+               (2, 1024, 20, 128, False), (1, 2048, 40, None, True),
+               (3, 256, 64, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8], ids=["gb16", "gb8"])
+@pytest.mark.parametrize("shape", FAST_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-T{s[3] or 'auto'}"
+                              + ("-dup" if s[4] else "") for s in FAST_FORCED])
+def test_fast_rounds_match_plain_on_card(shape, bits):
+    """Fast mode at 16- and 8-bit gathers: the pre-pass (each centre's
+    farthest candidate) bitwise its plain version; B1 (xyz and cross,
+    V_out 10 and 16) and B2 ((5, 3) -> (13, 7) and (32, 10) -> (32, 10),
+    binary and FP), ids and outputs bitwise their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels.knn import neg_min, neg_min_plain
+
+    b, n, k, t, dup = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(19)
+    was = config.fast_gather_bits
+    config.set_fast_gather_bits(bits)
+    try:
+        pts = _select_input(b, n, 3, dup, 19).to(dev)
+        assert torch.equal(neg_min(pts), neg_min_plain(pts))
+        for cross in (False, True):
+            for V_out in (10, 16):
+                f = {name: w.to(dev) for name, w in
+                     _first_weights(3 if cross else 2, V_out, gen).items()}
+                kw = dict(S_out=32, V_out=V_out, k=k, cross=cross,
+                          mode="fast", T=t)
+                got = sv_round3_first(pts, f, emit_wins=True, **kw)
+                for g, w in zip(got, sv_round3_first_plain(pts, f, **kw)):
+                    assert torch.equal(g, w)
+        for S, V, S_out, V_out in ((5, 3, 13, 7), (32, 10, 32, 10)):
+            rows = _select_input(b, n, S + 3 * V, dup, 20).to(dev)
+            assert torch.equal(neg_min(rows), neg_min_plain(rows))
+            src = rows.transpose(1, 2).contiguous()
+            for binary in (True, False):
+                f = {name: w.to(dev) for name, w in
+                     _round_weights(S, V, S_out, V_out, binary, gen).items()}
+                kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k,
+                          binary=binary, mode="fast", T=t)
+                got = sv_round3(src, f, emit_wins=True, **kw)
+                for g, w in zip(got, sv_round3_plain(src, f, **kw)):
+                    assert torch.equal(g, w)
+    finally:
+        config.set_fast_gather_bits(was)
+
+
 # (kernel, B, N, S, V, S_out, V_out): Cin = 14 and S_out = 13 divide no K
 # chunk (32) and no MMA tile; conv_fuse's and partseg conv5's widths (the
 # 64- and 32-point tiles) at ragged N; B3 channel-major with two vector

@@ -87,7 +87,11 @@ def test_engine_rotation_invariant():
     np.testing.assert_allclose(out_r.numpy(), out.numpy(), rtol=2e-2, atol=2e-3)
 
 
-def test_engine_rejects_other_modes():
+@pytest.mark.parametrize("mode,rounds_impl", [
+    ("approx", "round3"), ("fast", "round2"), ("fast", "round"),
+    ("fast", "edge")])
+def test_engine_rejects_other_modes(mode, rounds_impl):
+    """Modes not ported on the trunk: approx anywhere, fast off round3."""
     with pytest.raises(ValueError):
         SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
-                         mode="fast", device="cpu")
+                         mode=mode, device="cpu", rounds_impl=rounds_impl)

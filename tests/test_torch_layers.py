@@ -166,13 +166,23 @@ def test_rotations_are_rotations():
     assert torch.allclose(torch.linalg.det(r), torch.ones(8), atol=1e-5)
 
 
-def test_config_accepts_only_exact_and_requires_cuda():
-    assert config.check_mode("exact") == "exact"
+@pytest.mark.parametrize("trunk", ["round2", "round", "edge"])
+def test_config_accepts_only_exact_and_requires_cuda(trunk):
+    """The trunks without fast mode take exact mode only."""
+    assert config.check_mode("exact", trunk) == "exact"
     for mode in ("fast", "approx"):
         with pytest.raises(ValueError):
-            config.check_mode(mode)
+            config.check_mode(mode, trunk)
     with pytest.raises(RuntimeError):
         config.require_cuda("cpu")
+
+
+def test_config_accepts_fast_on_round3_only():
+    assert config.check_mode("fast") == config.check_mode("fast", "round3") == "fast"
+    with pytest.raises(ValueError):
+        config.check_mode("approx")
+    with pytest.raises(ValueError):
+        config.set_fast_gather_bits(12)
 
 
 def test_package_imports_no_jax():
