@@ -17,9 +17,10 @@ SVDGCNNPsegEngine, both SV-DGCNN engines' legacy row-major trunk
 (rounds_impl="round2"), the classifier's "round" and "edge" trunks, and
 the XNOR-popcount +-1 product through its bench
 (utils/bench_binary_matmul.py); then fast mode (packed 18-bit kNN keys per
-key tile, 16- and 8-bit gather grids) through B1 and B2 of both SV-DGCNN
-engines and the SV-PointNet classifier. Phases; any failure raises and the
-script exits non-zero:
+key tile, 16- and 8-bit gather grids) and approx mode (those keys folded
+to approx_fold lanes, the Morton entry sort) through B1 and B2 of both
+SV-DGCNN engines and the SV-PointNet classifier. Phases; any failure
+raises and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -159,6 +160,26 @@ script exits non-zero:
      plain engine on >= 99%; the median request time printed beside the
      exact engine's (phases 3, 12, 7) with the card; top-1 agreement with
      exact mode logged (random weights: no bar)
+ 17  approx mode: 5 requests each through SVDGCNNClsEngine (128, 1024, 3;
+     approx_fold 256), SVDGCNNPsegEngine (32, 2048, 3; fold 512) and
+     SVPointNetClsEngine (128, 1024, 3; fold 256) at 16- and 8-bit
+     gathers; launches per request as in phase 16; logits finite; top-1
+     agrees with the approx plain engine on >= 99%; the median printed
+     beside fast mode's (phase 16) and exact mode's; at 16 bits the
+     SV-DGCNN engines (which Morton-sort at entry) give shuffled clouds
+     the same cls logits and the same per-point partseg logits, top-1
+     >= 99%; the recall of B1's and conv2's approx ids against exact ids
+     on surface clouds, sorted and shuffled, printed (not a bar)
+
+Phase 2 also holds approx mode (phase2_approx): B1 and B2 with
+mode="approx" at 16- and 8-bit gathers against their plain versions, ids
+and outputs bitwise, at the cls (fold 256, L = 256) and partseg (fold
+512, L = 512) shapes on Morton-sorted clouds, inputs chained through the
+plain approx versions, binary timed beside the fast and exact twins, FP
+bitwise, B1 cross on the SV-PointNet classifier's weights; and
+APPROX_FORCED (N = 1000 folding to L = 250, N = 256 and 1024 to L = 64,
+k = 20, 33, 40, 64, N = 200 at or below the fold where the ids must be
+fast mode's, duplicated points).
 
 Phase 2 also holds fast mode (phase2_fast): B1 and B2 with mode="fast" at
 16- and 8-bit gathers against their plain versions, ids and outputs
@@ -2036,6 +2057,317 @@ def phase16(eng, eng_fp, pn, dg, w_bin, w_fp, gen, dev, counters, card):
     return out
 
 
+@contextlib.contextmanager
+def approx_knobs(bits, fold):
+    """config.approx_gather_bits = bits, config.approx_fold = fold inside
+    the block."""
+    from svnet_tpu_torch import config
+
+    was = config.approx_gather_bits, config.approx_fold
+    config.set_approx_gather_bits(bits)
+    config.set_approx_fold(fold)
+    try:
+        yield
+    finally:
+        config.set_approx_gather_bits(was[0])
+        config.set_approx_fold(was[1])
+
+
+def approx_name(kernel, bits, tag):
+    """The kernels line's name of an approx-mode entry: 'sv_round3 approx',
+    'sv_round3 approx8 pseg', ..."""
+    return f"{kernel} approx{'' if bits == 16 else bits}" + ("" if tag == "cls" else f" {tag}")
+
+
+def timed_approx(rep, label, name, kern, plain, fast, exact, cost):
+    """An approx-mode call (kern) bitwise its plain version, ids included,
+    then timed beside the plain version and beside ``fast`` and ``exact``,
+    the same kernel in those modes on the same input. Returns the plain
+    outputs."""
+    ko, po = kern(), plain()
+    sync(ko[0].device)
+    check_equal(label, ko, po)
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    fast_ms, exact_ms = cuda_ms(fast), cuda_ms(exact)
+    log(f"  {label}: ids and outputs bitwise; kernel {ms} ms (fast mode "
+        f"{fast_ms} ms, exact mode {exact_ms} ms), plain {plain_ms} ms, "
+        f"bound {cost}")
+    rep.add(name, 0.0, ms, plain_ms, cost)
+    return po
+
+
+# approx mode's fold width on each main path (the JAX package's certified
+# serving pick, ACCURACY.md:156-170): cls (N = 1024 -> L = 256), partseg
+# (N = 2048 -> L = 512)
+FOLD = {"cls": 256, "pseg": 512}
+
+
+def phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev):
+    """B1 and B2 in approx mode, at 16- and 8-bit gathers, against their
+    plain versions: ids and outputs bitwise. At the main paths' shapes on
+    Morton-sorted clouds, as the engines sort them (cls (128, 1024, 20)
+    fold 256; partseg (32, 2048, 40) fold 512; B1 cross on the
+    SV-PointNet classifier's weights, unsorted, fold 256), inputs chained
+    through the plain approx versions, binary timed beside the fast and
+    exact twins on the same input, FP bitwise; then APPROX_FORCED."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops import morton
+    from svnet_tpu_torch.ops.kernels import quant
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for bits in (16, 8):
+        for tag, e, e_fp, (b, n, k) in (
+                ("cls", eng, eng_fp, (B, N, K)),
+                ("pseg", dg["pseg round3"]["kernel"],
+                 dg["pseg round3"]["kernel_fp"], (B_PSEG, N_PSEG, K_PSEG))):
+            with approx_knobs(bits, FOLD[tag]), gather_bits(bits):
+                S1, V1 = e.dims["conv1"]
+                pts = morton.sort_points(cloud(b, n, gen, dev))[0]
+                T = quant.round3_tiles(n, 3, "approx")
+                L = quant.fold_width(n)
+                kw = dict(S_out=S1, V_out=V1, k=k)
+                name = approx_name("sv_round3_first", bits, tag)
+                f = e.folded_first
+                ef, pm1 = edge_flops(0, 1, S1, V1, True)
+                cost = bound(knn_flops(b, n, 3) + b * n * k * ef,
+                             4.0 * b * n * (3 + S1 + 3 * V1 + 6 + k), b * n * k * pm1)
+                po = timed_approx(
+                    rep, f"{name} B={b} N={n} k={k} T={T} L={L}", name,
+                    lambda: kr.sv_round3_first(pts, f, emit_wins=True, mode="approx", **kw),
+                    lambda: kr.sv_round3_first_plain(pts, f, mode="approx", **kw),
+                    lambda: kr.sv_round3_first(pts, f, mode="fast", **kw),
+                    lambda: kr.sv_round3_first(pts, f, **kw), cost)
+                g = se_gate(e.p["conv1"], po[2]).repeat(1, 3)
+                outs = [(po[0], po[1] * g[:, :, None])]
+                for rnd, (S, V, S_out, V_out) in e.rounds.items():
+                    src = torch.cat(outs[-1], dim=1).contiguous()
+                    C = S + 3 * V
+                    T = quant.round3_tiles(n, C, "approx")
+                    name = approx_name("sv_round3", bits, tag)
+                    ef, pm1 = edge_flops(S, V, S_out, V_out, binary=True)
+                    cost = bound(knn_flops(b, n, C) + b * n * k * ef,
+                                 4.0 * b * n * (C + S_out + 3 * V_out + 2 * S + k),
+                                 b * n * k * pm1)
+                    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k)
+                    fb = e.folded[rnd]
+                    po = timed_approx(
+                        rep, f"{name} {rnd} binary B={b} N={n} k={k} T={T} L={L}",
+                        name,
+                        lambda: kr.sv_round3(src, fb, emit_wins=True, mode="approx", **kw),
+                        lambda: kr.sv_round3_plain(src, fb, binary=True, mode="approx", **kw),
+                        lambda: kr.sv_round3(src, fb, mode="fast", **kw),
+                        lambda: kr.sv_round3(src, fb, **kw), cost)
+                    ffp = e_fp.folded[rnd]
+                    check_equal(f"{name} {rnd} fp",
+                                kr.sv_round3(src, ffp, binary=False, mode="approx",
+                                             emit_wins=True, **kw),
+                                kr.sv_round3_plain(src, ffp, binary=False,
+                                                   mode="approx", **kw))
+                    g = se_gate(e.p[rnd], po[2]).repeat(1, 3)
+                    outs.append((po[0], po[1] * g[:, :, None]))
+        with approx_knobs(bits, FOLD["cls"]), gather_bits(bits):
+            pts = cloud(B, N, gen, dev)
+            f = pn["cls"]["kernel"].folded_first
+            kw = dict(S_out=32, V_out=10, k=K, cross=True)
+            name = approx_name("sv_round3_first cross", bits, "cls")
+            ef, _ = edge_flops(0, 1, 32, 10, first=True, cross=True)
+            timed_approx(rep, f"{name} B={B} N={N} k={K}", name,
+                         lambda: kr.sv_round3_first(pts, f, emit_wins=True,
+                                                    mode="approx", **kw),
+                         lambda: kr.sv_round3_first_plain(pts, f, mode="approx", **kw),
+                         lambda: kr.sv_round3_first(pts, f, mode="fast", **kw),
+                         lambda: kr.sv_round3_first(pts, f, **kw),
+                         bound(knn_flops(B, N, 3) + B * N * K * ef,
+                               4.0 * B * N * (3 + 32 + 30 + 9 + K)))
+        phase2_approx_forced(bits, gen, dev)
+
+
+# (B, N, k, fold, key tile T or None, duplicated points) of B1 and B2 in
+# approx mode: L = 250 (N = 1000, fold 256), no multiple of the
+# selection's 128-lane tile, with T = N; L = 64 (fold 64) with 4 and 16
+# rows a class and several key tiles a cloud; k = 40 and k = 64 = L
+# against a small L; N at or below the fold (the ids are fast mode's);
+# exact ties
+APPROX_FORCED = ((2, 1000, 20, 256, None, False), (2, 1000, 64, 256, None, True),
+                 (3, 256, 40, 64, 64, True), (2, 256, 64, 64, 128, False),
+                 (1, 1024, 33, 64, 128, False), (2, 200, 33, 256, None, False))
+
+
+def phase2_approx_forced(bits, gen, dev):
+    """B1 (xyz V_out 10, cross V_out 16) and B2 ((5, 3) -> (13, 7) binary
+    and FP, cls conv4's widths binary) in approx mode at APPROX_FORCED,
+    ids and outputs bitwise their plain versions; at N <= fold the ids
+    equal fast mode's."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for b, n, k, fold, T, dup in APPROX_FORCED:
+        with approx_knobs(bits, fold), gather_bits(bits):
+            pts = select_input(b, n, 3, dup, gen, dev)
+            for cross, V_out in ((False, 10), (True, 16)):
+                n_ch = 3 if cross else 2
+                f = {name: torch.randn(*shape, generator=gen).to(dev)
+                     for name, shape in (("wz0", (n_ch, 3)), ("wz1", (n_ch, 3)),
+                                         ("w1", (6 * n_ch, 32)), ("a1", (1, 32)),
+                                         ("b1", (1, 32)), ("w2", (n_ch, V_out)),
+                                         ("a2", (1, V_out)), ("b2", (1, V_out)))}
+                kw = dict(S_out=32, V_out=V_out, k=k, cross=cross, T=T)
+                got = kr.sv_round3_first(pts, f, emit_wins=True, mode="approx", **kw)
+                check_equal(f"sv_round3_first approx{bits} B={b} N={n} k={k}",
+                            got, kr.sv_round3_first_plain(pts, f, mode="approx", **kw))
+                if n <= fold:
+                    check_equal(f"sv_round3_first approx{bits} N={n} <= fold: "
+                                "fast ids", (got[3],),
+                                (kr.sv_round3_first(pts, f, emit_wins=True,
+                                                    mode="fast", **kw)[3],))
+            for S, V, S_out, V_out, modes in ((5, 3, 13, 7, (True, False)),
+                                              (64, 21, 128, 42, (True,))):
+                src = select_input(b, n, S + 3 * V, dup, gen, dev)
+                src = src.transpose(1, 2).contiguous()
+                for binary in modes:
+                    f = round_weights(S, V, S_out, V_out, binary, gen, dev)
+                    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k,
+                              binary=binary, mode="approx", T=T)
+                    check_equal(f"sv_round3 approx{bits} B={b} N={n} k={k}",
+                                kr.sv_round3(src, f, emit_wins=True, **kw),
+                                kr.sv_round3_plain(src, f, **kw))
+        log(f"  approx{bits} forced B={b} N={n} k={k} fold={fold} "
+            f"T={T or 'auto'}" + (" ties" if dup else "") + ": B1 (xyz, "
+            "cross) and B2 (binary, fp) bitwise their plain versions"
+            + ("; ids = fast mode's" if n <= fold else ""))
+
+
+def recall(got, want) -> float:
+    """Mean share of each centre's ids (B, k, N) found among ``want``'s."""
+    hit = (got[:, :, None, :] == want[:, None, :, :]).any(dim=2)
+    return hit.float().mean().item()
+
+
+def approx_recall(eng, dev):
+    """Recall of B1's and conv2's approx ids (fold 256, 16 bits) against
+    exact ids on surface clouds (utils/synth.py) at (128, 1024, 20),
+    Morton-sorted and shuffled: printed, not a bar. conv2's input is the
+    exact first round's output on each cloud, gated."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops import morton
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    pts = torch.from_numpy(surface_clouds(SEED + 17, B, N)).to(dev)
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(SEED + 17))
+    S, V, S_out, V_out = eng.rounds["conv2"]
+    kw1 = dict(S_out=32, V_out=10, k=K, emit_wins=True)
+    kw2 = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=K, emit_wins=True)
+    out = {}
+    with approx_knobs(16, FOLD["cls"]):
+        for order, cl in (("sorted", morton.sort_points(pts)[0]),
+                          ("shuffled", pts[:, perm.to(dev)].contiguous())):
+            ex = kr.sv_round3_first(cl, eng.folded_first, **kw1)
+            ap = kr.sv_round3_first(cl, eng.folded_first, mode="approx", **kw1)
+            g = se_gate(eng.p["conv1"], ex[2]).repeat(1, 3)
+            src = torch.cat([ex[0], ex[1] * g[:, :, None]], dim=1).contiguous()
+            ex2 = kr.sv_round3(src, eng.folded["conv2"], **kw2)
+            ap2 = kr.sv_round3(src, eng.folded["conv2"], mode="approx", **kw2)
+            out[order] = (recall(ap[3], ex[3]), recall(ap2[3], ex2[3]))
+    log(f"phase 17: approx recall against exact ids, surface clouds "
+        f"({B}, {N}, {K}), fold {FOLD['cls']}: B1 sorted {out['sorted'][0]:.6f}, "
+        f"shuffled {out['shuffled'][0]:.6f}; conv2 sorted "
+        f"{out['sorted'][1]:.6f}, shuffled {out['shuffled'][1]:.6f} (printed, "
+        "not a bar; JAX's records: about 0.997 sorted at N=1024, k=20, fold 256)")
+    if out["sorted"][0] < out["shuffled"][0]:
+        log("phase 17: NOTE B1's sorted recall is below its shuffled recall")
+
+
+def phase17(eng, pn, dg, w_bin, gen, dev, counters, card):
+    """Approx-mode serving: 5 requests through each of the SV-DGCNN
+    classifier (128, 1024, 3; fold 256), part segmenter (32, 2048, 3; fold
+    512) and SV-PointNet classifier (128, 1024, 3; fold 256) at 16- and
+    8-bit gathers, launches per request checked, top-1 against the approx
+    plain twin; medians beside exact's and fast's; shuffled clouds give
+    the same cls logits and the same un-permuted partseg logits (top-1
+    >= 0.99); then the recall of the approx ids. Returns launches by
+    entry name."""
+    import torch
+
+    from svnet_tpu_torch.infer import (
+        SVDGCNNClsEngine,
+        SVDGCNNPsegEngine,
+        SVPointNetClsEngine,
+    )
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+    from svnet_tpu_torch.ops import morton
+
+    p_pseg = init_params_pseg(PARTS, K_PSEG, True,
+                              torch.Generator().manual_seed(SEED + 12))
+    w_pn = pn["cls"]["weights"]
+    dgcnn = {"sv_round3_first": 1, "sv_round3": 3, "neg_min": 4,
+             "sv_point_block_cm": 1}
+
+    def cls_req():
+        return (cloud(B, N, gen, dev),)
+
+    def pseg_req():
+        return cloud(B_PSEG, N_PSEG, gen, dev), labels(B_PSEG, gen, dev)
+
+    runs = []
+    for bits in (16, 8):
+        runs += [("cls", bits, SVDGCNNClsEngine, w_bin, (CLASSES, K), "phase 3",
+                  cls_req, dgcnn),
+                 ("pseg", bits, SVDGCNNPsegEngine, p_pseg, (PARTS, K_PSEG),
+                  "phase 12", pseg_req, dgcnn),
+                 ("cross", bits, SVPointNetClsEngine, w_pn, (CLASSES, K),
+                  "phase 7", cls_req,
+                  {"sv_round3_first": 1, "neg_min": 1, "sv_block_point": 7})]
+    out = {}
+    for tag, bits, engine, w, args, exact_phase, request, want_per in runs:
+        label = f"phase 17 {tag} approx{bits}"
+        with approx_knobs(bits, FOLD["pseg" if tag == "pseg" else "cls"]):
+            appr = engine(w, *args, True, mode="approx", device=dev)
+            oracle = engine(w, *args, True, mode="approx", device=dev, oracle=True)
+            requests = [request() for _ in range(REQUESTS)]
+            got, want, _, launches = serve(label, appr, oracle, requests,
+                                           counters, want_per, card)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: logits {tuple(got.shape)} not finite")
+            agreement(f"{label}: vs the approx plain engine", got, want)
+            fast_label = f"phase 16 {tag} fast{bits if tag != 'cross' else 16}"
+            log(f"{label}: median {MEDIANS[label]:.3f} ms, fast mode "
+                f"{MEDIANS[fast_label]:.3f} ms ({fast_label}), exact mode "
+                f"{MEDIANS[exact_phase]:.3f} ms ({exact_phase}) | {card}")
+            if tag != "cross" and bits == 16:  # the sorting engines
+                pts = requests[0][0]
+                sort_ms = cuda_ms(lambda: morton.sort_points(pts))
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    morton.sort_points(pts)
+                sync(dev)
+                log(f"{label}: the Morton entry sort of a request: device "
+                    f"{sort_ms:.4f} ms (CUDA events), host {(time.perf_counter() - t0) * 100:.4f} "
+                    f"ms a call (10 calls, synchronized) | {card}")
+                perm = torch.randperm(requests[0][0].shape[1],
+                                      generator=gen).to(dev)
+                shuffled = [(req[0][:, perm].contiguous(), *req[1:])
+                            for req in requests]
+                got_sh = torch.cat([appr(*req) for req in shuffled])
+                if tag == "pseg":  # per-point logits in the shuffled order
+                    got = got.reshape(REQUESTS, B_PSEG, N_PSEG, -1)[:, :, perm]
+                    got = got.reshape(got_sh.shape)
+                agreement(f"{label}: shuffled clouds vs the same clouds", got_sh, got)
+        if tag == "cross":
+            out[approx_name("sv_round3_first cross", bits, "cls")] = \
+                launches["sv_round3_first"]
+            continue
+        out[approx_name("sv_round3_first", bits, tag)] = launches["sv_round3_first"]
+        out[approx_name("sv_round3", bits, tag)] = launches["sv_round3"]
+    approx_recall(eng, dev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2122,6 +2454,7 @@ def main() -> int:
     phase2_pointnet(rep, pn, gen, dev)
     phase2_gather(rep, gen, dev)
     phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev)
+    phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -2235,6 +2568,9 @@ def main() -> int:
     launches.update(phase16(eng, eng_fp, pn, dg, w_bin, w_fp, gen, dev,
                             counters, card))
 
+    # phase 17: approx-mode serving
+    launches.update(phase17(eng, pn, dg, w_bin, gen, dev, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -2281,6 +2617,12 @@ def main() -> int:
             for name in ("sv_round3_first", "sv_round3"):
                 src_of[fast_name(name, bits, tag)] = src_of[name]
     src_of[fast_name("sv_round3_first cross", 16, "cls")] = src_of["sv_round3_first"]
+    for bits in (16, 8):
+        for tag in ("cls", "pseg"):
+            for name in ("sv_round3_first", "sv_round3"):
+                src_of[approx_name(name, bits, tag)] = src_of[name]
+        src_of[approx_name("sv_round3_first cross", bits, "cls")] = \
+            src_of["sv_round3_first"]
     # the TPU kernel takes each key tile's worst distance from its own
     # (N, T) block (_packed_key_t); here a pre-pass kernel does
     for name in ("neg_min", "neg_min pseg"):

@@ -1,12 +1,15 @@
 """Settings the port reads, and the device/precision helpers.
 
-Two of the JAX package's serving modes are ported. "exact": f32-exact
+The JAX package's three serving modes are ported. "exact": f32-exact
 neighbour ordering (sortable-int key of the f32 distance, ties to the
 minimum row id) and f32 arithmetic throughout. "fast", on the round3
 trunk only (B1, B2): 18-bit packed distance keys per key tile and a
 fixed-point gather grid of ``fast_gather_bits`` (ops/kernels/quant.py).
-Approx mode and the other serving knobs (svnet_tpu/config.py) are not
-ported yet.
+"approx", on the round3 trunk only: fast's keys folded to
+``approx_fold`` candidate lanes by key max before the top-k, a gather
+grid of ``approx_gather_bits``, and the SV-DGCNN engines' Morton entry
+sort (``morton_entry`` forces the sort in any mode). The other serving
+knobs (svnet_tpu/config.py) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +18,11 @@ import torch
 
 EPS = 1e-6  # VectorBN norm epsilon (svnet_tpu/nn/sv_layers.py:34)
 BN_EPS = 1e-5  # BatchNorm epsilon (torch BN1d default)
-MODES = ("exact", "fast")
+MODES = ("exact", "fast", "approx")
 fast_gather_bits: int = 16  # fast mode's gather grid: 16 or 8 bits
+approx_fold: int = 256  # approx mode's folded candidate width
+approx_gather_bits: int = 16  # approx mode's gather grid: 16 or 8 bits
+morton_entry: bool = False  # SV-DGCNN engines Morton-sort at entry
 
 
 def set_fast_gather_bits(bits: int) -> None:
@@ -29,9 +35,36 @@ def set_fast_gather_bits(bits: int) -> None:
     fast_gather_bits = bits
 
 
+def set_approx_fold(width: int) -> None:
+    """Approx mode's fold width (svnet_tpu/config.py::set_approx_fold):
+    the candidate keys are halved by key max while wider than ``width``
+    (quant.fold_width); at least 64 and even."""
+    global approx_fold
+    if width < 64 or width % 2:
+        raise ValueError(f"approx_fold must be even and >= 64, got {width}")
+    approx_fold = width
+
+
+def set_approx_gather_bits(bits: int) -> None:
+    """Approx mode's gather grid, 16 or 8 bits, as fast mode's
+    (set_fast_gather_bits); it also moves the key tile T."""
+    global approx_gather_bits
+    if bits not in (8, 16):
+        raise ValueError(f"approx_gather_bits must be 8 or 16, got {bits}")
+    approx_gather_bits = bits
+
+
+def set_morton_entry(on: bool) -> None:
+    """Morton-sort the cloud at the SV-DGCNN engines' entry on the round3
+    trunk in every mode, not only in approx mode
+    (svnet_tpu/config.py::set_morton_entry)."""
+    global morton_entry
+    morton_entry = bool(on)
+
+
 def check_mode(mode: str, trunk: str = "round3") -> str:
-    """``mode`` if it is ported on ``trunk``: exact everywhere, fast on
-    the round3 trunk (B1, B2) only."""
+    """``mode`` if it is ported on ``trunk``: exact everywhere, fast and
+    approx on the round3 trunk (B1, B2) only."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported; supported: {MODES}")
     if mode != "exact" and trunk != "round3":

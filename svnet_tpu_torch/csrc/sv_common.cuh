@@ -1,9 +1,9 @@
 // Shared device code of the round kernels (sv_rounds.cuh, for
 // sv_round3_first.cu, sv_round3.cu and sv_round2.cu) and the point block
 // (sv_point.cu): the kNN selection kernel over a channel-major (B, C, N)
-// or a row-major (B, N, C) source, by exact mode's key or fast mode's, the
-// fast key's pre-pass (each centre's farthest candidate), a shared-memory
-// block GEMM, and small helpers.
+// or a row-major (B, N, C) source, by exact mode's key, fast mode's or
+// approx mode's folded one, the fast key's pre-pass (each centre's
+// farthest candidate), a shared-memory block GEMM, and small helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,17 +59,35 @@ static __device__ __forceinline__ unsigned sv_ukey(float neg) {
 // (ops/kernels/quant.py::packed_keys), with the sign bit flipped so the
 // unsigned order is q's. The JAX package packs q with the row into one
 // int32 (q * 2^ib + 2^ib - 1 - row); sv_pack below gives the same order.
-// A null scale selects exact mode's key.
+// A null scale selects exact mode's key. Approx mode folds the candidates
+// to L lanes (sv_approx_key below); L = 0: no fold.
 struct SvKeyTiles {
   const float* scale;  // (B, N / T)
   int T;
   float qlo, qhi;
+  int L, ib;  // approx mode's fold width; the packed key's row bits
 };
 
 static __device__ __forceinline__ unsigned sv_fast_ukey(float neg, float scale,
                                                         float qlo, float qhi) {
   const float q = fminf(fmaxf(floorf(__fmul_rn(neg, scale)), qlo), qhi);
   return ((unsigned)(int)q) ^ 0x80000000u;
+}
+
+// Approx mode's key (sv_round3.py:199-234): the JAX package's packed int32
+// q * 2^ib + (2^ib - 1 - row), its sign bit flipped so that the unsigned
+// order is the int32 order. It holds the row, so the largest of a residue
+// class mod L also says which row won. No key is 0: q >= qlo > -2^(31-ib).
+static __device__ __forceinline__ unsigned sv_approx_key(float neg, float scale,
+                                                         float qlo, float qhi,
+                                                         int row, int ib) {
+  const int q = (int)fminf(fmaxf(floorf(__fmul_rn(neg, scale)), qlo), qhi);
+  return (((unsigned)q << ib) + (unsigned)(((1 << ib) - 1) - row)) ^ 0x80000000u;
+}
+
+// The row of an approx key (its low ib bits).
+static __device__ __forceinline__ int sv_approx_row(unsigned key, int ib) {
+  return ((1 << ib) - 1) - (int)(key & ((1u << ib) - 1u));
 }
 
 // (key, row) packed into one unique value: the low word is N-1-row, so
@@ -144,6 +162,19 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
 // Winners go to wins (B, k, N), rank-major like the JAX kernel's emit_wins
 // output, or (B, N, k) point-major. Fast mode only changes the key a
 // distance becomes (sv_fast_ukey): its packed keys are unique too.
+//
+// Approx mode (FOLD) ranks L folded lanes, not N rows: lane i holds the
+// largest approx key (sv_approx_key) of the rows i + t*L, t < N / L
+// (_build_key_t's repeated halving max). The candidates stream in tiles
+// of 128 lanes: for each tile the distance stage runs once per row set
+// t on rows t*L + m0 .. t*L + m0 + 127, and each thread folds its keys
+// into the tile's running maxima in shared memory (its own 4 lanes of
+// each of its warp's 8 centres, so no barrier; lanes at or past L stay
+// 0, below every key), kept beside the staged chunks (SEL_FOLD_BYTES);
+// the maxima then go into the lists as above, packed with the row they
+// carry. Folded keys never reach device memory; the distance work is
+// that of fast mode (L rounded up to 128, N / L times), the list work L
+// keys a centre instead of N.
 #define SEL_WARPS 8
 #define SEL_TC (8 * SEL_WARPS)  // centres per block
 #define SEL_TM 128              // candidates per tile, 4 per lane
@@ -156,8 +187,13 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
        ? SEL_KC * (SEL_CS + SEL_MS) * 4                                  \
        : SEL_TC * SEL_TM * 4)
 
-static size_t sv_select_smem(int kw) {
-  return SEL_STAGE_BYTES + (size_t)SEL_TC * (32 * kw + 1) * sizeof(sv_u64);
+// approx mode (FOLD) keeps the tile's keys beside the staged chunks, not
+// over them: its running maxima outlive the row sets' staging
+#define SEL_FOLD_BYTES (SEL_KC * (SEL_CS + SEL_MS) * 4 + SEL_TC * SEL_TM * 4)
+
+static size_t sv_select_smem(int kw, bool fold) {
+  return (fold ? SEL_FOLD_BYTES : SEL_STAGE_BYTES) +
+         (size_t)SEL_TC * (32 * kw + 1) * sizeof(sv_u64);
 }
 
 // dst[cc * (ROWS + 4) + t] = channel c0 + cc of row r0 + t (0 past N), for
@@ -288,8 +324,9 @@ static __device__ __forceinline__ void sv_tile_inner(
   }
 }
 
-// FAST: fast mode's key on the tiles' scales (SvKeyTiles), else exact's.
-template <bool ROW, int KW, bool FAST>
+// FAST: fast mode's key on the tiles' scales (SvKeyTiles), else exact's;
+// FOLD (with FAST): approx mode's folded lanes.
+template <bool ROW, int KW, bool FAST, bool FOLD>
 static __global__ void __launch_bounds__(SEL_WARPS * 32, 3)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
@@ -297,8 +334,12 @@ sv_knn_select_kernel(const float* __restrict__ src,
   extern __shared__ __align__(16) unsigned char sv_smem[];
   float* ctr_s = (float*)sv_smem;           // (SEL_KC, SEL_CS) centres
   float* cand_s = ctr_s + SEL_KC * SEL_CS;  // (SEL_KC, SEL_MS) candidates
-  unsigned* keys_s = (unsigned*)sv_smem;    // (SEL_TC, SEL_TM) a tile's keys
-  sv_u64* lists = (sv_u64*)(sv_smem + SEL_STAGE_BYTES);  // (SEL_TC, 32 KW)
+  // (SEL_TC, SEL_TM) a tile's keys: over the staged chunks, or (FOLD)
+  // beside them
+  unsigned* keys_s =
+      (unsigned*)(sv_smem + (FOLD ? SEL_KC * (SEL_CS + SEL_MS) * 4 : 0));
+  sv_u64* lists =  // (SEL_TC, 32 KW)
+      (sv_u64*)(sv_smem + (FOLD ? SEL_FOLD_BYTES : SEL_STAGE_BYTES));
   sv_u64* upper = lists + SEL_TC * 32 * KW;              // (SEL_TC)
   const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -322,35 +363,69 @@ sv_knn_select_kernel(const float* __restrict__ src,
   for (int r0 = 0; r0 < k; r0 += 32 * KW) {
     const int kc = min(32 * KW, k - r0);
     for (int i = lane; i < 8 * 32 * KW; i += 32) wlist[i] = 0ull;
+    const int M = FOLD ? kt.L : N;  // what a centre ranks: lanes or rows
     // block-uniform trip counts: every warp reaches every __syncthreads
-    for (int m0 = 0; m0 < N; m0 += SEL_TM) {
-      float acc[8][4];
-      sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
-      float cand_sq[4];
+    for (int m0 = 0; m0 < M; m0 += SEL_TM) {
+      if constexpr (FOLD) {
+        // lane m0 + 4 * lane + j of each centre: the largest key over its
+        // rows base + 4 * lane + j, base = m0 + t * L
+        for (int base = m0; base < N; base += kt.L) {
+          float acc[8][4];
+          sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, base, t0, lane, N, C);
+          float cand_sq[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + 4 * lane + j;
-        cand_sq[j] = m < N ? a[m] : 0.f;
-      }
-      __syncthreads();  // every warp is done with the staged chunk
+          for (int j = 0; j < 4; ++j)
+            cand_sq[j] = m0 + 4 * lane + j < kt.L ? a[base + 4 * lane + j] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        unsigned kv[4];
-        float scale = 0.f;
-        if constexpr (FAST) {
-          const int n = n0 + t0 + i;
-          scale = n < N ? wscale[n / kt.T] : 0.f;
+          for (int i = 0; i < 8; ++i) {
+            const int n = n0 + t0 + i;
+            const float scale = n < N ? wscale[n / kt.T] : 0.f;
+            uint4* slot = (uint4*)(wkeys + i * SEL_TM + 4 * lane);
+            unsigned kv[4] = {0u, 0u, 0u, 0u};
+            if (base != m0) {
+              const uint4 was = *slot;
+              kv[0] = was.x, kv[1] = was.y, kv[2] = was.z, kv[3] = was.w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (m0 + 4 * lane + j >= kt.L) continue;
+              const unsigned key = sv_approx_key(
+                  sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq[j]), scale, kt.qlo,
+                  kt.qhi, base + 4 * lane + j, kt.ib);
+              kv[j] = key > kv[j] ? key : kv[j];
+            }
+            *slot = make_uint4(kv[0], kv[1], kv[2], kv[3]);
+          }
         }
+      } else {
+        float acc[8][4];
+        sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
+        float cand_sq[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float neg = sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq[j]);
-          if constexpr (FAST)
-            kv[j] = sv_fast_ukey(neg, scale, kt.qlo, kt.qhi);
-          else
-            kv[j] = sv_ukey(neg);
+          const int m = m0 + 4 * lane + j;
+          cand_sq[j] = m < N ? a[m] : 0.f;
         }
-        *(uint4*)(wkeys + i * SEL_TM + 4 * lane) =
-            make_uint4(kv[0], kv[1], kv[2], kv[3]);
+        __syncthreads();  // every warp is done with the staged chunk
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          unsigned kv[4];
+          float scale = 0.f;
+          if constexpr (FAST) {
+            const int n = n0 + t0 + i;
+            scale = n < N ? wscale[n / kt.T] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float neg = sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq[j]);
+            if constexpr (FAST)
+              kv[j] = sv_fast_ukey(neg, scale, kt.qlo, kt.qhi);
+            else
+              kv[j] = sv_ukey(neg);
+          }
+          *(uint4*)(wkeys + i * SEL_TM + 4 * lane) =
+              make_uint4(kv[0], kv[1], kv[2], kv[3]);
+        }
       }
       __syncwarp();
 #pragma unroll 1
@@ -365,7 +440,11 @@ sv_knn_select_kernel(const float* __restrict__ src,
 #pragma unroll 1
         for (int j = 0; j < SEL_TM; j += 32) {
           const int m = m0 + j + lane;
-          const sv_u64 v = m < N ? sv_pack(wkeys[i * SEL_TM + j + lane], m, N) : 0ull;
+          sv_u64 v = 0ull;
+          if (m < M) {
+            const unsigned key = wkeys[i * SEL_TM + j + lane];
+            v = sv_pack(key, FOLD ? sv_approx_row(key, kt.ib) : m, N);
+          }
           const bool pass = v > T && v < up;
           unsigned mask = __ballot_sync(0xffffffffu, pass);
           if (__popc(mask) > SEL_SERIAL) {
@@ -403,18 +482,18 @@ sv_knn_select_kernel(const float* __restrict__ src,
   }
 }
 
-template <bool ROW, int KW, bool FAST>
+template <bool ROW, int KW, bool FAST, bool FOLD>
 static cudaError_t sv_knn_select_launch(const float* src, const float* aa,
                                         int* wins, int B, int N, int C, int k,
                                         cudaStream_t stream, bool point_major,
                                         SvKeyTiles kt) {
-  const size_t smem = sv_select_smem(KW);
+  const size_t smem = sv_select_smem(KW, FOLD);
   cudaError_t err = cudaFuncSetAttribute(
-      sv_knn_select_kernel<ROW, KW, FAST>,
+      sv_knn_select_kernel<ROW, KW, FAST, FOLD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
-  sv_knn_select_kernel<ROW, KW, FAST><<<grid, SEL_WARPS * 32, smem, stream>>>(
+  sv_knn_select_kernel<ROW, KW, FAST, FOLD><<<grid, SEL_WARPS * 32, smem, stream>>>(
       src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1, kt);
   return cudaGetLastError();
 }
@@ -429,17 +508,17 @@ static cudaError_t sv_sqnorm(const float* src, float* aa, int B, int N, int C,
   return cudaGetLastError();
 }
 
-template <bool ROW, bool FAST>
+template <bool ROW, bool FAST, bool FOLD = false>
 static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
                                    int B, int N, int C, int k,
                                    cudaStream_t stream, bool point_major,
                                    SvKeyTiles kt) {
   cudaError_t err = sv_sqnorm<ROW>(src, aa, B, N, C, stream);
   if (err != cudaSuccess) return err;
-  return k <= 32 ? sv_knn_select_launch<ROW, 1, FAST>(src, aa, wins, B, N, C, k,
-                                                      stream, point_major, kt)
-                 : sv_knn_select_launch<ROW, 2, FAST>(src, aa, wins, B, N, C, k,
-                                                      stream, point_major, kt);
+  return k <= 32 ? sv_knn_select_launch<ROW, 1, FAST, FOLD>(
+                       src, aa, wins, B, N, C, k, stream, point_major, kt)
+                 : sv_knn_select_launch<ROW, 2, FAST, FOLD>(
+                       src, aa, wins, B, N, C, k, stream, point_major, kt);
 }
 
 // Row bits of fast mode's packed key at N rows (quant.py::idx_bits).
@@ -453,18 +532,29 @@ static int sv_idx_bits(int N) {
 // row-major (B, N, C) one when row_major. aa is a (B, N) scratch buffer the
 // wrapper allocated. wins is (B, k, N), or (B, N, k) when point_major.
 // With tile_scale (B, N / T), fast mode's key on tiles of T centres
-// (SvKeyTiles), else exact mode's.
+// (SvKeyTiles), else exact mode's; with a fold width L > 0 too, approx
+// mode's: N / L a power of two (N halves evenly down to L) and k <= L.
 static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
                                  int B, int N, int C, int k,
                                  cudaStream_t stream, bool point_major = false,
                                  bool row_major = false,
-                                 const float* tile_scale = nullptr, int T = 0) {
+                                 const float* tile_scale = nullptr, int T = 0,
+                                 int L = 0) {
   if (k > N || k < 1 || C < 1) return cudaErrorInvalidValue;
   const int ib = sv_idx_bits(N);
   SvKeyTiles kt{tile_scale, T, (float)(-(1 << (18 < 31 - ib ? 18 : 31 - ib)) + 1),
-                (float)((1 << (31 - ib)) - 1)};
+                (float)((1 << (31 - ib)) - 1), L, ib};
   if (tile_scale != nullptr && (T < 1 || N % T != 0 || ib > 30))
     return cudaErrorInvalidValue;
+  if (L != 0) {
+    if (tile_scale == nullptr || L < 1 || k > L || N % L != 0 ||
+        ((N / L) & (N / L - 1)) != 0)
+      return cudaErrorInvalidValue;
+    return row_major ? sv_knn_select_t<true, true, true>(src, aa, wins, B, N, C, k,
+                                                         stream, point_major, kt)
+                     : sv_knn_select_t<false, true, true>(src, aa, wins, B, N, C, k,
+                                                          stream, point_major, kt);
+  }
   if (tile_scale != nullptr)
     return row_major ? sv_knn_select_t<true, true>(src, aa, wins, B, N, C, k,
                                                    stream, point_major, kt)

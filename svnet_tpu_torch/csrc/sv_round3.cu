@@ -1,4 +1,4 @@
-// One SV-DGCNN conv round, exact or fast mode, on Hopper.
+// One SV-DGCNN conv round, exact, fast or approx mode, on Hopper.
 //
 // Replaces svnet_tpu/ops/pallas/sv_round3.py::sv_round3 (kernel
 // _round3_kernel, selection _select_rows / _build_key_t): kNN over the
@@ -32,7 +32,9 @@
 // scales come from knn.cu's pre-pass and quant.py::tile_scales) and feeds
 // the block a second source, the rows through the gather grid; the TPU's
 // saving, half the one-hot gather planes, has no counterpart here, where
-// a neighbour is one row read.
+// a neighbour is one row read. Approx mode (sv_round3.py:209-234) is fast
+// mode with the selection's candidates folded to L lanes by key max
+// before the top k (sv_common.cuh); its grid is 16 or 8 bits as fast's.
 #include "sv_rounds.cuh"
 
 // src (B, N, S+3V) row-major [s | v i-major] (the wrapper's copy of the
@@ -43,15 +45,16 @@
 // the edge scalars over the ranks, wins (B, k, N). Fast mode: src_q
 // (B, N, S+3V) the block's rows through the gather grid, tile_scale
 // (B, N / T) the key tiles' scales; exact mode passes both null and T = 0.
+// L: approx mode's fold width, 0 in the other modes.
 extern "C" int sv_round3_launch(
     const float* src, float* aa, const float* wz, const float* w1,
     const float* beta, const float* a1, const float* b1, const float* w2,
     const float* scale2, const float* a2, const float* b2, float* s_out,
     float* v_out, float* ssum, int* wins, const float* src_q,
     const float* tile_scale, int B, int N, int S, int V, int S_out, int V_out,
-    int k, int binary, int T, void* stream) {
+    int k, int binary, int T, int L, void* stream) {
   return sv_conv_round<false>(src, aa, wz, w1, beta, a1, b1, w2, scale2, a2,
                               b2, s_out, v_out, ssum, wins, B, N, S, V, S_out,
                               V_out, k, binary, (cudaStream_t)stream, src_q,
-                              tile_scale, T);
+                              tile_scale, T, L);
 }

@@ -1,4 +1,4 @@
-// First SV-DGCNN / SV-PointNet round, exact or fast mode, on Hopper.
+// First SV-DGCNN / SV-PointNet round, exact, fast or approx mode, on Hopper.
 //
 // Replaces svnet_tpu/ops/pallas/sv_round3.py::sv_round3_first (kernel
 // _round3_first_kernel): xyz kNN (sortable-int key, min-row tie-break),
@@ -25,7 +25,8 @@
 //
 // Fast mode: the selection ranks by the packed key on the key tiles'
 // scales (sv_round3.cu), and the block reads the points through the
-// gather grid (centres too, so a self-edge is 0).
+// gather grid (centres too, so a self-edge is 0). Approx mode: the same,
+// with the selection's candidates folded to L lanes (sv_common.cuh).
 #include "sv_rounds.cuh"
 
 // pts (B, 3, N) channel-major; aa (B, N) scratch; wins (B, k, N) out;
@@ -35,15 +36,16 @@
 // (n_ch, V_out)); V_out is 10 or 16, anything else is refused. Fast mode:
 // pts_q (B, 3, N) the points through the gather grid, tile_scale
 // (B, N / T) the key tiles' scales; exact mode passes both null and T = 0.
+// L: approx mode's fold width, 0 in the other modes.
 extern "C" int sv_round3_first_launch(
     const float* pts, float* aa, const float* wz0, const float* wz1,
     const float* w1, const float* a1, const float* b1, const float* w2,
     const float* a2, const float* b2, float* s_out, float* v_out,
     float* ssum, int* wins, const float* pts_q, const float* tile_scale,
-    int B, int N, int k, int S_out, int V_out, int cross, int T,
+    int B, int N, int k, int S_out, int V_out, int cross, int T, int L,
     void* stream) {
   return sv_first_round<false>(pts, aa, wz0, wz1, w1, a1, b1, w2, a2, b2,
                                s_out, v_out, ssum, wins, B, N, k, S_out,
                                V_out, cross, (cudaStream_t)stream, pts_q,
-                               tile_scale, T);
+                               tile_scale, T, L);
 }

@@ -285,6 +285,7 @@ static int sv_first_block(const float* pts, const int* wins, const float* wz0,
 // (tile_scale (B, N / T), sv_knn_select) selects on the raw points and
 // runs the block on pts_q, the points through the gather grid (neighbours
 // and centres alike, so a self-edge is 0); exact mode leaves pts_q null.
+// Approx mode is fast mode with the fold width L > 0.
 template <bool ROW>
 static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           const float* wz1, const float* w1, const float* a1,
@@ -293,12 +294,13 @@ static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           float* ssum, int* wins, int B, int N, int k,
                           int S_out, int V_out, int cross, cudaStream_t st,
                           const float* pts_q = nullptr,
-                          const float* tile_scale = nullptr, int T = 0) {
+                          const float* tile_scale = nullptr, int T = 0,
+                          int L = 0) {
   if (S_out != F_S_OUT || (V_out != 10 && V_out != 16))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(pts, aa, wins, B, N, 3, k, st,
                                   /*point_major=*/ROW, /*row_major=*/ROW,
-                                  tile_scale, T);
+                                  tile_scale, T, L);
   if (err != cudaSuccess) return (int)err;
   return sv_first_block<ROW>(pts_q ? pts_q : pts, wins, wz0, wz1, w1, a1, b1,
                              w2, a2, b2, s_out, v_out, ssum, B, N, k, S_out,
@@ -751,7 +753,8 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
 // kernel; ROW picks the ids' and outputs' layout (else (B, k, N) ids and
 // channel-major outputs). Fast mode (tile_scale (B, N / T)) selects on the
 // raw source and runs the block on src_q, the source through the gather
-// grid (row-major too); exact mode leaves src_q null.
+// grid (row-major too); exact mode leaves src_q null. Approx mode is fast
+// mode with the fold width L > 0.
 template <bool ROW>
 static int sv_conv_round(const float* src, float* aa, const float* wz,
                          const float* w1, const float* beta, const float* a1,
@@ -760,12 +763,13 @@ static int sv_conv_round(const float* src, float* aa, const float* wz,
                          float* v_out, float* ssum, int* wins, int B, int N,
                          int S, int V, int S_out, int V_out, int k, int binary,
                          cudaStream_t st, const float* src_q = nullptr,
-                         const float* tile_scale = nullptr, int T = 0) {
+                         const float* tile_scale = nullptr, int T = 0,
+                         int L = 0) {
   if (rb_layout(S, V, S_out, V_out, binary).total > SV_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(src, aa, wins, B, N, S + 3 * V, k, st,
                                   /*point_major=*/ROW, /*row_major=*/true,
-                                  tile_scale, T);
+                                  tile_scale, T, L);
   if (err != cudaSuccess) return (int)err;
   return sv_conv_block<ROW, false>(src_q ? src_q : src, wins, nullptr, wz, w1,
                                    beta, a1, b1, w2, scale2, a2, b2, s_out,

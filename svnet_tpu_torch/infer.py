@@ -1,6 +1,7 @@
-"""Fused eval engines, exact and fast mode: SV-DGCNN classification and part
-segmentation (counterparts of svnet_tpu/infer.py:227-855) and SV-PointNet
-classification and part segmentation (svnet_tpu/infer.py:857-1167).
+"""Fused eval engines, exact, fast and approx mode: SV-DGCNN classification
+and part segmentation (counterparts of svnet_tpu/infer.py:227-855) and
+SV-PointNet classification and part segmentation
+(svnet_tpu/infer.py:857-1167).
 
 The SV-DGCNN engines run one of four trunks, chosen by ``rounds_impl``:
 
@@ -40,6 +41,14 @@ stage launches its kernel; on the CPU the kernels' plain versions run.
 the conv rounds (B1, B2: packed distance keys per key tile, the gather
 grid; ops/kernels/sv_round3.py) and nothing else, so it is taken on the
 round3 trunk and by the SV-PointNet engines; the other trunks refuse it.
+``mode="approx"`` (JAX's certified serving pick) also folds each
+centre's candidates before the top k (``config.approx_fold``), gathers
+through ``config.approx_gather_bits``' grid, and on the SV-DGCNN
+engines' round3 trunk Morton-sorts the cloud at entry (ops/morton.py;
+``config.morton_entry`` sorts in every mode), as svnet_tpu/infer.py:56-77
+does: the classifier's pooling does not see the order, and the part
+segmenter puts its per-point logits back in the input's order. The
+SV-PointNet engines never sort, as the JAX engines do not.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from svnet_tpu_torch import config, ops
 from svnet_tpu_torch.config import BN_EPS, EPS
 from svnet_tpu_torch.nn.sv_layers import binary_matmul
 from svnet_tpu_torch.models.sv_dgcnn import PSEG_DIMS
+from svnet_tpu_torch.ops import morton
 from svnet_tpu_torch.ops.kernels.fold import (
     fold_first_params,
     fold_point_like_params,
@@ -349,6 +359,15 @@ class _DGCNNEngine:
                 f"points must be float32 on {self.device}, got "
                 f"{points.dtype} on {points.device}")
 
+    def _entry_sort(self, points: torch.Tensor):
+        """(points, order): the cloud Morton-sorted on the round3 trunk in
+        approx mode or with ``config.morton_entry`` (svnet_tpu/infer.py:56-77,
+        :410, :765), else as given with order None."""
+        if self.trunk != "round3" or not (self.mode == "approx"
+                                          or config.morton_entry):
+            return points, None
+        return morton.sort_points(points)
+
     def _trunk(self, points: torch.Tensor):
         """The four rounds, each round's v gated. round3: s (B, S_c, N) and
         v (B, 3V_c, N) as per-round j-major blocks; the row-major trunks:
@@ -390,7 +409,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
     default), the legacy row-major "round2", "round" (kernel B10a) or
     "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact", or
-    "fast" on the round3 trunk.
+    "fast" or "approx" on the round3 trunk (approx Morton-sorts the
+    cloud first).
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
@@ -424,7 +444,8 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     def __call__(self, points: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) float32 points -> (B, num_classes) logits."""
         self._check(points)
-        return self._tail(self._conv5(*self._trunk(points.contiguous()))[0])
+        points, _ = self._entry_sort(points.contiguous())  # pooling: order-free
+        return self._tail(self._conv5(*self._trunk(points))[0])
 
 
 class SVDGCNNPsegEngine(_DGCNNEngine):
@@ -514,10 +535,11 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
             raise ValueError(f"label: expected (B, 16) float32 on {self.device}"
                              f", got {tuple(label.shape)} {label.dtype} on "
                              f"{label.device}")
-        s, v = self._trunk(points.contiguous())
         if self.row_major:
-            return self._tail_rows(label, s, v)
-        return self._tail_cm(label, s, v)
+            return self._tail_rows(label, *self._trunk(points.contiguous()))
+        points, order = self._entry_sort(points.contiguous())
+        out = self._tail_cm(label, *self._trunk(points))
+        return out if order is None else morton.unsort(out, order)
 
 
 # the SV-PointNet engines' per-point SVBlocks, in call order:
@@ -626,7 +648,8 @@ class _PointNetEngine:
 
 
 class SVPointNetClsEngine(_PointNetEngine):
-    """SV-PointNet classification, exact or fast mode. Build from a weight tree
+    """SV-PointNet classification, exact, fast or approx mode (no entry
+    sort, as in the JAX engine). Build from a weight tree
     (``models.sv_pointnet.init_params`` or ``utils.convert.from_flax``);
     call on (B, N, 3) float32 points on ``device``, the card unless the
     caller passes ``device="cpu"``. ``oracle=True`` runs the kernels' plain
@@ -662,8 +685,8 @@ class SVPointNetClsEngine(_PointNetEngine):
 
 
 class SVPointNetPsegEngine(_PointNetEngine):
-    """SV-PointNet part segmentation, exact or fast mode; built and placed as
-    ``SVPointNetClsEngine``. Call on (B, N, 3) points and the (B, 16)
+    """SV-PointNet part segmentation, exact, fast or approx mode; built and
+    placed as ``SVPointNetClsEngine``. Call on (B, N, 3) points and the (B, 16)
     one-hot object category; returns (B, N, num_part) logits."""
 
     def __init__(self, weights: dict, num_part: int = 50, k: int = 40,

@@ -37,17 +37,17 @@ _I = ctypes.c_int
 # cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
 SIGNATURES = {
     # pts, aa, 8 weights, s_out, v_out, ssum, wins, pts_q, tile_scale; B N
-    # k S_out V_out cross T; stream
-    "sv_round3_first_launch": [_P] * 16 + [_I] * 7 + [_P],
+    # k S_out V_out cross T L; stream
+    "sv_round3_first_launch": [_P] * 16 + [_I] * 8 + [_P],
     # src, aa, 9 weights, s_out, v_out, ssum, wins, src_q, tile_scale; B N S
-    # V S_out V_out k binary T; stream
-    "sv_round3_launch": [_P] * 17 + [_I] * 9 + [_P],
+    # V S_out V_out k binary T L; stream
+    "sv_round3_launch": [_P] * 17 + [_I] * 10 + [_P],
     # src, gate, vrow, 10 weights and W1's packed signs (after w1), x_out,
     # smax, vsum; B N S V S_out V_out binary; stream
     "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],
     # the row-major twins: sv_round2_first_launch and sv_round2_launch as
-    # the round3 entry points in exact mode (without the last two pointers
-    # and T), sv_point_rm_launch as
+    # the round3 entry points in exact mode (without the last two pointers,
+    # T and L), sv_point_rm_launch as
     # sv_point_launch without vrow
     "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],

@@ -1,5 +1,5 @@
-"""Fast mode's quantization, the port's own copy of the JAX package's
-(svnet_tpu/ops/pallas/sv_round3.py and sv_round2.py).
+"""Fast and approx mode's quantization, the port's own copy of the JAX
+package's (svnet_tpu/ops/pallas/sv_round3.py and sv_round2.py).
 
 Fast mode changes two things in a round, and both are part of its result:
 
@@ -12,6 +12,12 @@ Fast mode changes two things in a round, and both are part of its result:
   per-channel symmetric fixed-point grid over the whole batch, 16 bits
   (``config.fast_gather_bits = 16``) or 8 (``grid_rows``), so a self-edge
   is exactly zero.
+
+Approx mode takes fast's keys and folds them (``fold_width``,
+``fold_keys``): a centre's N candidate keys are halved by key max down to
+L <= ``config.approx_fold`` lanes, lane i the best of the rows m = i mod
+L, before the top-k; its grid's bits are ``config.approx_gather_bits``
+(``gb8``).
 
 Everything here is plain tensor code, run as is on every device: the
 kernels take its results (the grid's rows, the tiles' scales) as inputs.
@@ -77,6 +83,44 @@ def key_rows(keys: torch.Tensor, M: int) -> torch.Tensor:
     return ((1 << ib) - 1) - (keys & ((1 << ib) - 1))
 
 
+def gb8(mode: str) -> bool:
+    """True where ``mode`` gathers through the 8-bit grid (``_gb8``,
+    sv_round3.py:120-127): the one source of a round's grid bits and of
+    the plane count in its key tile T."""
+    return ((mode == "approx" and config.approx_gather_bits == 8)
+            or (mode == "fast" and config.fast_gather_bits == 8))
+
+
+def gather_bits(mode: str) -> int:
+    """The gather grid's bits of a fast or approx round."""
+    return 8 if gb8(mode) else 16
+
+
+def fold_width(N: int, k: int = 1) -> int:
+    """Approx mode's folded candidate width L (``_build_key_t``,
+    sv_round3.py:209-234): N halved while above ``config.approx_fold``.
+    Raises where the JAX package asserts (an odd width to halve) and for
+    k > L, where its top k would decode empty lanes into rows."""
+    w = N
+    while w > config.approx_fold:
+        if w % 2:
+            raise ValueError(f"approx fold: width {w} (of N={N}) is odd; "
+                             f"N must halve evenly to <= {config.approx_fold}")
+        w //= 2
+    if k > w:
+        raise ValueError(f"approx mode: k={k} above the folded width L={w} "
+                         f"(N={N}, approx_fold={config.approx_fold})")
+    return w
+
+
+def fold_keys(keys: torch.Tensor, L: int) -> torch.Tensor:
+    """(..., N) packed keys -> (..., L): lane i the largest key over the
+    rows m = i mod L, which the repeated halving max of ``_build_key_t``
+    gives; the key embeds its row, so the lane also says which row won."""
+    N = keys.shape[-1]
+    return keys.reshape(*keys.shape[:-1], N // L, L).amax(dim=-2)
+
+
 def grid_codes(x: torch.Tensor, bits: int):
     """Channels-last x (..., C) -> (int16 codes, f32 inv (C,)) of the
     gather grid over every row of the batch: ``scale = 32704 / amax``
@@ -95,11 +139,11 @@ def grid_codes(x: torch.Tensor, bits: int):
     return q.to(torch.int16), torch.reciprocal(scale)
 
 
-def grid_rows(x: torch.Tensor, bits: int | None = None) -> torch.Tensor:
-    """x (..., C) through the gather grid: ``float(code) * inv``, what the
-    block reads for neighbours and centres alike. ``bits`` defaults to
-    ``config.fast_gather_bits``."""
-    q, inv = grid_codes(x, config.fast_gather_bits if bits is None else bits)
+def grid_rows(x: torch.Tensor, mode: str = "fast") -> torch.Tensor:
+    """x (..., C) through ``mode``'s gather grid (``gather_bits``):
+    ``float(code) * inv``, what the block reads for neighbours and centres
+    alike."""
+    q, inv = grid_codes(x, gather_bits(mode))
     return q.to(torch.float32) * inv
 
 
@@ -111,11 +155,10 @@ def round3_tiles(N: int, C: int, mode: str) -> int:
     """The key tile T of a round over C channels: the JAX package's
     ``_round3_tiles(...)[0]`` (sv_round3.py:860-893, no graph reuse; its
     other widths do not reach T) under its ~11 MB VMEM budget, the
-    gather's planes (4 exact, 2 fast, 1 with 8-bit fast gathers) in its
-    fixed part; T = N where no tile of 128-512 divides N."""
+    gather's planes (4 exact, 2 fast or approx, 1 with 8-bit gathers,
+    ``gb8``) in its fixed part; T = N where no tile of 128-512 divides N."""
     budget = 11 * 1024 * 1024
-    nplanes = 4 if mode == "exact" else (
-        1 if config.fast_gather_bits == 8 else 2)
+    nplanes = 4 if mode == "exact" else (1 if gb8(mode) else 2)
     fixed = N * C * 4 * 2 + N * nplanes * plane_stride(C)
     per_t = N * 4 * (5 if mode == "exact" else 4)
     T = max(128, (budget // 2 - fixed) // max(per_t, 1) // 128 * 128)

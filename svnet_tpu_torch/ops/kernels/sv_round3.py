@@ -1,4 +1,4 @@
-"""Fused SV-DGCNN rounds, exact and fast mode (counterparts of
+"""Fused SV-DGCNN rounds, exact, fast and approx mode (counterparts of
 svnet_tpu/ops/pallas/sv_round3.py::sv_round3_first and ::sv_round3).
 
 Each wrapper keeps the JAX function's channel-major contract: the conv
@@ -24,6 +24,13 @@ block on the features through the gather grid of
 ``config.fast_gather_bits``. On a CUDA tensor the tiles' scales come
 from the pre-pass kernel (``ops.kernels.knn.neg_min``), then the round's
 kernel runs; nothing falls back to the plain version.
+
+``mode="approx"`` takes fast's keys and folds each centre's N candidates
+to L = ``quant.fold_width(N)`` lanes by key max before the top k (lane i
+the best row m = i mod L); the kernel's selection folds in shared memory
+and is told L (0 where nothing folds, L = N: approx is fast bitwise). Its
+key tile and grid follow ``config.approx_gather_bits`` (``quant.gb8``).
+A k above L raises.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
 from svnet_tpu_torch.ops.kernels import _build, quant
 from svnet_tpu_torch.ops.kernels.fold import Folded
 from svnet_tpu_torch.ops.kernels.knn import neg_min
-from svnet_tpu_torch.ops.knn import knn_fast_plain
+from svnet_tpu_torch.ops.knn import knn_approx_plain, knn_fast_plain
 
 
 def jmajor(s: torch.Tensor, multi: int = 3) -> torch.Tensor:
@@ -91,36 +98,44 @@ def first_perm(n_ch: int = 2) -> list[int]:
     return [j * n_ch + c for c in range(n_ch) for j in range(3)]
 
 
-def key_tile(mode: str, N: int, C: int, T: int | None) -> int | None:
+def key_tile(mode: str, N: int, C: int, T: int | None, k: int) -> int | None:
     """A round's key tile: None in exact mode, else ``T`` or the JAX
-    package's heuristic (``quant.round3_tiles``); it must divide N."""
+    package's heuristic (``quant.round3_tiles``); it must divide N. In
+    approx mode N must fold (``quant.fold_width``) to at least k lanes."""
     if config.check_mode(mode) == "exact":
         return None
     T = T or quant.round3_tiles(N, C, mode)
     if N % T:
         raise ValueError(f"key tile T={T} must divide N={N}")
+    if mode == "approx":
+        quant.fold_width(N, k)
     return T
 
 
-def _select(x: torch.Tensor, k: int, T: int | None):
+def _select(x: torch.Tensor, k: int, T: int | None, mode: str):
     """The plain selection and the block's rows for row-major x (B, N, C):
-    exact mode's (knn_plain, x), or fast mode's on key tiles of T
-    (knn_fast_plain, x through the gather grid)."""
+    exact mode's (knn_plain, x), or fast or approx mode's on key tiles of
+    T (knn_fast_plain or knn_approx_plain, x through the mode's grid)."""
     if T is None:
         return ops.knn_plain(x, k), x
-    return knn_fast_plain(x, k, T), quant.grid_rows(x)
+    sel = knn_approx_plain if mode == "approx" else knn_fast_plain
+    return sel(x, k, T), quant.grid_rows(x, mode)
 
 
-def _fast_args(x: torch.Tensor, T: int | None, cm: bool):
-    """The kernels' fast-mode arguments for row-major x (B, N, C): the
-    block's rows through the gather grid (channel-major when ``cm``), the
-    key tiles' scales from the pre-pass, and T; in exact mode (None,
-    None, 0). The tensors are returned to outlive the launch."""
+def _fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool):
+    """The kernels' fast- and approx-mode arguments for row-major x
+    (B, N, C): the block's rows through the mode's gather grid
+    (channel-major when ``cm``), the key tiles' scales from the pre-pass,
+    T and the fold width L (0: no fold); in exact mode (None, None, 0,
+    0). The tensors are returned to outlive the launch."""
     if T is None:
-        return None, None, 0
-    xq = quant.grid_rows(x)
+        return None, None, 0, 0
+    N = x.shape[1]
+    L = quant.fold_width(N) if mode == "approx" else N
+    xq = quant.grid_rows(x, mode)
     xq = (xq.transpose(1, 2) if cm else xq).contiguous()
-    return xq, quant.tile_scales(neg_min(x), T, x.shape[1]).contiguous(), T
+    scale = quant.tile_scales(neg_min(x), T, N).contiguous()
+    return xq, scale, T, (L if L < N else 0)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -155,12 +170,12 @@ def first_block_rows(points: torch.Tensor, idx: torch.Tensor, folded: Folded,
 
 def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
                      V_out: int, k: int, cross: bool = False,
-                     T: int | None = None):
+                     T: int | None = None, mode: str = "fast"):
     """The first round's function on row-major outputs, shared by the plain
-    versions of both layouts: the kNN (fast mode's on key tiles of ``T``
-    when given), then ``first_block_rows``; (s, v ungated, s_mean, ids
-    (B, N, k) int32)."""
-    idx, rows = _select(points, k, T)
+    versions of both layouts: the kNN (fast or approx ``mode``'s on key
+    tiles of ``T`` when given), then ``first_block_rows``; (s, v ungated,
+    s_mean, ids (B, N, k) int32)."""
+    idx, rows = _select(points, k, T, mode)
     return (*first_block_rows(rows, idx, folded, S_out=S_out, V_out=V_out,
                               cross=cross), idx)
 
@@ -170,9 +185,10 @@ def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
                           mode: str = "exact", T: int | None = None):
     """Plain version of the first round; same outputs as the kernel, with
     the neighbour ids (B, k, N) int32 last."""
-    T = key_tile(mode, points.shape[1], 3, T)
+    T = key_tile(mode, points.shape[1], 3, T, k)
     s, v, s_mean, idx = first_round_rows(points, folded, S_out=S_out,
-                                         V_out=V_out, k=k, cross=cross, T=T)
+                                         V_out=V_out, k=k, cross=cross, T=T,
+                                         mode=mode)
     return s.transpose(1, 2), v.transpose(1, 2), s_mean, idx.transpose(1, 2)
 
 
@@ -184,13 +200,14 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     s_mean (B, 3*n_ch) c-major[, wins (B, k, N) int32]); the edges carry
     n_ch = 3 channels with ``cross`` (SV-PointNet), else 2. The kernel takes
     S_out = 32 and V_out = 10 or 16 (SV_DGCNN_PSEG's conv1). ``mode``
-    "exact" or "fast" (key tiles of ``T``: see the module's docstring)."""
+    "exact", "fast" or "approx" (key tiles of ``T``: see the module's
+    docstring)."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
-    T = key_tile(mode, N, 3, T)
+    T = key_tile(mode, N, 3, T, k)
     if points.device.type == "cpu":
         out = sv_round3_first_plain(points, folded, S_out=S_out, V_out=V_out,
                                     k=k, cross=cross, mode=mode, T=T)
@@ -208,7 +225,7 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
     pts = points.transpose(1, 2).contiguous()  # (B, 3, N)
-    pts_q, scale, T = _fast_args(points, T, cm=True)
+    pts_q, scale, T, L = _fast_args(points, T, mode, cm=True)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -217,7 +234,7 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     err = lib.sv_round3_first_launch(
         pts.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
         ssum.data_ptr(), wins.data_ptr(), _ptr(pts_q), _ptr(scale), B, N, k,
-        S_out, V_out, int(cross), T, _build.stream_ptr(dev))
+        S_out, V_out, int(cross), T, L, _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
     s_mean = ssum.sum(dim=2)[:, first_perm(n_ch)] / (N * k)
@@ -257,13 +274,14 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
 
 def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
-                    T: int | None = None):
+                    T: int | None = None, mode: str = "fast"):
     """A conv round's function on row-major x (B, N, S + 3V), shared by the
-    plain versions of both layouts: the kNN (fast mode's on key tiles of
-    ``T`` when given), then ``conv_block_rows``; (s (B, N, S_out), v
-    (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k) int32)."""
+    plain versions of both layouts: the kNN (fast or approx ``mode``'s on
+    key tiles of ``T`` when given), then ``conv_block_rows``; (s (B, N,
+    S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k)
+    int32)."""
     B, N, _ = x.shape
-    idx, rows = _select(x, k, T)
+    idx, rows = _select(x, k, T, mode)
     s, vm, s_e = conv_block_rows(rows, idx, folded, S=S, V=V, S_out=S_out,
                                  V_out=V_out, binary=binary)
     se_mean = _point_sums(s_e).sum(dim=2) / (N * k)
@@ -275,10 +293,10 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
                     mode: str = "exact", T: int | None = None):
     """Plain version of a conv round on channel-major src (B, S+3V, N);
     same outputs as the kernel, with the neighbour ids (B, k, N) last."""
-    T = key_tile(mode, src.shape[2], S + 3 * V, T)
+    T = key_tile(mode, src.shape[2], S + 3 * V, T, k)
     s, v, se_mean, idx = conv_round_rows(
         src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k,
-        binary=binary, T=T)
+        binary=binary, T=T, mode=mode)
     return s.transpose(1, 2), v.transpose(1, 2), se_mean, idx.transpose(1, 2)
 
 
@@ -288,15 +306,15 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
               emit_wins: bool = False):
     """src (B, S+3V, N) channel-major [s | v i-major] -> (s (B, S_out, N),
     v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)[, wins (B, k, N))];
-    ``mode`` "exact" or "fast" (key tiles of ``T``: see the module's
-    docstring)."""
+    ``mode`` "exact", "fast" or "approx" (key tiles of ``T``: see the
+    module's docstring)."""
     C = S + 3 * V
     if src.dim() != 3 or src.shape[1] != C:
         raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, {C}, N)")
     B, _, N = src.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
-    T = key_tile(mode, N, C, T)
+    T = key_tile(mode, N, C, T, k)
     if src.device.type == "cpu":
         out = sv_round3_plain(src, folded, S=S, V=V, S_out=S_out,
                               V_out=V_out, k=k, binary=binary, mode=mode, T=T)
@@ -315,7 +333,7 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
     rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
-    rows_q, scale, T = _fast_args(rows, T, cm=False)
+    rows_q, scale, T, L = _fast_args(rows, T, mode, cm=False)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -324,7 +342,7 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     err = lib.sv_round3_launch(
         rows.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
         ssum.data_ptr(), wins.data_ptr(), _ptr(rows_q), _ptr(scale), B, N, S,
-        V, S_out, V_out, k, int(binary), T, _build.stream_ptr(dev))
+        V, S_out, V_out, k, int(binary), T, L, _build.stream_ptr(dev))
     _build.check(err, "sv_round3")
     sv_round3.launches += 1
     se_mean = ssum.sum(dim=2) / (N * k)

@@ -1,5 +1,6 @@
 """Exact k-nearest-neighbour search (counterpart of svnet_tpu/ops/knn.py),
-and the fast-mode selection of the fused rounds (``knn_fast_plain``).
+and the fast- and approx-mode selections of the fused rounds
+(``knn_fast_plain``, ``knn_approx_plain``).
 
 Ranking is the exact-mode key of the fused round kernels
 (svnet_tpu/ops/pallas/sv_round3.py:194-196, :441-451): the sortable-int
@@ -64,17 +65,36 @@ def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return topk_rows(pairwise_neg_sqdist(x.float()), k).to(torch.int32)
 
 
+def _fast_keys(x: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, N, C) -> (B, N centres, N candidates) fast mode's packed keys."""
+    neg = pairwise_neg_sqdist(x.float())
+    scale = quant.tile_scales(neg.amin(dim=-1), T, x.shape[1])
+    return quant.packed_keys(neg, scale, T)
+
+
+def _top_rows(keys: torch.Tensor, k: int, N: int) -> torch.Tensor:
+    top = torch.topk(keys, k, dim=-1, sorted=True).values
+    return quant.key_rows(top, N)
+
+
 def knn_fast_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
     """Fast mode's selection (sv_round3.py:199-235, :453-459): (B, N, C)
     -> (B, N, k) int32 ids by the packed keys of ``pairwise_neg_sqdist``'s
     distances, each quantized on the scale of the worst distance of its
     tile of T centres (ops/kernels/quant.py); the keys are unique, so
     ``topk`` orders them fully."""
-    neg = pairwise_neg_sqdist(x.float())
-    scale = quant.tile_scales(neg.amin(dim=-1), T, x.shape[1])
-    keys = quant.packed_keys(neg, scale, T)
-    top = torch.topk(keys, k, dim=-1, sorted=True).values
-    return quant.key_rows(top, x.shape[1])
+    return _top_rows(_fast_keys(x, T), k, x.shape[1])
+
+
+def knn_approx_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
+    """Approx mode's selection (sv_round3.py:209-234, :449-458): fast
+    mode's keys folded to L = ``quant.fold_width(N)`` lanes by key max,
+    then the top k of the L; the winners are distinct rows, one a residue
+    class mod L. Raises for k > L (the JAX kernel would decode its empty
+    lanes into rows that are not neighbours)."""
+    N = x.shape[1]
+    L = quant.fold_width(N, k)
+    return _top_rows(quant.fold_keys(_fast_keys(x, T), L), k, N)
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -713,6 +713,62 @@ def test_fast_rounds_match_plain_on_card(shape, bits):
         config.set_fast_gather_bits(was)
 
 
+# (B, N, k, fold, key tile T or None): L = 250 (N = 1000; no multiple of
+# the selection's 128-lane tile), L = 64 with four rows a class and several
+# key tiles, N at the fold (approx is fast), k at and near small L,
+# duplicated points
+APPROX_FORCED = [(2, 1000, 20, 256, None, False), (3, 256, 40, 64, 64, True),
+                 (2, 200, 7, 256, None, False), (1, 1024, 64, 64, 128, False),
+                 (2, 2048, 40, 512, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8], ids=["gb16", "gb8"])
+@pytest.mark.parametrize("shape", APPROX_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-L{s[3]}-T{s[4] or 'auto'}"
+                              + ("-dup" if s[5] else "") for s in APPROX_FORCED])
+def test_approx_rounds_match_plain_on_card(shape, bits):
+    """Approx mode at 16- and 8-bit gathers: B1 (xyz and cross) and B2
+    ((5, 3) -> (13, 7), binary and FP), the folded selection's ids and the
+    outputs bitwise their plain versions; at N <= fold the ids are fast
+    mode's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+
+    b, n, k, fold, t, dup = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(23)
+    was = config.approx_fold, config.approx_gather_bits
+    config.set_approx_fold(fold)
+    config.set_approx_gather_bits(bits)
+    try:
+        pts = _select_input(b, n, 3, dup, 23).to(dev)
+        for cross in (False, True):
+            f = {name: w.to(dev) for name, w in
+                 _first_weights(3 if cross else 2, 10, gen).items()}
+            kw = dict(S_out=32, V_out=10, k=k, cross=cross, T=t)
+            got = sv_round3_first(pts, f, emit_wins=True, mode="approx", **kw)
+            for g, w in zip(got, sv_round3_first_plain(pts, f, mode="approx", **kw)):
+                assert torch.equal(g, w)
+            if n <= fold:
+                assert torch.equal(got[3], sv_round3_first(
+                    pts, f, emit_wins=True, mode="fast", **kw)[3])
+        src = _select_input(b, n, 14, dup, 24).to(dev).transpose(1, 2).contiguous()
+        for binary in (True, False):
+            f = {name: w.to(dev) for name, w in
+                 _round_weights(5, 3, 13, 7, binary, gen).items()}
+            kw = dict(S=5, V=3, S_out=13, V_out=7, k=k, binary=binary,
+                      mode="approx", T=t)
+            got = sv_round3(src, f, emit_wins=True, **kw)
+            for g, w in zip(got, sv_round3_plain(src, f, **kw)):
+                assert torch.equal(g, w)
+    finally:
+        config.set_approx_fold(was[0])
+        config.set_approx_gather_bits(was[1])
+
+
 # (kernel, B, N, S, V, S_out, V_out): Cin = 14 and S_out = 13 divide no K
 # chunk (32) and no MMA tile; conv_fuse's and partseg conv5's widths (the
 # 64- and 32-point tiles) at ragged N; B3 channel-major with two vector

@@ -243,8 +243,9 @@ def test_pseg_engine_checks_arguments():
     with pytest.raises(ValueError):
         eng(torch.zeros(1, 16, 3, dtype=torch.float64), torch.zeros(1, 16))
     with pytest.raises(ValueError):
-        SVDGCNNPsegEngine(w, PARTS, K, True, mode="approx", device="cpu")
-    for impl in ("round2", "round", "edge"):  # fast runs on round3 only
-        with pytest.raises(ValueError):
-            SVDGCNNPsegEngine(w, PARTS, K, True, mode="fast", device="cpu",
-                              rounds_impl=impl)
+        SVDGCNNPsegEngine(w, PARTS, K, True, mode="turbo", device="cpu")
+    for impl in ("round2", "round", "edge"):  # fast, approx on round3 only
+        for mode in ("fast", "approx"):
+            with pytest.raises(ValueError):
+                SVDGCNNPsegEngine(w, PARTS, K, True, mode=mode, device="cpu",
+                                  rounds_impl=impl)

@@ -88,10 +88,11 @@ def test_engine_rotation_invariant():
 
 
 @pytest.mark.parametrize("mode,rounds_impl", [
-    ("approx", "round3"), ("fast", "round2"), ("fast", "round"),
-    ("fast", "edge")])
+    ("turbo", "round3"), ("fast", "round2"), ("fast", "round"),
+    ("fast", "edge"), ("approx", "round2")])
 def test_engine_rejects_other_modes(mode, rounds_impl):
-    """Modes not ported on the trunk: approx anywhere, fast off round3."""
+    """Modes not ported on the trunk: an unknown mode anywhere, fast and
+    approx off round3."""
     with pytest.raises(ValueError):
         SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
                          mode=mode, device="cpu", rounds_impl=rounds_impl)

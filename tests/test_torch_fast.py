@@ -283,7 +283,7 @@ def test_fast_rounds_check_arguments():
     with pytest.raises(ValueError):
         sv_round3_first(pts, folded, S_out=32, V_out=10, k=K, mode="fast", T=64)
     with pytest.raises(ValueError):
-        sv_round3_first(pts, folded, S_out=32, V_out=10, k=K, mode="approx")
+        sv_round3_first(pts, folded, S_out=32, V_out=10, k=K, mode="turbo")
     with pytest.raises(ValueError):
         config.set_fast_gather_bits(4)
 

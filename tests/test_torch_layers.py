@@ -179,8 +179,9 @@ def test_config_accepts_only_exact_and_requires_cuda(trunk):
 
 def test_config_accepts_fast_on_round3_only():
     assert config.check_mode("fast") == config.check_mode("fast", "round3") == "fast"
+    assert config.check_mode("approx") == "approx"
     with pytest.raises(ValueError):
-        config.check_mode("approx")
+        config.check_mode("turbo")
     with pytest.raises(ValueError):
         config.set_fast_gather_bits(12)
 

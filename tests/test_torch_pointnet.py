@@ -366,7 +366,7 @@ def test_wrappers_and_engines_check_arguments():
     with pytest.raises(ValueError):
         eng(torch.zeros(1, 16, 3, dtype=torch.float64))
     with pytest.raises(ValueError):
-        SVPointNetClsEngine(w, CLASSES, K, True, mode="approx", device="cpu")
+        SVPointNetClsEngine(w, CLASSES, K, True, mode="turbo", device="cpu")
     pseg = SVPointNetPsegEngine(init_params_pseg(PARTS, K, True), PARTS, K,
                                 True, device="cpu")
     with pytest.raises(ValueError):
