@@ -170,6 +170,33 @@ raises and the script exits non-zero:
      the same cls logits and the same per-point partseg logits, top-1
      >= 99%; the recall of B1's and conv2's approx ids against exact ids
      on surface clouds, sorted and shuffled, printed (not a bar)
+ 18  graph reuse, the JAX package's serving pick (bench.py:300-346): 5
+     requests each through SVDGCNNClsEngine (128, 1024, 3; approx, 8-bit
+     gathers, fold 256, graph_reuse "spatial"), SVDGCNNPsegEngine (32,
+     2048, 3; the same with fold 512 and reuse_k 20) and SVDGCNNClsEngine
+     in exact mode with graph_reuse "conv2"; per request one
+     sv_round3_first, three sv_round3 of which three (spatial) or two
+     (conv2) are reuse rounds (sv_round3_reuse: no selection, no
+     pre-pass; neg_min once, for B1, in approx mode) and one
+     sv_point_block_cm; logits bitwise the oracle twin's; the median
+     printed beside approx mode's without reuse (phase 17) and exact
+     mode's (phases 3, 12); reuse_gather_window=512 gives the approx engines'
+     logits bitwise; the median with the id range check run in each
+     reuse round (which the engines skip for emitted ids: what its
+     device sync costs) and top-1 against the same engine without reuse
+     logged (random weights: no bar)
+
+Phase 2 also holds graph reuse (phase2_reuse): B2 on given ids
+(sv_round3_reuse, "B2 reuse") at the cls and partseg shapes, conv2-4 on
+B1's ids (spatial) and conv3-4 on conv2's, at r = k and r = k/2 (a
+strided rank prefix), in exact and approx mode at 16 and 8 bits, binary
+and FP, bitwise its plain version on the same ids; the serving pick's
+calls timed beside the selecting round on the same input; and
+REUSE_FORCED ((B, N, k, r) = (2, 1000, 20, 7), (2, 1001, 33, 33), (3,
+256, 40, 20); (5, 3) -> (13, 7) binary and FP, cls conv4's widths
+binary; exact, fast and approx at 16 and 8 bits): bitwise its plain
+version on the strided prefix and on its contiguous copy, one launch, no
+pre-pass.
 
 Phase 2 also holds approx mode (phase2_approx): B1 and B2 with
 mode="approx" at 16- and 8-bit gathers against their plain versions, ids
@@ -2368,6 +2395,269 @@ def phase17(eng, pn, dg, w_bin, gen, dev, counters, card):
     return out
 
 
+@contextlib.contextmanager
+def reuse_knobs(name, r=0, window=0):
+    """config.graph_reuse = name, reuse_k = r, reuse_gather_window = window
+    inside the block."""
+    from svnet_tpu_torch import config
+
+    was = config.graph_reuse, config.reuse_k, config.reuse_gather_window
+    config.set_graph_reuse(name)
+    config.set_reuse_k(r)
+    config.set_reuse_gather_window(window)
+    try:
+        yield
+    finally:
+        config.set_graph_reuse(was[0])
+        config.set_reuse_k(was[1])
+        config.set_reuse_gather_window(was[2])
+
+
+def reuse_name(mode, bits, tag):
+    """The kernels line's name of a reuse round: 'sv_round3_reuse' (exact
+    cls), 'sv_round3_reuse approx8', 'sv_round3_reuse approx8 pseg'."""
+    if mode == "exact":
+        return "sv_round3_reuse" + ("" if tag == "cls" else f" {tag}")
+    return approx_name("sv_round3_reuse", bits, tag)
+
+
+def reuse_cost(b, n, r, S, V, S_out, V_out):
+    """(least ms, bound) of a binary reuse round: the block's operations
+    only (no selection), src and the ids read once, s, v and the gate sums
+    written once."""
+    ef, pm1 = edge_flops(S, V, S_out, V_out, binary=True)
+    return bound(b * n * r * ef,
+                 4.0 * b * n * (S + 3 * V + r + S_out + 3 * V_out + 2 * S),
+                 b * n * r * pm1)
+
+
+# the (ids, ranks) each kernels-line entry of B2 reuse is timed at: those
+# of its phase-18 engine (exact cls: conv2's ids, r = k; approx 8-bit cls:
+# B1's, r = k; approx 8-bit partseg: B1's, r = 20 = k / 2)
+REUSE_TIMED = {("cls", "exact", 16): ("conv2", 1), ("cls", "approx", 8): ("spatial", 1),
+               ("pseg", "approx", 8): ("spatial", 2)}
+
+
+def phase2_reuse(rep, eng, eng_fp, dg, gen, dev):
+    """B2 on given ids (graph reuse) against its plain version on the same
+    ids, bitwise: at the cls (128, 1024, 20) and partseg (32, 2048, 40)
+    shapes on a Morton-sorted cloud, conv2-4 on B1's ids and conv3-4 on
+    conv2's, at r = k and r = k/2, in exact mode and approx mode at 16 and
+    8 bits (fold 256 / 512), binary and FP; inputs chained through the
+    plain reuse rounds on B1's ids; binary calls timed, and the selecting
+    round on the same input beside them; then REUSE_FORCED."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops import morton
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for tag, e, e_fp, (b, n, k) in (
+            ("cls", eng, eng_fp, (B, N, K)),
+            ("pseg", dg["pseg round3"]["kernel"], dg["pseg round3"]["kernel_fp"],
+             (B_PSEG, N_PSEG, K_PSEG))):
+        pts = morton.sort_points(cloud(b, n, gen, dev))[0]
+        for mode, bits in (("exact", 16), ("approx", 16), ("approx", 8)):
+            name = reuse_name(mode, bits, tag)
+            timed = REUSE_TIMED.get((tag, mode, bits))
+            with approx_knobs(bits, FOLD[tag]):
+                S1, V1 = e.dims["conv1"]
+                po = kr.sv_round3_first_plain(pts, e.folded_first, S_out=S1,
+                                              V_out=V1, k=k, mode=mode)
+                wins = {"spatial": po[3]}
+                g = se_gate(e.p["conv1"], po[2]).repeat(1, 3)
+                src = torch.cat([po[0], po[1] * g[:, :, None]], dim=1).contiguous()
+                for rnd, (S, V, S_out, V_out) in e.rounds.items():
+                    dims = dict(S=S, V=V, S_out=S_out, V_out=V_out, mode=mode)
+                    fb, ffp = e.folded[rnd], e_fp.folded[rnd]
+                    if rnd == "conv2":
+                        wins["conv2"] = kr.sv_round3_plain(src, fb, k=k, binary=True,
+                                                           **dims)[3]
+                    sel_ms = cuda_ms(lambda: kr.sv_round3(src, fb, k=k, **dims))
+                    chain = None
+                    for source, w in wins.items():
+                        if source == rnd:
+                            continue
+                        for r in (k, k // 2):
+                            kw = dict(dims, k=r, wins_in=w[:, :r])
+                            label = (f"{mode}{bits} {tag} {rnd} on {source} ids "
+                                     f"B={b} N={n} k={k} r={r}")
+                            ko = kr.sv_round3(src, fb, **kw)
+                            po = kr.sv_round3_plain(src, fb, binary=True, **kw)
+                            sync(dev)
+                            check_equal(label + " binary", ko, po)
+                            check_equal(label + " fp",
+                                        kr.sv_round3(src, ffp, binary=False, **kw),
+                                        kr.sv_round3_plain(src, ffp, binary=False, **kw))
+                            # as the engines call it: the ids an earlier
+                            # round emitted, no range check
+                            ms = cuda_ms(lambda: kr.sv_round3(src, fb, emitted=True, **kw))
+                            cost = reuse_cost(b, n, r, S, V, S_out, V_out)
+                            line = (f"  B2 reuse {label}: bitwise (binary, fp); "
+                                    f"kernel {ms:.4f} ms, selecting round "
+                                    f"{sel_ms:.4f} ms, bound {cost}")
+                            if timed == (source, k // r):
+                                plain_ms = cuda_ms(lambda: kr.sv_round3_plain(
+                                    src, fb, binary=True, **kw))
+                                rep.add(name, 0.0, ms, plain_ms, cost)
+                                line += f", plain {plain_ms:.3f} ms"
+                            log(line)
+                            if source == "spatial" and r == k:
+                                chain = po
+                    g = se_gate(e.p[rnd], chain[2]).repeat(1, 3)
+                    src = torch.cat([chain[0], chain[1] * g[:, :, None]],
+                                    dim=1).contiguous()
+    for bits in (16, 8):
+        phase2_reuse_forced(bits, gen, dev)
+
+
+# (B, N, k, r) of B2 reuse: the ids of a k selection, their first r ranks
+# a strided view at B >= 2 (r < k: a batch stride of k * N, not r * N);
+# N and k that no edge tile (32 centres x 2 ranks) divides
+REUSE_FORCED = ((2, 1000, 20, 7), (2, 1001, 33, 33), (3, 256, 40, 20))
+
+
+def phase2_reuse_forced(bits, gen, dev):
+    """B2 reuse at REUSE_FORCED in exact, fast and approx mode ((5, 3) ->
+    (13, 7) binary and FP, cls conv4's widths binary): bitwise its plain
+    version on the strided prefix and on its contiguous copy, one launch
+    and no pre-pass a call."""
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    for b, n, k, r in REUSE_FORCED:
+        with approx_knobs(bits, 256), gather_bits(bits):
+            for S, V, S_out, V_out, modes in ((5, 3, 13, 7, (True, False)),
+                                              (64, 21, 128, 42, (True,))):
+                src = select_input(b, n, S + 3 * V, False, gen, dev)
+                src = src.transpose(1, 2).contiguous()
+                for binary in modes:
+                    f = round_weights(S, V, S_out, V_out, binary, gen, dev)
+                    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+                    view = kr.sv_round3(src, f, k=k, emit_wins=True, **kw)[3][:, :r]
+                    for mode in ("exact", "fast", "approx"):
+                        tag = f"B2 reuse {mode}{bits} B={b} N={n} k={k} r={r}"
+                        before = (kr.sv_round3_reuse.launches, kk.neg_min.launches)
+                        got = kr.sv_round3(src, f, k=r, mode=mode, wins_in=view, **kw)
+                        if (kr.sv_round3_reuse.launches - before[0],
+                                kk.neg_min.launches - before[1]) != (1, 0):
+                            raise AssertionError(f"{tag}: not one launch without a pre-pass")
+                        check_equal(tag, got, kr.sv_round3_plain(
+                            src, f, k=r, mode=mode, wins_in=view, **kw))
+                        check_equal(tag + " contiguous ids", got, kr.sv_round3(
+                            src, f, k=r, mode=mode, wins_in=view.contiguous(), **kw))
+        log(f"  reuse{bits} forced B={b} N={n} k={k} r={r}: B2 reuse (exact, "
+            "fast, approx; binary, fp) bitwise its plain version on the "
+            "strided rank prefix and on its copy; one launch, no pre-pass")
+
+
+def request_median(eng, requests) -> float:
+    """Median device time (CUDA events) of eng on each request, after one
+    warm-up request."""
+    import torch
+
+    eng(*requests[0])
+    lat = []
+    for req in requests:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        eng(*req)
+        e1.record()
+        torch.cuda.synchronize()
+        lat.append(e0.elapsed_time(e1))
+    return sorted(lat)[len(lat) // 2]
+
+
+@contextlib.contextmanager
+def checked_ids():
+    """The engines' reuse rounds run the id range check that they skip for
+    the ids an earlier round emitted (sv_round3.check_ids: it waits for
+    the device): what the check would cost a request. A measurement only,
+    never a path the port takes."""
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    was = kr.check_ids
+    kr.check_ids = lambda idx, shape, N, device, in_range=False: was(
+        idx, shape, N, device)
+    try:
+        yield
+    finally:
+        kr.check_ids = was
+
+
+def phase18(w_bin, gen, dev, counters, card):
+    """The JAX package's serving pick and exact conv2 reuse, 5 requests
+    each: launches per request checked, logits bitwise the oracle twin's,
+    medians beside approx mode's without reuse (phase 17) and exact mode's
+    (phases 3, 12) and beside the same engine with the id range check
+    run in each reuse round; reuse_gather_window=512 bitwise the same
+    logits. Returns launches by entry name."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+
+    p_pseg = init_params_pseg(PARTS, K_PSEG, True,
+                              torch.Generator().manual_seed(SEED + 12))
+    spatial = {"sv_round3_first": 1, "sv_round3": 3, "sv_round3_reuse": 3,
+               "neg_min": 1, "sv_point_block_cm": 1}
+    conv2 = {"sv_round3_first": 1, "sv_round3": 3, "sv_round3_reuse": 2,
+             "sv_point_block_cm": 1}
+
+    def cls_req():
+        return (cloud(B, N, gen, dev),)
+
+    def pseg_req():
+        return cloud(B_PSEG, N_PSEG, gen, dev), labels(B_PSEG, gen, dev)
+
+    # (tag, engine, weights, args, mode, bits, graph_reuse, reuse_k,
+    # request, launches per request, the same engine without reuse)
+    runs = (("cls", SVDGCNNClsEngine, w_bin, (CLASSES, K), "approx", 8,
+             "spatial", 0, cls_req, spatial, "phase 17 cls approx8"),
+            ("pseg", SVDGCNNPsegEngine, p_pseg, (PARTS, K_PSEG), "approx", 8,
+             "spatial", 20, pseg_req, spatial, "phase 17 pseg approx8"),
+            ("cls", SVDGCNNClsEngine, w_bin, (CLASSES, K), "exact", 16,
+             "conv2", 0, cls_req, conv2, "phase 3"))
+    out = {}
+    for tag, engine, w, args, mode, bits, reuse, r, request, want_per, base in runs:
+        exact_phase = "phase 3" if tag == "cls" else "phase 12"
+        label = f"phase 18 {tag} {mode}{bits if mode != 'exact' else ''} {reuse}" + (
+            f" reuse_k={r}" if r else "")
+        with approx_knobs(bits, FOLD[tag]):
+            eng = engine(w, *args, True, mode=mode, device=dev)
+            oracle = engine(w, *args, True, mode=mode, device=dev, oracle=True)
+            requests = [request() for _ in range(REQUESTS)]
+            with reuse_knobs(reuse, r):
+                got, want, _, launches = serve(label, eng, oracle, requests,
+                                               counters, want_per, card)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{label}: logits {tuple(got.shape)} not finite")
+                if not torch_equal(got, want):
+                    raise AssertionError(f"{label}: logits differ from the oracle "
+                                         f"twin's by {(got - want).abs().max().item()}")
+                if mode == "approx":
+                    with reuse_knobs(reuse, r, 512):
+                        windowed = torch.cat([eng(*req) for req in requests])
+                    if not torch_equal(windowed, got):
+                        raise AssertionError(f"{label}: reuse_gather_window=512 "
+                                             "changed the logits")
+                with checked_ids():
+                    checked = request_median(eng, requests)
+            without = torch.cat([eng(*req) for req in requests])
+        top1 = (got.argmax(-1) == without.argmax(-1)).float().mean().item()
+        log(f"{label}: logits bitwise the oracle twin's"
+            + ("; reuse_gather_window=512 bitwise" if mode == "approx" else "")
+            + f"; median {MEDIANS[label]:.3f} ms, without reuse "
+            f"{MEDIANS[base]:.3f} ms ({base}), exact mode "
+            f"{MEDIANS[exact_phase]:.3f} ms ({exact_phase}); with the id range "
+            f"check in each reuse round {checked:.3f} ms | {card}; top-1 "
+            f"agreement with the engine without reuse {top1:.6f} (random "
+            "weights, not a bar)")
+        out[reuse_name(mode, bits, tag)] = launches["sv_round3_reuse"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2455,6 +2745,7 @@ def main() -> int:
     phase2_gather(rep, gen, dev)
     phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
+    phase2_reuse(rep, eng, eng_fp, dg, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -2463,7 +2754,8 @@ def main() -> int:
                 kb.sv_block_point, eg.edge_gather_fwd, eg.edge_gather_bwd,
                 k2.sv_round2_first, k2.sv_round2, kp.sv_point_block,
                 k1.sv_round_first, k1.sv_round, kef.sv_edge_first_block,
-                ke.sv_edge_block, kbm.xnor_popcount, kk.neg_min)
+                ke.sv_edge_block, kbm.xnor_popcount, kk.neg_min,
+                kr.sv_round3_reuse)
     requests = [cloud(B, N, gen, dev) for _ in range(REQUESTS)]
     eng(requests[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -2571,6 +2863,9 @@ def main() -> int:
     # phase 17: approx-mode serving
     launches.update(phase17(eng, pn, dg, w_bin, gen, dev, counters, card))
 
+    # phase 18: graph reuse, the JAX package's serving pick
+    launches.update(phase18(w_bin, gen, dev, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -2623,6 +2918,10 @@ def main() -> int:
                 src_of[approx_name(name, bits, tag)] = src_of[name]
         src_of[approx_name("sv_round3_first cross", bits, "cls")] = \
             src_of["sv_round3_first"]
+    # B2 reuse: _round3_kernel's take_wins branch (sv_round3.py:480-540)
+    for name in ("sv_round3_reuse", "sv_round3_reuse approx8",
+                 "sv_round3_reuse approx8 pseg"):
+        src_of[name] = src_of["sv_round3"]
     # the TPU kernel takes each key tile's worst distance from its own
     # (N, T) block (_packed_key_t); here a pre-pass kernel does
     for name in ("neg_min", "neg_min pseg"):

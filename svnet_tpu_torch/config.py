@@ -8,8 +8,14 @@ fixed-point gather grid of ``fast_gather_bits`` (ops/kernels/quant.py).
 "approx", on the round3 trunk only: fast's keys folded to
 ``approx_fold`` candidate lanes by key max before the top-k, a gather
 grid of ``approx_gather_bits``, and the SV-DGCNN engines' Morton entry
-sort (``morton_entry`` forces the sort in any mode). The other serving
-knobs (svnet_tpu/config.py) are not ported yet.
+sort (``morton_entry`` forces the sort in any mode). Graph reuse, on
+the round3 trunk of the SV-DGCNN engines in every mode: ``graph_reuse``
+("spatial": every conv round takes the first round's xyz neighbour ids;
+"conv2": conv3 and conv4 take conv2's), ``reuse_k`` (reuse rounds take
+the nearest r ranks and run at k = r) and ``reuse_gather_window`` (a
+gather-compaction width on the TPU; here the full gather, which it
+equals bitwise, and a reason to Morton-sort at entry). The window knob
+and the others of svnet_tpu/config.py are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ fast_gather_bits: int = 16  # fast mode's gather grid: 16 or 8 bits
 approx_fold: int = 256  # approx mode's folded candidate width
 approx_gather_bits: int = 16  # approx mode's gather grid: 16 or 8 bits
 morton_entry: bool = False  # SV-DGCNN engines Morton-sort at entry
+GRAPH_REUSE = ("none", "conv2", "spatial")
+graph_reuse: str = "none"  # which neighbour ids the later conv rounds reuse
+reuse_k: int = 0  # 0: off; reuse rounds take the nearest reuse_k ranks
+reuse_gather_window: int = 0  # 0: off; rows of the TPU's gather compaction
 
 
 def set_fast_gather_bits(bits: int) -> None:
@@ -60,6 +70,42 @@ def set_morton_entry(on: bool) -> None:
     (svnet_tpu/config.py::set_morton_entry)."""
     global morton_entry
     morton_entry = bool(on)
+
+
+def set_graph_reuse(name: str) -> None:
+    """Graph reuse on the SV-DGCNN engines' round3 trunk
+    (svnet_tpu/config.py::set_graph_reuse): "none" (every round selects
+    its own neighbours), "conv2" (conv3 and conv4 take conv2's ids) or
+    "spatial" (conv2..conv4 take the first round's xyz ids). The other
+    trunks raise when it is not "none"."""
+    global graph_reuse
+    if name not in GRAPH_REUSE:
+        raise ValueError(f"graph_reuse must be one of {GRAPH_REUSE}, got {name!r}")
+    graph_reuse = name
+
+
+def set_reuse_k(r: int) -> None:
+    """Reuse rounds take the nearest ``r`` of the k ranks they are given
+    (the ids are rank-major) and run at k = r; 0 (or r >= k) takes all
+    (svnet_tpu/config.py::set_reuse_k)."""
+    global reuse_k
+    if r < 0:
+        raise ValueError(f"reuse_k must be >= 0, got {r}")
+    reuse_k = r
+
+
+def set_reuse_gather_window(width: int) -> None:
+    """The reuse rounds' gather-compaction width W: 0, or a multiple of 128
+    of at least 128 (svnet_tpu/config.py::set_reuse_gather_window). The
+    TPU gathers from a compaction of the winners' 128-row blocks, bitwise
+    the full gather; on the card a neighbour is one indexed row read, so
+    the port runs the full gather. With graph reuse on, W > 0 also
+    Morton-sorts the cloud at the engines' entry, as in JAX."""
+    global reuse_gather_window
+    if width != 0 and (width < 128 or width % 128):
+        raise ValueError(f"reuse_gather_window must be 0 or a multiple of 128 "
+                         f">= 128, got {width}")
+    reuse_gather_window = width
 
 
 def check_mode(mode: str, trunk: str = "round3") -> str:

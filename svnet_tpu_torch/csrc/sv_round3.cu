@@ -35,6 +35,14 @@
 // a neighbour is one row read. Approx mode (sv_round3.py:209-234) is fast
 // mode with the selection's candidates folded to L lanes by key max
 // before the top k (sv_common.cuh); its grid is 16 or 8 bits as fast's.
+//
+// Graph reuse (sv_round3.py:480-540, take_wins): the round is given an
+// earlier round's neighbour ids and runs the block kernel alone -- no
+// selection, no pre-pass, one launch. In fast and approx mode it reads
+// the rows through the gather grid, as a selecting round's block does.
+// The TPU's gather compaction (gather_window, :1206-1220) has no
+// counterpart: it exists to shrink one-hot gather matmuls, and its result
+// is bitwise the full gather, which is what a row read here is.
 #include "sv_rounds.cuh"
 
 // src (B, N, S+3V) row-major [s | v i-major] (the wrapper's copy of the
@@ -57,4 +65,23 @@ extern "C" int sv_round3_launch(
                               b2, s_out, v_out, ssum, wins, B, N, S, V, S_out,
                               V_out, k, binary, (cudaStream_t)stream, src_q,
                               tile_scale, T, L);
+}
+
+// A graph-reuse round: the block kernel on the caller's channel-major ids
+// wins (B, k, N), the first k ranks of each cloud's ids, cloud b's at
+// wins + b * wins_bs (wins_bs >= k * N: the ranks may be a prefix of a
+// wider (B, k', N) tensor); src (B, N, S+3V) row-major, through the
+// gather grid in fast and approx mode (the wrapper's), the raw rows in
+// exact mode; weights and outputs as sv_round3_launch's.
+extern "C" int sv_round3_reuse_launch(
+    const float* src, const int* wins, long long wins_bs, const float* wz,
+    const float* w1, const float* beta, const float* a1, const float* b1,
+    const float* w2, const float* scale2, const float* a2, const float* b2,
+    float* s_out, float* v_out, float* ssum, int B, int N, int S, int V,
+    int S_out, int V_out, int k, int binary, void* stream) {
+  if (wins_bs < (long long)k * N) return (int)cudaErrorInvalidValue;
+  return sv_conv_block<false, false>(src, wins, nullptr, wz, w1, beta, a1, b1,
+                                     w2, scale2, a2, b2, s_out, v_out, ssum, B,
+                                     N, S, V, S_out, V_out, k, binary,
+                                     (cudaStream_t)stream, wins_bs);
 }

@@ -372,7 +372,9 @@ static RbSmem rb_layout(int S, int V, int S_out, int V_out, int binary,
 }
 
 // src is row-major (B, N, S + 3V) in both layouts; ROW picks the layout
-// of the ids ((B, N, k), else (B, k, N)) and of the outputs. GATED: v
+// of the ids ((B, N, k), else (B, k, N); one cloud's ids start ids_bs
+// elements after the previous cloud's, N * k when packed, more for the
+// first ranks of a wider tensor) and of the outputs. GATED: v
 // leaves gated, (sum * (1/k)) * gate[b, o] with gate (B, V_out), and no
 // gate statistics are summed (ssum unused); else v leaves ungated and ssum
 // takes the per-point sums of the edge scalars.
@@ -387,7 +389,8 @@ sv_round_block_kernel(
     const float* __restrict__ scale2, const float* __restrict__ a2,
     const float* __restrict__ b2, float* __restrict__ s_out,
     float* __restrict__ v_out, float* __restrict__ ssum, RbSmem L, int B,
-    int N, int S, int V, int S_out, int V_out, int k, int binary) {
+    int N, int S, int V, int S_out, int V_out, int k, int binary,
+    long long ids_bs) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
   const int C = S + 3 * V, twoV = 2 * V, IN1 = 2 * S + 6 * V;
   const int ldk = sv_mma_ld(IN1), K16 = sv_pad16(IN1), So16 = sv_pad16(S_out);
@@ -431,8 +434,8 @@ sv_round_block_kernel(
     int* buf = rows + ((r0 / RB_G) & 1) * RB_E;
     for (int e = tid; e < RB_E; e += nth) {
       const int t = e % RB_TP, n = n0 + t, r = r0 + e / RB_TP;
-      buf[e] = n < N && r < k ? (ROW ? wins[((size_t)b * N + n) * k + r]
-                                     : wins[((size_t)b * k + r) * N + n])
+      const int* w = wins + b * ids_bs;
+      buf[e] = n < N && r < k ? (ROW ? w[(size_t)n * k + r] : w[(size_t)r * N + n])
                               : -1;
     }
   };
@@ -718,7 +721,8 @@ sv_round_block_kernel(
 
 // The block kernel on the caller's neighbour ids over a row-major source
 // (GATED: v gated, no statistics), on a persistent grid of as many blocks
-// as the card holds at once.
+// as the card holds at once. ids_bs: the ids' batch stride in elements (0:
+// packed, N * k).
 template <bool ROW, bool GATED>
 static int sv_conv_block(const float* src, const int* wins, const float* gate,
                          const float* wz, const float* w1, const float* beta,
@@ -726,7 +730,7 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
                          const float* scale2, const float* a2, const float* b2,
                          float* s_out, float* v_out, float* ssum, int B, int N,
                          int S, int V, int S_out, int V_out, int k, int binary,
-                         cudaStream_t st) {
+                         cudaStream_t st, long long ids_bs = 0) {
   const RbSmem L = rb_layout(S, V, S_out, V_out, binary, /*stats=*/!GATED);
   if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   auto kern = sv_round_block_kernel<ROW, GATED>;
@@ -745,7 +749,8 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
   const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
   kern<<<grid, RB_THREADS, L.total, st>>>(
       src, wins, gate, wz, w1, beta, a1, b1, w2, scale2, a2, b2, s_out, v_out,
-      ssum, L, B, N, S, V, S_out, V_out, k, binary);
+      ssum, L, B, N, S, V, S_out, V_out, k, binary,
+      ids_bs ? ids_bs : (long long)N * k);
   return (int)cudaGetLastError();
 }
 

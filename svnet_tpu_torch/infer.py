@@ -49,6 +49,13 @@ engines' round3 trunk Morton-sorts the cloud at entry (ops/morton.py;
 does: the classifier's pooling does not see the order, and the part
 segmenter puts its per-point logits back in the input's order. The
 SV-PointNet engines never sort, as the JAX engines do not.
+
+Graph reuse (``config.graph_reuse``, ``reuse_k``, ``reuse_gather_window``;
+svnet_tpu/infer.py:315-365, :640-690) is read at each call, on the
+SV-DGCNN engines' round3 trunk in every mode: conv2..conv4 take the
+first round's ids ("spatial"), or conv3 and conv4 take conv2's
+("conv2"), and select nothing (``sv_round3(wins_in=...)``); a gather
+window also Morton-sorts at entry. The other trunks raise.
 """
 
 from __future__ import annotations
@@ -140,12 +147,25 @@ ROUNDS_IMPLS = ("round3", "round2", "round", "edge")
 
 
 def _host_gated(rnd, rm: bool = True):
-    """A round that returns (s, ungated v, gate mean, ...), with its v gated
-    here by the SE gate of that mean: (x, folded, p, **kw) -> (s, gated v)."""
+    """A round that returns (s, ungated v, gate mean[, ids]), with its v
+    gated here by the SE gate of that mean: (x, folded, p, **kw) -> (s,
+    gated v[, ids])."""
     def run(x, folded, p, **kw):
-        s, v, mean = rnd(x, folded, **kw)[:3]
+        s, v, mean, *ids = rnd(x, folded, **kw)
         g = se_gate(p, mean).repeat(1, 3)
-        return s, v * (g[:, None, :] if rm else g[:, :, None])
+        return (s, v * (g[:, None, :] if rm else g[:, :, None]), *ids)
+    return run
+
+
+def _with_ids(rnd):
+    """A round3 kernel wrapper under its plain version's contract: a round
+    that selects returns its neighbour ids last (``emit_wins``, at no
+    cost: the kernel writes them anyway), a graph-reuse round does not.
+    The ids a reuse round gets are those an earlier round emitted
+    (``emitted``: no range check, no device sync)."""
+    def run(x, folded, wins_in=None, **kw):
+        return rnd(x, folded, wins_in=wins_in, emit_wins=wins_in is None,
+                   emitted=wins_in is not None, **kw)
     return run
 
 
@@ -180,10 +200,12 @@ def _edge_trunk(oracle: bool):
 
 
 # trunk -> build(oracle) -> (first round, conv round, point block); a round
-# is (x, folded, p, **dims) -> (s, gated v)
+# is (x, folded, p, **dims) -> (s, gated v[, ids]); round3's rounds return
+# their ids (B, k, N), and its conv round takes ``wins_in``
 TRUNKS = {
-    "round3": _gated_trunk((sv_round3_first, sv_round3_first_plain),
-                           (sv_round3, sv_round3_plain),
+    "round3": _gated_trunk((functools.partial(sv_round3_first, emit_wins=True),
+                            sv_round3_first_plain),
+                           (_with_ids(sv_round3), sv_round3_plain),
                            (sv_point_block_cm, sv_point_block_cm_plain),
                            rm=False),
     "round2": _gated_trunk((sv_round2_first, sv_round2_first_plain),
@@ -361,28 +383,50 @@ class _DGCNNEngine:
 
     def _entry_sort(self, points: torch.Tensor):
         """(points, order): the cloud Morton-sorted on the round3 trunk in
-        approx mode or with ``config.morton_entry`` (svnet_tpu/infer.py:56-77,
-        :410, :765), else as given with order None."""
-        if self.trunk != "round3" or not (self.mode == "approx"
-                                          or config.morton_entry):
+        approx mode, with ``config.morton_entry``, or with graph reuse and a
+        ``config.reuse_gather_window`` (svnet_tpu/infer.py:56-77, :410,
+        :765), else as given with order None."""
+        if self.trunk != "round3" or not (
+                self.mode == "approx" or config.morton_entry
+                or (config.reuse_gather_window
+                    and config.graph_reuse != "none")):
             return points, None
         return morton.sort_points(points)
 
     def _trunk(self, points: torch.Tensor):
         """The four rounds, each round's v gated. round3: s (B, S_c, N) and
         v (B, 3V_c, N) as per-round j-major blocks; the row-major trunks:
-        s (B, N, S_c) and v (B, N, 3, V_c)."""
+        s (B, N, S_c) and v (B, N, 3, V_c).
+
+        Graph reuse (round3 only, svnet_tpu/infer.py:315-365): "spatial"
+        feeds the first round's ids to conv2..conv4, "conv2" conv2's to
+        conv3 and conv4; with 0 < ``config.reuse_k`` < k a reuse round
+        takes the nearest reuse_k ranks and runs at k = reuse_k."""
         p, k, rm = self.p, self.k, self.row_major
+        reuse, rk = config.graph_reuse, config.reuse_k
+        if reuse != "none" and self.trunk != "round3":
+            raise ValueError(f"graph_reuse={reuse!r} is ported on the round3 "
+                             f"trunk only, not on {self.trunk!r}")
         B, N, _ = points.shape
         dim = -1 if rm else 1  # the channel axis
         S1, V1 = self.dims["conv1"]
-        outs = [self._first(points, self.folded_first, p["conv1"], S_out=S1,
-                            V_out=V1, k=k)]
+        s, v, *ids = self._first(points, self.folded_first, p["conv1"],
+                                 S_out=S1, V_out=V1, k=k)
+        wins = ids[0] if reuse == "spatial" else None
+        outs = [(s, v)]
         for name, (S, V, S_out, V_out) in self.rounds.items():
             joint = torch.cat(outs[-1], dim=dim)
-            outs.append(self._round(joint, self.folded[name], p[name], S=S,
-                                    V=V, S_out=S_out, V_out=V_out, k=k,
-                                    binary=self.binary))
+            kk, kw = k, {}
+            if wins is not None:
+                kk = rk if 0 < rk < k else k
+                kw = dict(wins_in=wins[:, :kk],  # rank-major: the nearest kk
+                          gather_window=config.reuse_gather_window)
+            s, v, *ids = self._round(joint, self.folded[name], p[name], S=S,
+                                     V=V, S_out=S_out, V_out=V_out, k=kk,
+                                     binary=self.binary, **kw)
+            if reuse == "conv2" and name == "conv2":
+                wins = ids[0]
+            outs.append((s, v))
         s = torch.cat([o[0] for o in outs], dim=dim)
         if rm:
             return s, torch.cat([o[1].reshape(B, N, 3, -1) for o in outs], -1)

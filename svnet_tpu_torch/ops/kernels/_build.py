@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every entry point: (argtypes), all return an int (a
 # cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
 SIGNATURES = {
@@ -42,6 +43,9 @@ SIGNATURES = {
     # src, aa, 9 weights, s_out, v_out, ssum, wins, src_q, tile_scale; B N S
     # V S_out V_out k binary T L; stream
     "sv_round3_launch": [_P] * 17 + [_I] * 10 + [_P],
+    # src, wins, wins' batch stride, 9 weights, s_out, v_out, ssum; B N S V
+    # S_out V_out k binary; stream
+    "sv_round3_reuse_launch": [_P, _P, _L] + [_P] * 12 + [_I] * 8 + [_P],
     # src, gate, vrow, 10 weights and W1's packed signs (after w1), x_out,
     # smax, vsum; B N S V S_out V_out binary; stream
     "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],

@@ -21,21 +21,7 @@ import torch
 from svnet_tpu_torch.config import require_cuda
 from svnet_tpu_torch.ops.kernels import _build
 from svnet_tpu_torch.ops.kernels.fold import Folded
-from svnet_tpu_torch.ops.kernels.sv_round3 import conv_block_rows
-
-
-def check_ids(idx: torch.Tensor, B: int, N: int, k: int, device) -> None:
-    """Neighbour ids (B, N, k) int32 on ``device``, every id in [0, N)."""
-    if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32:
-        raise TypeError(f"idx: expected an int32 tensor, got "
-                        f"{getattr(idx, 'dtype', type(idx).__name__)}")
-    if tuple(idx.shape) != (B, N, k):
-        raise ValueError(f"idx: shape {tuple(idx.shape)}, expected {(B, N, k)}")
-    if idx.device != device:
-        raise ValueError(f"idx: on {idx.device}, expected {device}")
-    lo, hi = torch.aminmax(idx)
-    if int(lo) < 0 or int(hi) >= N:
-        raise ValueError(f"idx: ids in [{int(lo)}, {int(hi)}] leave [0, {N})")
+from svnet_tpu_torch.ops.kernels.sv_round3 import check_ids, conv_block_rows
 
 
 def svblock_gate(p: dict, s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,7 +64,7 @@ def sv_edge_block(src: torch.Tensor, idx: torch.Tensor, gate: torch.Tensor,
     B, N, _ = src.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
-    check_ids(idx, B, N, k, src.device)
+    check_ids(idx, (B, N, k), N, src.device)
     kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary)
     if src.device.type == "cpu":
         return sv_edge_block_plain(src, idx, gate, folded, **kw)

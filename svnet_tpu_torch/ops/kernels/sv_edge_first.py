@@ -7,7 +7,7 @@ ids of a separate kNN over the points.
 ``s (B, N, S_out)``, ``v (B, N, 3*V_out)`` UNGATED and ``s_mean (B, 6)``,
 the mean of the init-scalar edge features in the reference's c-major
 order ``[c*3 + j]`` (sv_edge_first.py:84-88), which the caller's conv1
-gate reads. The ids are checked as ``sv_edge.check_ids`` does.
+gate reads. The ids are checked as ``sv_round3.check_ids`` does.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches
 csrc/sv_edge.cu or raises. ``sv_edge_first_block.launches`` counts
@@ -21,8 +21,11 @@ import torch
 from svnet_tpu_torch.config import require_cuda
 from svnet_tpu_torch.ops.kernels import _build
 from svnet_tpu_torch.ops.kernels.fold import Folded
-from svnet_tpu_torch.ops.kernels.sv_edge import check_ids
-from svnet_tpu_torch.ops.kernels.sv_round3 import first_block_rows, first_perm
+from svnet_tpu_torch.ops.kernels.sv_round3 import (
+    check_ids,
+    first_block_rows,
+    first_perm,
+)
 
 
 def sv_edge_first_block_plain(points: torch.Tensor, idx: torch.Tensor,
@@ -42,7 +45,7 @@ def sv_edge_first_block(points: torch.Tensor, idx: torch.Tensor,
     B, N, _ = points.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
-    check_ids(idx, B, N, k, points.device)
+    check_ids(idx, (B, N, k), N, points.device)
     if points.device.type == "cpu":
         return sv_edge_first_block_plain(points, idx, folded, S_out=S_out,
                                          V_out=V_out, k=k)

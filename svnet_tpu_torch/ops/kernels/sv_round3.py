@@ -31,6 +31,16 @@ the best row m = i mod L); the kernel's selection folds in shared memory
 and is told L (0 where nothing folds, L = N: approx is fast bitwise). Its
 key tile and grid follow ``config.approx_gather_bits`` (``quant.gb8``).
 A k above L raises.
+
+Graph reuse (``wins_in``, svnet_tpu/ops/pallas/sv_round3.py's take_wins
+round): a conv round given an earlier round's neighbour ids (B, k, N)
+int32 selects nothing and runs the block on them, reading the rows
+through the mode's gather grid in fast and approx mode. It returns no ids,
+makes one launch (``sv_round3_reuse``, also counted on
+``sv_round3.launches``) and needs no pre-pass. ``gather_window``, the
+TPU's compaction of the winners' row blocks, is bitwise the full gather,
+which is what runs here. The ids may be the first ranks of a wider
+tensor (``wins[:, :r]``): the kernel takes their batch stride.
 """
 
 from __future__ import annotations
@@ -140,6 +150,26 @@ def _fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool):
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def check_ids(idx: torch.Tensor, shape: tuple, N: int, device,
+              in_range: bool = False) -> None:
+    """Neighbour ids of ``shape``, int32 on ``device``, every id in [0, N):
+    the kernels never read outside the source (ROADMAP C17). The range
+    check waits for the device; ``in_range`` skips it, for ids that a
+    selecting round emitted over the same N points."""
+    if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32:
+        raise TypeError(f"idx: expected an int32 tensor, got "
+                        f"{getattr(idx, 'dtype', type(idx).__name__)}")
+    if tuple(idx.shape) != tuple(shape):
+        raise ValueError(f"idx: shape {tuple(idx.shape)}, expected {tuple(shape)}")
+    if idx.device != device:
+        raise ValueError(f"idx: on {idx.device}, expected {device}")
+    if in_range:
+        return
+    lo, hi = torch.aminmax(idx)
+    if int(lo) < 0 or int(hi) >= N:
+        raise ValueError(f"idx: ids in [{int(lo)}, {int(hi)}] leave [0, {N})")
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +304,19 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
 
 def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
-                    T: int | None = None, mode: str = "fast"):
+                    T: int | None = None, mode: str = "fast",
+                    idx: torch.Tensor | None = None):
     """A conv round's function on row-major x (B, N, S + 3V), shared by the
     plain versions of both layouts: the kNN (fast or approx ``mode``'s on
-    key tiles of ``T`` when given), then ``conv_block_rows``; (s (B, N,
-    S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k)
-    int32)."""
+    key tiles of ``T`` when given) unless the ids ``idx`` (B, N, k) are
+    given (graph reuse: x through ``mode``'s grid, no selection), then
+    ``conv_block_rows``; (s (B, N, S_out), v (B, N, 3*V_out) ungated,
+    s_edge_mean (B, 2S), ids (B, N, k) int32)."""
     B, N, _ = x.shape
-    idx, rows = _select(x, k, T, mode)
+    if idx is None:
+        idx, rows = _select(x, k, T, mode)
+    else:
+        rows = x if mode == "exact" else quant.grid_rows(x, mode)
     s, vm, s_e = conv_block_rows(rows, idx, folded, S=S, V=V, S_out=S_out,
                                  V_out=V_out, binary=binary)
     se_mean = _point_sums(s_e).sum(dim=2) / (N * k)
@@ -290,9 +325,20 @@ def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
 
 def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
-                    mode: str = "exact", T: int | None = None):
+                    mode: str = "exact", T: int | None = None,
+                    wins_in: torch.Tensor | None = None,
+                    gather_window: int = 0):
     """Plain version of a conv round on channel-major src (B, S+3V, N);
-    same outputs as the kernel, with the neighbour ids (B, k, N) last."""
+    same outputs as the kernel, with the neighbour ids (B, k, N) last.
+    Given ``wins_in`` (B, k, N) (graph reuse) it is the block on those ids
+    over ``mode``'s grid rows, no selection, and returns no ids; any
+    ``gather_window`` gathers in full, as the kernel does."""
+    if wins_in is not None:
+        config.check_mode(mode)
+        s, v, se_mean, _ = conv_round_rows(
+            src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out,
+            k=k, binary=binary, mode=mode, idx=wins_in.transpose(1, 2))
+        return s.transpose(1, 2), v.transpose(1, 2), se_mean
     T = key_tile(mode, src.shape[2], S + 3 * V, T, k)
     s, v, se_mean, idx = conv_round_rows(
         src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k,
@@ -300,20 +346,49 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     return s.transpose(1, 2), v.transpose(1, 2), se_mean, idx.transpose(1, 2)
 
 
+def _conv_weights(folded: Folded, S: int, V: int, S_out: int, V_out: int,
+                  dev) -> list:
+    """The conv round's folded weights, checked, as the launchers' pointers."""
+    IN1, f = 2 * S + 6 * V, folded
+    return [_build.check_arg(f["wz"], "wz", (2 * V, 3), dev),
+            _build.check_arg(f["w1"], "w1", (IN1, S_out), dev),
+            _build.check_arg(f["beta"], "beta", (1, IN1), dev),
+            _build.check_arg(f["a1"], "a1", (1, S_out), dev),
+            _build.check_arg(f["b1"], "b1", (1, S_out), dev),
+            _build.check_arg(f["w2"], "w2", (2 * V, V_out), dev),
+            _build.check_arg(f["scale2"], "scale2", (1, V_out), dev),
+            _build.check_arg(f["a2"], "a2", (1, V_out), dev),
+            _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
+
+
 def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
               S_out: int, V_out: int, k: int, binary: bool = True,
               mode: str = "exact", T: int | None = None,
-              emit_wins: bool = False):
+              emit_wins: bool = False, wins_in: torch.Tensor | None = None,
+              gather_window: int = 0, emitted: bool = False):
     """src (B, S+3V, N) channel-major [s | v i-major] -> (s (B, S_out, N),
     v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)[, wins (B, k, N))];
     ``mode`` "exact", "fast" or "approx" (key tiles of ``T``: see the
-    module's docstring)."""
+    module's docstring). ``wins_in`` (B, k, N) int32: graph reuse, the
+    round runs ``sv_round3_reuse`` on those ids (``emitted``: as it says
+    there); it excludes ``emit_wins``, and ``gather_window`` (0, or a
+    multiple of 128) needs it."""
     C = S + 3 * V
     if src.dim() != 3 or src.shape[1] != C:
         raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, {C}, N)")
     B, _, N = src.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
+    if gather_window < 0 or gather_window % 128:
+        raise ValueError(f"gather_window={gather_window}: 0 or a multiple of 128")
+    if wins_in is not None:
+        if emit_wins:
+            raise ValueError("wins_in (graph reuse) excludes emit_wins")
+        return sv_round3_reuse(src, wins_in, folded, S=S, V=V, S_out=S_out,
+                               V_out=V_out, k=k, binary=binary, mode=mode,
+                               emitted=emitted)
+    if gather_window:
+        raise ValueError("gather_window requires wins_in (a graph-reuse round)")
     T = key_tile(mode, N, C, T, k)
     if src.device.type == "cpu":
         out = sv_round3_plain(src, folded, S=S, V=V, S_out=S_out,
@@ -321,16 +396,7 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
         return out if emit_wins else out[:3]
     dev = require_cuda(src.device)
     _build.check_arg(src, "src", (B, C, N), dev)
-    IN1, f = 2 * S + 6 * V, folded
-    w = [_build.check_arg(f["wz"], "wz", (2 * V, 3), dev),
-         _build.check_arg(f["w1"], "w1", (IN1, S_out), dev),
-         _build.check_arg(f["beta"], "beta", (1, IN1), dev),
-         _build.check_arg(f["a1"], "a1", (1, S_out), dev),
-         _build.check_arg(f["b1"], "b1", (1, S_out), dev),
-         _build.check_arg(f["w2"], "w2", (2 * V, V_out), dev),
-         _build.check_arg(f["scale2"], "scale2", (1, V_out), dev),
-         _build.check_arg(f["a2"], "a2", (1, V_out), dev),
-         _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
+    w = _conv_weights(folded, S, V, S_out, V_out, dev)
     lib = _build.lib()
     rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
     rows_q, scale, T, L = _fast_args(rows, T, mode, cm=False)
@@ -351,3 +417,56 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
 
 
 sv_round3.launches = 0
+
+
+def sv_round3_reuse(src: torch.Tensor, wins: torch.Tensor, folded: Folded, *,
+                    S: int, V: int, S_out: int, V_out: int, k: int,
+                    binary: bool = True, mode: str = "exact",
+                    emitted: bool = False):
+    """A graph-reuse conv round, what ``sv_round3(wins_in=wins)`` runs: the
+    block on the ids ``wins`` (B, k, N) int32, every id in [0, N), over
+    src's rows (exact) or their gather grid (fast, approx) -> (s (B, S_out,
+    N), v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)). A rank prefix
+    ``w[:, :k]`` of a wider contiguous (B, k', N) tensor is read in place;
+    ids in any other layout are copied to a contiguous tensor first.
+    ``emitted``: the ids are (a rank prefix of) those a selecting round
+    emitted over these N points, as the engines' are, so they lie in
+    [0, N) by construction and the range check is skipped: it waits for
+    the device, which then idles until the host queues the next work
+    (PERF.md §6). Shape, dtype and device are still checked."""
+    config.check_mode(mode)
+    C = S + 3 * V
+    if src.dim() != 3 or src.shape[1] != C:
+        raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, {C}, N)")
+    B, _, N = src.shape
+    if not 1 <= k <= N:
+        raise ValueError(f"k={k} must lie in [1, N={N}]")
+    check_ids(wins, (B, k, N), N, src.device, in_range=emitted)
+    if src.device.type == "cpu":
+        return sv_round3_plain(src, folded, S=S, V=V, S_out=S_out,
+                               V_out=V_out, k=k, binary=binary, mode=mode,
+                               wins_in=wins)
+    dev = require_cuda(src.device)
+    _build.check_arg(src, "src", (B, C, N), dev)
+    if wins.stride(2) != 1 or wins.stride(1) != N or (
+            B > 1 and wins.stride(0) < k * N):
+        wins = wins.contiguous()  # not a rank prefix of (B, k', N) ids
+    bs = wins.stride(0) if B > 1 else k * N
+    w = _conv_weights(folded, S, V, S_out, V_out, dev)
+    lib = _build.lib()
+    rows = src.transpose(1, 2)  # the kernel reads neighbour rows
+    rows = (rows if mode == "exact" else quant.grid_rows(rows, mode)).contiguous()
+    s = torch.empty((B, S_out, N), device=dev)
+    v = torch.empty((B, 3 * V_out, N), device=dev)
+    ssum = torch.empty((B, 2 * S, N), device=dev)
+    err = lib.sv_round3_reuse_launch(
+        rows.data_ptr(), wins.data_ptr(), bs, *w, s.data_ptr(), v.data_ptr(),
+        ssum.data_ptr(), B, N, S, V, S_out, V_out, k, int(binary),
+        _build.stream_ptr(dev))
+    _build.check(err, "sv_round3_reuse")
+    sv_round3_reuse.launches += 1
+    sv_round3.launches += 1
+    return s, v, ssum.sum(dim=2) / (N * k)
+
+
+sv_round3_reuse.launches = 0

@@ -769,6 +769,71 @@ def test_approx_rounds_match_plain_on_card(shape, bits):
         config.set_approx_gather_bits(was[1])
 
 
+# graph reuse: (B, N, k, r) -- the ids of a k selection, their first r
+# ranks taken as a strided view at B >= 2 (r < k: a batch stride of k * N,
+# not r * N), N and k that no edge tile (32 centres x 2 ranks) divides
+REUSE_FORCED = [(2, 1000, 20, 7), (2, 1001, 33, 33), (3, 256, 40, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8], ids=["gb16", "gb8"])
+@pytest.mark.parametrize("shape", REUSE_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-r{s[3]}" for s in REUSE_FORCED])
+def test_reuse_rounds_match_plain_on_card(shape, bits):
+    """B2 on given ids (``wins_in``) in exact, fast and approx mode at 16-
+    and 8-bit gathers, (5, 3) -> (13, 7) binary and FP and cls conv4's
+    widths binary: bitwise its plain version on the same strided rank
+    prefix, on its contiguous copy and on point-major ids; one launch, no
+    pre-pass; on the selecting round's own ids (r = k) bitwise that
+    round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    b, n, k, r = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(31)
+    was = (config.fast_gather_bits, config.approx_gather_bits)
+    config.set_fast_gather_bits(bits)
+    config.set_approx_gather_bits(bits)
+    try:
+        for S, V, S_out, V_out, modes in ((5, 3, 13, 7, (True, False)),
+                                          (64, 21, 128, 42, (True,))):
+            src = _select_input(b, n, S + 3 * V, False, 32).to(dev)
+            src = src.transpose(1, 2).contiguous()
+            for binary in modes:
+                f = {name: w.to(dev) for name, w in
+                     _round_weights(S, V, S_out, V_out, binary, gen).items()}
+                kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, binary=binary)
+                *sel, wins = sv_round3(src, f, k=k, emit_wins=True, **kw)
+                view = wins[:, :r]
+                for mode in ("exact", "fast", "approx"):
+                    before = (kr.sv_round3_reuse.launches, kr.sv_round3.launches,
+                              kk.neg_min.launches)
+                    got = sv_round3(src, f, k=r, mode=mode, wins_in=view, **kw)
+                    assert (kr.sv_round3_reuse.launches - before[0],
+                            kr.sv_round3.launches - before[1],
+                            kk.neg_min.launches - before[2]) == (1, 1, 0)
+                    want = sv_round3_plain(src, f, k=r, mode=mode, wins_in=view, **kw)
+                    dense = sv_round3(src, f, k=r, mode=mode,
+                                      wins_in=view.contiguous(), **kw)
+                    # point-major storage: copied, not read in place
+                    pm = wins.transpose(1, 2).contiguous().transpose(1, 2)[:, :r]
+                    copied = sv_round3(src, f, k=r, mode=mode, wins_in=pm, **kw)
+                    for g, w, d, c in zip(got, want, dense, copied):
+                        assert torch.equal(g, w) and torch.equal(g, d)
+                        assert torch.equal(g, c)
+                    if mode == "exact" and r == k:
+                        for g, w in zip(got, sel):
+                            assert torch.equal(g, w)
+    finally:
+        config.set_fast_gather_bits(was[0])
+        config.set_approx_gather_bits(was[1])
+
+
 # (kernel, B, N, S, V, S_out, V_out): Cin = 14 and S_out = 13 divide no K
 # chunk (32) and no MMA tile; conv_fuse's and partseg conv5's widths (the
 # 64- and 32-point tiles) at ragged N; B3 channel-major with two vector
