@@ -19,7 +19,8 @@ the XNOR-popcount +-1 product through its bench
 (utils/bench_binary_matmul.py); then fast mode (packed 18-bit kNN keys per
 key tile, 16- and 8-bit gather grids) and approx mode (those keys folded
 to approx_fold lanes, the Morton entry sort) through B1 and B2 of both
-SV-DGCNN engines and the SV-PointNet classifier. Phases; any failure
+SV-DGCNN engines and the SV-PointNet classifier, graph reuse, and the
+certified Morton candidate window at N = 8192. Phases; any failure
 raises and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
@@ -185,6 +186,31 @@ raises and the script exits non-zero:
      reuse round (which the engines skip for emitted ids: what its
      device sync costs) and top-1 against the same engine without reuse
      logged (random weights: no bar)
+ 19  the certified Morton candidate window (window=): 5 requests each
+     through SVDGCNNClsEngine (16, 8192, 3) on Morton-sorted surface
+     clouds, exact and approx (8-bit gathers, fold 256), with the W that
+     phase 2 found to certify B1 there; per request one sv_round3_first
+     and three sv_round3, all through the windowed selection (the
+     wrappers' window_launches), the pre-pass's kernels window_tau and
+     window_keep four times each, approx mode's windowed scale pre-pass
+     four times; exact logits bitwise the engine without a window, a
+     4-cloud request bitwise the windowed oracle twin's; then the same
+     engine without a window on the same requests; partseg requests of
+     (4, 8192, 3), k = 40, exact, windowed and not, logits bitwise;
+     medians and each round's kept share of the 128-row blocks and
+     certificate printed with the card
+
+Phase 2 also holds the window (phase2_window): B1 and B2 with window=W
+against their plain versions, ids and outputs bitwise, at phase 19's cls
+shape (16, 8192, 20) on Morton-sorted surface clouds in exact, fast and
+approx mode at 16 and 8 bits, binary timed beside the same kernel
+without a window, FP bitwise, exact also bitwise the full scan; the
+window's scale pre-pass (neg_min over the window) on every round's input
+and the prune pre-pass (plain PyTorch) timed; shuffled clouds (the
+certificate fails and the kernels scan all N, ok read on the card); the
+cls shape (128, 1024, 20), where no W < N certifies surface clouds; and
+WINDOW_FORCED (strand clouds at T = 128: k = 33, duplicated points
+certified and not, approx L = 48, a batch with one shuffled cloud).
 
 Phase 2 also holds graph reuse (phase2_reuse): B2 on given ids
 (sv_round3_reuse, "B2 reuse") at the cls and partseg shapes, conv2-4 on
@@ -2658,6 +2684,491 @@ def phase18(w_bin, gen, dev, counters, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the candidate window (window=)
+# ---------------------------------------------------------------------------
+
+# the window's cls shape (phase 19): the JAX package's long-cloud lever
+# wins at N >= 8192 (README.md:502-506); B = 16, k = 20. The partseg
+# request: B = 4, N = 8192, k = 40
+B_LONG, N_LONG, B_LONG_PSEG = 16, 8192, 4
+# (mode, gather bits) of the window's phase-2 cases; the kernels line
+# times exact mode's and approx mode's at 8 bits (the serving pick's)
+WINDOW_MODES = (("exact", 16), ("fast", 16), ("fast", 8), ("approx", 16),
+                ("approx", 8))
+WINDOW_TIMED = (("exact", 16), ("approx", 8))
+
+
+def window_name(kernel, mode, bits):
+    """The kernels line's name of a windowed entry: 'sv_round3 window',
+    'sv_round3_first window approx8', 'neg_min window'."""
+    return f"{kernel} window" + ("" if mode == "exact" else f" {mode}{bits}")
+
+
+@contextlib.contextmanager
+def mode_knobs(bits, fold):
+    """Both gather grids at ``bits`` and the approx fold inside the block."""
+    with approx_knobs(bits, fold), gather_bits(bits):
+        yield
+
+
+def surface(b, n, seed, dev, sort=True):
+    """Seeded deformed-sphere surface clouds (utils/synth.py), Morton-sorted
+    unless ``sort`` is False."""
+    import torch
+
+    from svnet_tpu_torch.ops import morton
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    x = torch.from_numpy(surface_clouds(seed, b, n)).to(dev)
+    return morton.sort_points(x)[0] if sort else x
+
+
+def window_for(x, k, T):
+    """A window width that certifies x (B, N, C) with key tiles of T and
+    room to spare for other clouds: the kept rows of its fullest tile plus
+    512, rounded up to a multiple of 1024."""
+    from svnet_tpu_torch.ops.window import prune_prepass
+
+    n = x.shape[1]
+    keep, _ = prune_prepass(x, k, T, n - 128)
+    W = -(-(int(keep.sum(-1).max()) * 128 + 512) // 1024) * 1024
+    if W >= n:
+        raise AssertionError(f"phase 2 window: no W < N={n} certifies the "
+                             f"sorted clouds (kept rows {W})")
+    return W
+
+
+def window_pairs(x, k, T, W):
+    """(centre, candidate) pairs the windowed selection ranks on x: each
+    tile's kept rows where the batch certifies, else all N; and ok."""
+    from svnet_tpu_torch.ops.window import prune_prepass
+
+    b, n, _ = x.shape
+    keep, ok = prune_prepass(x, k, T, W)
+    if bool(ok):
+        return T * 128.0 * int(keep.sum()), True, float(keep.float().mean())
+    return float(b) * n * n, False, float(keep.float().mean())
+
+
+def timed_window(rep, label, name, kern, plain, full, cost, time_plain):
+    """A windowed call (kern) bitwise its plain version, ids included, then
+    timed beside ``full``, the same kernel without a window on the same
+    input, and (``time_plain``) the plain version."""
+    ko, po = kern(), plain()
+    sync(ko[0].device)
+    check_equal(label, ko, po)
+    ms, full_ms = cuda_ms(kern), cuda_ms(full)
+    plain_ms = cuda_ms(plain, reps=1) if time_plain else None
+    log(f"  {label}: ids and outputs bitwise; kernel {ms} ms (full scan "
+        f"{full_ms} ms), plain {plain_ms} ms, bound {cost}")
+    if time_plain:
+        rep.add(name, 0.0, ms, plain_ms, cost)
+    return po
+
+
+def compare_prepass(rep, x, k, T, W):
+    """The pre-pass's kernels (ops/window.py: window_tau, each centre's
+    k-th band distance; window_keep, the block test) bitwise their plain
+    versions on x (B, N, C), each timed beside its plain version; the whole
+    pre-pass (prune_prepass, kernels and PyTorch) timed."""
+    from svnet_tpu_torch.ops import window as win
+
+    b, n, C = x.shape
+    nb = n // 128
+    tau = win.window_tau(x, k)
+    check_equal(f"window_tau C={C}", (tau,), (win.window_tau_plain(x, k),))
+    xb = x.reshape(b, nb, 128, C)
+    lo, hi = xb.amin(dim=2).contiguous(), xb.amax(dim=2).contiguous()
+    check_equal(f"window_keep C={C}", (win.window_keep(x, lo, hi, tau, T),),
+                (win.window_keep_plain(x, lo, hi, tau, T),))
+    costs = {"window_tau": bound(b * n * 384.0 * (2 * C + 3), 4.0 * b * n * (C + 1)),
+             "window_keep": bound(b * n * nb * C * 6.0,
+                                  4.0 * (b * n * (C + 1) + 2 * b * nb * C
+                                         + b * (n // T) * nb))}
+    calls = {"window_tau": (lambda: win.window_tau(x, k),
+                            lambda: win.window_tau_plain(x, k)),
+             "window_keep": (lambda: win.window_keep(x, lo, hi, tau, T),
+                             lambda: win.window_keep_plain(x, lo, hi, tau, T))}
+    for name, (kern, plain) in calls.items():
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=1)
+        rep.add(name, 0.0, ms, plain_ms, costs[name])
+        log(f"  {name} B={b} N={n} C={C} k={k} T={T}: bitwise; kernel {ms} ms, "
+            f"plain {plain_ms} ms, bound {costs[name]}")
+    pre_ms = cuda_ms(lambda: win.prune_prepass(x, k, T, W))
+    log(f"  prune_prepass C={C}: {pre_ms} ms (both kernels, the boxes, the "
+        "margin and ok)")
+
+
+def phase2_window(rep, eng, eng_fp, gen, dev):
+    """B1 and B2 with the candidate window against their plain versions,
+    ids and outputs bitwise, in exact, fast and approx mode (fold 256) at
+    16- and 8-bit gathers: at phase 19's cls shape (16, 8192, 20) on
+    Morton-sorted surface clouds at a W that certifies B1's input
+    (``window_for``; the conv rounds certify or not as their features
+    give), inputs chained through the plain windowed versions, binary
+    timed beside the same kernel without a window, FP bitwise; exact mode
+    also bitwise the full scan. The pre-pass's kernels (``compare_prepass``)
+    and approx mode's windowed scale pre-pass bitwise and timed. Then shuffled
+    clouds (the certificate fails: the full scan, read on the card), the
+    cls shape (128, 1024, 20), where no W < N certifies surface clouds,
+    and WINDOW_FORCED. Returns W."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import quant
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.ops.window import prune_prepass
+
+    b, n, k = B_LONG, N_LONG, K
+    pts = surface(b, n, SEED + 40, dev)
+    T1 = quant.round3_tiles(n, 3, "exact")
+    W = window_for(pts, k, T1)
+    log(f"  window: W={W} at B={b} N={n} k={k} (B1's key tile T={T1})")
+    for mode, bits in WINDOW_MODES:
+        timed = (mode, bits) in WINDOW_TIMED
+        with mode_knobs(bits, 256):
+            S1, V1 = eng.dims["conv1"]
+            kw = dict(S_out=S1, V_out=V1, k=k, mode=mode)
+            f = eng.folded_first
+            T = quant.round3_tiles(n, 3, mode)
+            pairs, ok, share = window_pairs(pts, k, T, W)
+            ef, pm1 = edge_flops(0, 1, S1, V1, True)
+            cost = bound(pairs * 9.0 + b * n * k * ef,
+                         4.0 * b * n * (3 + S1 + 3 * V1 + 6 + k), b * n * k * pm1)
+            name = window_name("sv_round3_first", mode, bits)
+            po = timed_window(
+                rep, f"sv_round3_first window {mode}{bits} B={b} N={n} k={k} "
+                f"T={T} W={W} certified {ok} kept {share:.4f}", name,
+                lambda: kr.sv_round3_first(pts, f, emit_wins=True, window=W, **kw),
+                lambda: kr.sv_round3_first_plain(pts, f, window=W, **kw),
+                lambda: kr.sv_round3_first(pts, f, **kw), cost, timed)
+            if mode == "exact":
+                check_equal(f"{name} = the full scan", po,
+                            kr.sv_round3_first(pts, f, emit_wins=True, **kw))
+            inputs = [pts]
+            g = se_gate(eng.p["conv1"], po[2]).repeat(1, 3)
+            outs = [(po[0], po[1] * g[:, :, None])]
+            for rnd, (S, V, S_out, V_out) in eng.rounds.items():
+                src = torch.cat(outs[-1], dim=1).contiguous()
+                C = S + 3 * V
+                x = src.transpose(1, 2).contiguous()
+                inputs.append(x)
+                T = quant.round3_tiles(n, C, mode)
+                pairs, ok, share = window_pairs(x, k, T, W)
+                ef, pm1 = edge_flops(S, V, S_out, V_out, binary=True)
+                cost = bound(pairs * (2.0 * C + 3) + b * n * k * ef,
+                             4.0 * b * n * (C + S_out + 3 * V_out + 2 * S + k),
+                             b * n * k * pm1)
+                name = window_name("sv_round3", mode, bits)
+                kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, mode=mode)
+                fb, ffp = eng.folded[rnd], eng_fp.folded[rnd]
+                po = timed_window(
+                    rep, f"sv_round3 window {mode}{bits} {rnd} binary B={b} "
+                    f"N={n} T={T} certified {ok} kept {share:.4f}", name,
+                    lambda: kr.sv_round3(src, fb, emit_wins=True, window=W, **kw),
+                    lambda: kr.sv_round3_plain(src, fb, binary=True, window=W, **kw),
+                    lambda: kr.sv_round3(src, fb, **kw), cost, timed)
+                check_equal(f"sv_round3 window {mode}{bits} {rnd} fp",
+                            kr.sv_round3(src, ffp, binary=False, emit_wins=True,
+                                         window=W, **kw),
+                            kr.sv_round3_plain(src, ffp, binary=False, window=W, **kw))
+                if mode == "exact":
+                    check_equal(f"{name} {rnd} = the full scan", po,
+                                kr.sv_round3(src, fb, emit_wins=True, **kw))
+                g = se_gate(eng.p[rnd], po[2]).repeat(1, 3)
+                outs.append((po[0], po[1] * g[:, :, None]))
+            if mode == "approx" and bits == 8:
+                for x in inputs:  # the scale pre-pass over each round's window
+                    C = x.shape[-1]
+                    T = quant.round3_tiles(n, C, mode)
+                    keep, okt = prune_prepass(x, k, T, W)
+                    win = (T, W, keep, okt.to(torch.int32))
+                    check_equal(f"neg_min window C={C}", (kk.neg_min(x, win),),
+                                (kk.neg_min_window_plain(x, win),))
+                    pairs, ok, _ = window_pairs(x, k, T, W)
+                    cost = bound(pairs * (2.0 * C + 3), 4.0 * b * n * (C + 1))
+                    ms = cuda_ms(lambda: kk.neg_min(x, win))
+                    plain_ms = cuda_ms(lambda: kk.neg_min_window_plain(x, win), reps=1)
+                    full_ms = cuda_ms(lambda: kk.neg_min(x))
+                    log(f"  neg_min window C={C} T={T} certified {ok}: bitwise; "
+                        f"kernel {ms} ms (full {full_ms} ms), plain {plain_ms} ms, "
+                        f"bound {cost}")
+                    rep.add(window_name("neg_min", mode, bits), 0.0, ms,
+                            plain_ms, cost)
+            if mode == "exact":
+                for x in inputs:
+                    compare_prepass(rep, x, k, quant.round3_tiles(n, x.shape[-1], mode), W)
+    # shuffled clouds: the certificate fails, the windowed kernels scan all
+    # N rows (ok read on the card)
+    shuffled = surface(b, n, SEED + 41, dev, sort=False)
+    for mode, bits in (("exact", 16), ("approx", 8)):
+        with mode_knobs(bits, 256):
+            S1, V1 = eng.dims["conv1"]
+            kw = dict(S_out=S1, V_out=V1, k=k, mode=mode)
+            f = eng.folded_first
+            T = quant.round3_tiles(n, 3, mode)
+            _, ok, share = window_pairs(shuffled, k, T, W)
+            if ok:
+                raise AssertionError(f"phase 2 window: W={W} certifies shuffled "
+                                     "clouds")
+            got = kr.sv_round3_first(shuffled, f, emit_wins=True, window=W, **kw)
+            check_equal(f"sv_round3_first window shuffled {mode}{bits}", got,
+                        kr.sv_round3_first_plain(shuffled, f, window=W, **kw))
+            check_equal(f"sv_round3_first window shuffled {mode}{bits} = full",
+                        got, kr.sv_round3_first(shuffled, f, emit_wins=True, **kw))
+            log(f"  sv_round3_first window shuffled {mode}{bits} B={b} N={n} "
+                f"W={W}: certified {ok} (kept {share:.4f}); bitwise the plain "
+                "version and the full scan")
+    # the cls shape: no W < N certifies surface clouds at N = 1024
+    pts = surface(B, N, SEED + 42, dev)
+    f = eng.folded_first
+    S1, V1 = eng.dims["conv1"]
+    T = quant.round3_tiles(N, 3, "exact")
+    _, ok, share = window_pairs(pts, K, T, 512)
+    got = kr.sv_round3_first(pts, f, S_out=S1, V_out=V1, k=K, emit_wins=True,
+                             window=512)
+    check_equal("sv_round3_first window cls", got, kr.sv_round3_first_plain(
+        pts, f, S_out=S1, V_out=V1, k=K, window=512))
+    src = torch.cat([got[0], got[1]], dim=1).contiguous()
+    S, V, S_out, V_out = eng.rounds["conv2"]
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=K, window=512)
+    check_equal("sv_round3 window cls conv2",
+                kr.sv_round3(src, eng.folded["conv2"], emit_wins=True, **kw),
+                kr.sv_round3_plain(src, eng.folded["conv2"], binary=True, **kw))
+    log(f"  window cls B={B} N={N} k={K} W=512: B1 certified {ok} (kept "
+        f"{share:.4f}); B1 and conv2 bitwise their plain versions")
+    for bits in (16, 8):
+        phase2_window_forced(bits, gen, dev)
+    return W
+
+
+# (B, N, k, W, approx fold, input, key tile T) on strand clouds
+# (utils/synth.py), as tests/test_torch_cuda.py's: k = 33 above a
+# 32-entry list; duplicated points at a W that certifies (384) and one
+# that does not (256); approx W = 384 at fold 64 (L = 48); one cloud of
+# the batch shuffled, so the whole batch falls back; T = 256
+WINDOW_FORCED = ((2, 1024, 33, 384, 256, None, 128), (3, 512, 20, 256, 256, "dup", 128),
+                 (3, 512, 20, 384, 256, "dup", 128), (2, 1024, 20, 384, 64, None, 128),
+                 (2, 1024, 20, 384, 256, "mixed", 128), (2, 2048, 20, 768, 256, None, 256))
+
+
+def strand_input(b, n, c, kind, seed, dev):
+    """Strand clouds (B, N, C), duplicated or with the last cloud shuffled
+    as ``kind`` says."""
+    import torch
+
+    from svnet_tpu_torch.utils.synth import strand_clouds
+
+    x = torch.from_numpy(strand_clouds(seed, b, n, c))
+    if kind == "dup":
+        h = x[:, 1::2].shape[1]
+        x[:, 1::2] = x[:, ::2][:, :h]
+    elif kind == "mixed":
+        x[-1] = x[-1, torch.randperm(n, generator=torch.Generator().manual_seed(seed))]
+    return x.to(dev)
+
+
+def phase2_window_forced(bits, gen, dev):
+    """B1 (xyz) and B2 ((5, 3) -> (13, 7) binary and FP) with the window at
+    WINDOW_FORCED in exact, fast and approx mode, ids and outputs bitwise
+    their plain versions; the certificate as each case intends."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.ops.window import prune_prepass
+
+    for b, n, k, W, fold, kind, T in WINDOW_FORCED:
+        with mode_knobs(bits, fold):
+            pts = strand_input(b, n, 3, kind, 41, dev)
+            rows = strand_input(b, n, 14, kind, 42, dev)
+            src = rows.transpose(1, 2).contiguous()
+            want_ok = kind is None or (kind == "dup" and W == 384)
+            for x in (pts, rows):
+                if bool(prune_prepass(x, k, T, W)[1]) != want_ok:
+                    raise AssertionError(f"window forced {(b, n, k, W, kind)}: "
+                                         f"certificate is not {want_ok}")
+            f1 = {name: torch.randn(*shape, generator=gen).to(dev)
+                  for name, shape in (("wz0", (2, 3)), ("wz1", (2, 3)),
+                                      ("w1", (12, 32)), ("a1", (1, 32)),
+                                      ("b1", (1, 32)), ("w2", (2, 10)),
+                                      ("a2", (1, 10)), ("b2", (1, 10)))}
+            for mode in ("exact", "fast", "approx"):
+                kw = dict(S_out=32, V_out=10, k=k, mode=mode, T=T, window=W)
+                tag = f"window forced {mode}{bits} B={b} N={n} k={k} W={W}"
+                check_equal(f"sv_round3_first {tag}",
+                            kr.sv_round3_first(pts, f1, emit_wins=True, **kw),
+                            kr.sv_round3_first_plain(pts, f1, **kw))
+                for binary in (True, False):
+                    f = round_weights(5, 3, 13, 7, binary, gen, dev)
+                    kw = dict(S=5, V=3, S_out=13, V_out=7, k=k, binary=binary,
+                              mode=mode, T=T, window=W)
+                    check_equal(f"sv_round3 {tag}",
+                                kr.sv_round3(src, f, emit_wins=True, **kw),
+                                kr.sv_round3_plain(src, f, **kw))
+        log(f"  window{bits} forced B={b} N={n} k={k} W={W} fold={fold} T={T}"
+            + (f" {kind}" if kind else "") + f": certified {want_ok}; B1 and "
+            "B2 (binary, fp) bitwise their plain versions in exact, fast and "
+            "approx mode")
+
+
+def check_launches(tag, per, want_per):
+    """Launches per request by counter name (``per``) against ``want_per``
+    (absent names: none)."""
+    want = {name: want_per.get(name, 0) for name in per}
+    if per != want:
+        raise AssertionError(f"{tag}: launches per request {per} != {want}")
+
+
+class WindowCount:
+    """A wrapper's windowed launches (``<wrapper>.window_launches``) as a
+    counter: ``__name__`` '<wrapper> window', ``launches`` read and set."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = f"{fn.__name__} window"
+
+    @property
+    def launches(self):
+        return self.fn.window_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.window_launches = value
+
+
+@contextlib.contextmanager
+def window_stats(record):
+    """Appends (channels, kept share of the blocks, certified) of each
+    windowed round to ``record``. It reads the certificate on the host, so
+    it runs on a pass of its own, never a timed one."""
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+
+    was = kr.round_window
+
+    def spy(x, k, T, window, mode, plain=False):
+        win = was(x, k, T, window, mode, plain)
+        if win is not None:
+            record.append((x.shape[-1], round(float(win[2].float().mean()), 4),
+                           bool(win[3])))
+        return win
+
+    kr.round_window = spy
+    try:
+        yield
+    finally:
+        kr.round_window = was
+
+
+def phase19(w_bin, W, gen, dev, counters, card):
+    """The window on the main path: SV-DGCNN cls at (16, 8192, 20) on
+    Morton-sorted surface clouds, exact and approx (8-bit gathers, fold
+    256), 5 requests each through the windowed engine with the launches
+    per request checked (the windowed kernels: B1 x1, B2 x3, approx's
+    scale pre-pass x4), then the same engine without a window on the same
+    requests; exact logits bitwise the unwindowed engine's; a 4-cloud
+    request bitwise the windowed oracle twin's; one partseg request
+    (4, 8192, 40) exact, windowed and not, logits bitwise. Prints the
+    medians and each round's kept share and certificate. Returns the
+    windowed launches by kernels-line name."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+    from svnet_tpu_torch.ops import window as win
+
+    wc = [WindowCount(fn) for fn in counters if fn.__name__ in
+          ("sv_round3_first", "sv_round3", "neg_min")]
+    every = tuple(counters) + tuple(wc) + (win.window_tau, win.window_keep)
+    requests = [(surface(B_LONG, N_LONG, SEED + 50 + i, dev),)
+                for i in range(REQUESTS)]
+    out = {}
+    for mode, bits in WINDOW_TIMED:
+        tag = f"phase 19 cls {mode}{bits if mode != 'exact' else ''}"
+        want_per = {"sv_round3_first": 1, "sv_round3": 3, "sv_point_block_cm": 1,
+                    "sv_round3_first window": 1, "sv_round3 window": 3,
+                    "window_tau": 4, "window_keep": 4}
+        if mode != "exact":
+            want_per.update({"neg_min": 4, "neg_min window": 4})
+        with mode_knobs(bits, 256):
+            eng = SVDGCNNClsEngine(w_bin, CLASSES, K, True, mode=mode,
+                                   device=dev, window=W)
+            base = SVDGCNNClsEngine(w_bin, CLASSES, K, True, mode=mode,
+                                    device=dev)
+            eng(*requests[0])
+            torch.cuda.synchronize()
+            for fn in every:
+                fn.launches = 0
+            logits, lat = [], []
+            for req in requests:
+                before = [fn.launches for fn in every]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                logits.append(eng(*req))
+                e1.record()
+                torch.cuda.synchronize()
+                lat.append(e0.elapsed_time(e1))
+                check_launches(tag, {fn.__name__: fn.launches - b0
+                                     for fn, b0 in zip(every, before)}, want_per)
+            launches = {fn.__name__: fn.launches for fn in every}
+            got = torch.cat(logits)
+            if got.shape != (REQUESTS * B_LONG, CLASSES) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{tag}: logits {tuple(got.shape)} not finite")
+            without = torch.cat([base(*req) for req in requests])
+            base_ms = request_median(base, requests)
+            MEDIANS[tag] = sorted(lat)[len(lat) // 2]
+            if mode == "exact" and not torch_equal(got, without):
+                raise AssertionError(f"{tag}: windowed logits differ from the "
+                                     "full scan's")
+            oracle = SVDGCNNClsEngine(w_bin, CLASSES, K, True, mode=mode,
+                                      device=dev, window=W, oracle=True)
+            small = requests[0][0][:4]
+            if not torch_equal(eng(small), oracle(small)):
+                raise AssertionError(f"{tag}: a 4-cloud request differs from "
+                                     "the oracle twin's")
+            record = []
+            with window_stats(record):
+                eng(*requests[0])
+        top1 = (got.argmax(-1) == without.argmax(-1)).float().mean().item()
+        log(f"{tag}: {REQUESTS} requests of ({B_LONG}, {N_LONG}, 3), W={W}; "
+            f"launches { {n: c for n, c in launches.items() if c} }; median "
+            f"{MEDIANS[tag]:.3f} ms, without the window {base_ms:.3f} ms; "
+            f"latencies {[round(t, 3) for t in lat]}; a 4-cloud request "
+            "bitwise the oracle twin's; "
+            + ("logits bitwise the full scan's" if mode == "exact" else
+               f"top-1 agreement with the full scan {top1:.6f} (random "
+               "weights, not a bar)")
+            + f"; rounds (channels, kept share, certified) {record} | {card}")
+        for name in ("sv_round3_first", "sv_round3", "neg_min"):
+            if launches.get(f"{name} window"):
+                out[window_name(name, mode, bits)] = launches[f"{name} window"]
+        if mode == "exact":
+            out.update({name: launches[name] for name in ("window_tau", "window_keep")})
+    p_pseg = init_params_pseg(PARTS, K_PSEG, True,
+                              torch.Generator().manual_seed(SEED + 12))
+    eng = SVDGCNNPsegEngine(p_pseg, PARTS, K_PSEG, True, device=dev, window=W)
+    base = SVDGCNNPsegEngine(p_pseg, PARTS, K_PSEG, True, device=dev)
+    reqs = [(surface(B_LONG_PSEG, N_LONG, SEED + 60 + i, dev),
+             labels(B_LONG_PSEG, gen, dev)) for i in range(3)]
+    got = torch.cat([eng(*r) for r in reqs])
+    if got.shape != (3 * B_LONG_PSEG, N_LONG, PARTS) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"phase 19 pseg: logits {tuple(got.shape)} not finite")
+    if not torch_equal(got, torch.cat([base(*r) for r in reqs])):
+        raise AssertionError("phase 19 pseg: windowed logits differ from the "
+                             "full scan's")
+    ms, base_ms = request_median(eng, reqs), request_median(base, reqs)
+    record = []
+    with window_stats(record):
+        eng(*reqs[0])
+    log(f"phase 19 pseg exact: requests of ({B_LONG_PSEG}, {N_LONG}, 3), "
+        f"k={K_PSEG}, W={W}: logits bitwise the full scan's; median {ms:.3f} "
+        f"ms, without the window {base_ms:.3f} ms; rounds (channels, kept "
+        f"share, certified) {record} | {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2746,6 +3257,7 @@ def main() -> int:
     phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_reuse(rep, eng, eng_fp, dg, gen, dev)
+    W_long = phase2_window(rep, eng, eng_fp, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -2866,6 +3378,9 @@ def main() -> int:
     # phase 18: graph reuse, the JAX package's serving pick
     launches.update(phase18(w_bin, gen, dev, counters, card))
 
+    # phase 19: the candidate window at N = 8192
+    launches.update(phase19(w_bin, W_long, gen, dev, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -2922,6 +3437,24 @@ def main() -> int:
     for name in ("sv_round3_reuse", "sv_round3_reuse approx8",
                  "sv_round3_reuse approx8 pseg"):
         src_of[name] = src_of["sv_round3"]
+    # the window: the W < N branches of _round3_first_kernel and
+    # _round3_kernel (sv_round3.py:1274-1313, :548-591), and the scale
+    # pre-pass over the window (the neg the TPU kernel zeroes on padding)
+    for mode, bits in WINDOW_TIMED:
+        src_of[window_name("sv_round3_first", mode, bits)] = (
+            "svnet_tpu_torch/csrc/sv_round3_first.cu",
+            "svnet_tpu/ops/pallas/sv_round3.py:1274")
+        src_of[window_name("sv_round3", mode, bits)] = (
+            "svnet_tpu_torch/csrc/sv_round3.cu",
+            "svnet_tpu/ops/pallas/sv_round3.py:548")
+    src_of[window_name("neg_min", "approx", 8)] = (
+        "svnet_tpu_torch/csrc/knn.cu", "svnet_tpu/ops/pallas/sv_round3.py:590")
+    # the pre-pass's two scans (_prune_prepass, XLA in JAX): tau and the
+    # block test
+    src_of["window_tau"] = ("svnet_tpu_torch/csrc/window.cu",
+                            "svnet_tpu/ops/pallas/sv_round3.py:946")
+    src_of["window_keep"] = ("svnet_tpu_torch/csrc/window.cu",
+                             "svnet_tpu/ops/pallas/sv_round3.py:972")
     # the TPU kernel takes each key tile's worst distance from its own
     # (N, T) block (_packed_key_t); here a pre-pass kernel does
     for name in ("neg_min", "neg_min pseg"):

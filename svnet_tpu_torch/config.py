@@ -14,8 +14,10 @@ the round3 trunk of the SV-DGCNN engines in every mode: ``graph_reuse``
 "conv2": conv3 and conv4 take conv2's), ``reuse_k`` (reuse rounds take
 the nearest r ranks and run at k = r) and ``reuse_gather_window`` (a
 gather-compaction width on the TPU; here the full gather, which it
-equals bitwise, and a reason to Morton-sort at entry). The window knob
-and the others of svnet_tpu/config.py are not ported yet.
+equals bitwise, and a reason to Morton-sort at entry). The candidate
+window is an argument of the SV-DGCNN engines and of B1 and B2
+(``window=``, ops/window.py), as in JAX; the other knobs of
+svnet_tpu/config.py are not ported yet.
 """
 
 from __future__ import annotations

@@ -34,3 +34,16 @@ extern "C" int sv_neg_min_launch(const float* x, float* aa, float* neg_min,
   return (int)sv_neg_min(x, aa, neg_min, B, N, C, (cudaStream_t)stream,
                          /*row_major=*/true);
 }
+
+// The pre-pass over a candidate window (sv_common.cuh, SvWindow): x, aa and
+// neg_min as sv_neg_min_launch's; keep (B, N / T, N / 128) and ok (one
+// int) from ops/window.py on the device; each centre's least negative
+// squared distance over its key tile's kept rows, and 0.0 where the
+// tile's W-row window has padding (all N rows where ok is 0).
+extern "C" int sv_neg_min_window_launch(const float* x, float* aa,
+                                        float* neg_min, const int* keep,
+                                        const int* ok, int B, int N, int C,
+                                        int T, int W, void* stream) {
+  return (int)sv_neg_min(x, aa, neg_min, B, N, C, (cudaStream_t)stream,
+                         /*row_major=*/true, SvWindow{keep, ok, T, W, 0});
+}

@@ -2,8 +2,9 @@
 // sv_round3_first.cu, sv_round3.cu and sv_round2.cu) and the point block
 // (sv_point.cu): the kNN selection kernel over a channel-major (B, C, N)
 // or a row-major (B, N, C) source, by exact mode's key, fast mode's or
-// approx mode's folded one, the fast key's pre-pass (each centre's
-// farthest candidate), a shared-memory block GEMM, and small helpers.
+// approx mode's folded one, over all N rows or a certified candidate
+// window, the fast key's pre-pass (each centre's farthest candidate), a
+// shared-memory block GEMM, and small helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -196,30 +197,38 @@ static size_t sv_select_smem(int kw, bool fold) {
          (size_t)SEL_TC * (32 * kw + 1) * sizeof(sv_u64);
 }
 
-// dst[cc * (ROWS + 4) + t] = channel c0 + cc of row r0 + t (0 past N), for
-// t < ROWS, cc < nc. Channel-major: consecutive threads read consecutive
-// rows. Row-major: a warp reads 8 consecutive channels of 4 rows, and its
-// 32 stores fall in 32 banks (row stride = 4 mod 32).
-template <bool ROW, int ROWS>
+// dst[cc * (ROWS + 4) + t] = channel c0 + cc of row row_of(t) (0 where it
+// is -1), for t < ROWS, cc < nc. Channel-major: consecutive threads read
+// consecutive rows. Row-major: a warp reads 8 consecutive channels of 4
+// rows, and its 32 stores fall in 32 banks (row stride = 4 mod 32).
+template <bool ROW, int ROWS, class RowOf>
 static __device__ __forceinline__ void sv_stage(float* dst,
                                                 const float* __restrict__ x,
-                                                int r0, int c0, int nc, int N,
-                                                int C) {
+                                                RowOf row_of, int c0, int nc,
+                                                int N, int C) {
   constexpr int ld = ROWS + 4;
   if constexpr (ROW) {
     const int ncp = (nc + 7) & ~7;
     for (int e = threadIdx.x; e < ROWS * ncp; e += blockDim.x) {
       const int cc = (e / (8 * ROWS)) * 8 + (e & 7), t = (e >> 3) % ROWS;
-      const int r = r0 + t;
-      if (cc < nc) dst[cc * ld + t] = r < N ? x[(size_t)r * C + c0 + cc] : 0.f;
+      const int r = row_of(t);
+      if (cc < nc) dst[cc * ld + t] = r >= 0 ? x[(size_t)r * C + c0 + cc] : 0.f;
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * nc; e += blockDim.x) {
-      const int cc = e / ROWS, t = e % ROWS, r = r0 + t;
-      dst[cc * ld + t] = r < N ? x[(size_t)(c0 + cc) * N + r] : 0.f;
+      const int cc = e / ROWS, t = e % ROWS, r = row_of(t);
+      dst[cc * ld + t] = r >= 0 ? x[(size_t)(c0 + cc) * N + r] : 0.f;
     }
   }
 }
+
+// Rows r0 .. r0 + ROWS - 1 of the cloud, -1 past its N rows.
+struct SvRun {
+  int r0, N;
+  __device__ __forceinline__ int operator()(int t) const {
+    return r0 + t < N ? r0 + t : -1;
+  }
+};
 
 static __device__ __forceinline__ sv_u64 sv_max64(sv_u64 a, sv_u64 b) { return a > b ? a : b; }
 static __device__ __forceinline__ sv_u64 sv_min64(sv_u64 a, sv_u64 b) { return a < b ? a : b; }
@@ -290,13 +299,15 @@ static __device__ __forceinline__ void sv_merge(sv_u64 (&L)[KW], sv_u64 x, int l
 }
 
 // The distance stage of a tile: acc[i][j] = <centre n0 + t0 + i,
-// candidate m0 + 4 * lane + j>, summed from 0.f channel by channel with
-// __fmul_rn / __fadd_rn (see the selection below). Every thread of the
-// block calls it: it stages the chunks between __syncthreads.
-template <bool ROW>
+// candidate cand(4 * lane + j)>, summed from 0.f channel by channel with
+// __fmul_rn / __fadd_rn (see the selection below); cand(t) is the row of
+// the tile's t-th candidate (SvRun: 128 consecutive rows), or -1. Every
+// thread of the block calls it: it stages the chunks between
+// __syncthreads.
+template <bool ROW, class Cand>
 static __device__ __forceinline__ void sv_tile_inner(
     float (&acc)[8][4], float* ctr_s, float* cand_s,
-    const float* __restrict__ x, int n0, int m0, int t0, int lane, int N,
+    const float* __restrict__ x, int n0, Cand cand, int t0, int lane, int N,
     int C) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -305,8 +316,8 @@ static __device__ __forceinline__ void sv_tile_inner(
   for (int c0 = 0; c0 < C; c0 += SEL_KC) {
     const int nc = min(SEL_KC, C - c0);
     __syncthreads();  // the previous chunk, or tile's keys, is consumed
-    sv_stage<ROW, SEL_TC>(ctr_s, x, n0, c0, nc, N, C);
-    sv_stage<ROW, SEL_TM>(cand_s, x, m0, c0, nc, N, C);
+    sv_stage<ROW, SEL_TC>(ctr_s, x, SvRun{n0, N}, c0, nc, N, C);
+    sv_stage<ROW, SEL_TM>(cand_s, x, cand, c0, nc, N, C);
     __syncthreads();
 #pragma unroll 4
     for (int cc = 0; cc < nc; ++cc) {
@@ -324,13 +335,73 @@ static __device__ __forceinline__ void sv_tile_inner(
   }
 }
 
+// The certified candidate window (svnet_tpu_torch/ops/window.py;
+// sv_round3.py:548-591, :1274-1313): keep (B, N / T, N / 128) int32, not 0
+// where the key tile of T centres keeps the 128-row block; ok, one int32
+// on the device, 0 where some tile keeps more than W rows, and then every
+// block counts as kept, the capacity is N and the fold width kt.L, the
+// round as without a window; W the compacted capacity and LW approx mode's
+// fold width at W. W = 0: no window. T, N and W are multiples of 128, so a
+// block of SEL_TC centres lies in one key tile and a run of 128 compacted
+// positions is one kept block.
+struct SvWindow {
+  const int* keep = nullptr;
+  const int* ok = nullptr;
+  int T = 0, W = 0, LW = 0;
+};
+
+// Thread 0 lists the kept blocks of this block's key tile in ascending
+// order into kb (shared, N / 128 + 2 ints): kb[0 .. n) the blocks (all of
+// them where ok is 0), kb[N / 128] = n, kb[N / 128 + 1] = ok. Every thread
+// of the block calls it (one barrier).
+static __device__ __forceinline__ void sv_window_blocks(int* kb,
+                                                        const SvWindow& win,
+                                                        int b, int n0, int N,
+                                                        int& nkept, bool& ok) {
+  const int nb = N / SEL_TM;
+  if (threadIdx.x == 0) {
+    const int okv = *win.ok;
+    const int* kf = win.keep + ((size_t)b * (N / win.T) + n0 / win.T) * nb;
+    int c = 0;
+    for (int bk = 0; bk < nb; ++bk)
+      if (!okv || kf[bk] != 0) kb[c++] = bk;
+    kb[nb] = c;
+    kb[nb + 1] = okv;
+  }
+  __syncthreads();
+  nkept = kb[nb];
+  ok = kb[nb + 1] != 0;
+}
+
+// Candidate positions base + t -> rows, -1 (padding) from cnt on. In a
+// key tile's window (kb, sv_window_blocks) position p is row
+// kb[p / 128] * 128 + p % 128 (cnt = 128 per kept block); without one
+// (kb null, cnt = N) it is row p.
+struct SvWinRows {
+  const int* kb;
+  int cnt, base;
+  __device__ __forceinline__ int operator()(int t) const {
+    const int p = base + t;
+    if (p >= cnt) return -1;
+    return kb ? kb[p / SEL_TM] * SEL_TM + p % SEL_TM : p;
+  }
+};
+
 // FAST: fast mode's key on the tiles' scales (SvKeyTiles), else exact's;
-// FOLD (with FAST): approx mode's folded lanes.
-template <bool ROW, int KW, bool FAST, bool FOLD>
+// FOLD (with FAST): approx mode's folded lanes; WIN: the candidate window
+// (SvWindow). With WIN a block ranks its key tile's compacted window:
+// exact and fast mode stream the kept blocks (128 compacted positions are
+// one block, so a tile is still a run of rows), the keys packed with the
+// absolute row; FOLD streams the W positions in row sets of L = LW, each
+// position's row from the kept-block list (a row set may span two blocks,
+// so its rows are staged one by one), padding contributing no key (the
+// JAX kernel's _INT_MIN, sv_round3.py:586-591, below every key).
+template <bool ROW, int KW, bool FAST, bool FOLD, bool WIN>
 static __global__ void __launch_bounds__(SEL_WARPS * 32, 3)
 sv_knn_select_kernel(const float* __restrict__ src,
                      const float* __restrict__ aa, int* __restrict__ wins,
-                     int N, int C, int k, int rs, int ps, SvKeyTiles kt) {
+                     int N, int C, int k, int rs, int ps, SvKeyTiles kt,
+                     SvWindow win) {
   extern __shared__ __align__(16) unsigned char sv_smem[];
   float* ctr_s = (float*)sv_smem;           // (SEL_KC, SEL_CS) centres
   float* cand_s = ctr_s + SEL_KC * SEL_CS;  // (SEL_KC, SEL_MS) candidates
@@ -341,6 +412,7 @@ sv_knn_select_kernel(const float* __restrict__ src,
   sv_u64* lists =  // (SEL_TC, 32 KW)
       (sv_u64*)(sv_smem + (FOLD ? SEL_FOLD_BYTES : SEL_STAGE_BYTES));
   sv_u64* upper = lists + SEL_TC * 32 * KW;              // (SEL_TC)
+  int* kb = (int*)(upper + SEL_TC);  // (WIN) the kept blocks, N / 128 + 2
   const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t0 = warp * 8;  // this warp's first centre in the block
@@ -359,23 +431,39 @@ sv_knn_select_kernel(const float* __restrict__ src,
   const float* wscale = nullptr;
   if constexpr (FAST) wscale = kt.scale + (size_t)b * (N / kt.T);
   if (lane < 8) upper[t0 + lane] = ~0ull;
+  // what the block ranks: Wc candidate positions (rows without a window),
+  // folded to L lanes (FOLD)
+  int nkept = N / SEL_TM, Wc = N, L = kt.L;
+  if constexpr (WIN) {
+    bool ok;
+    sv_window_blocks(kb, win, b, n0, N, nkept, ok);
+    if (ok) Wc = win.W, L = win.LW;
+  }
+  const int cnt = WIN ? nkept * SEL_TM : N;  // the candidate positions
+  const int M = FOLD ? L : cnt;  // what a centre ranks
 
   for (int r0 = 0; r0 < k; r0 += 32 * KW) {
     const int kc = min(32 * KW, k - r0);
     for (int i = lane; i < 8 * 32 * KW; i += 32) wlist[i] = 0ull;
-    const int M = FOLD ? kt.L : N;  // what a centre ranks: lanes or rows
     // block-uniform trip counts: every warp reaches every __syncthreads
     for (int m0 = 0; m0 < M; m0 += SEL_TM) {
+      // exact and fast mode: the tile's first row
+      int rb = m0;
+      if constexpr (WIN && !FOLD) rb = kb[m0 / SEL_TM] * SEL_TM;
       if constexpr (FOLD) {
         // lane m0 + 4 * lane + j of each centre: the largest key over its
-        // rows base + 4 * lane + j, base = m0 + t * L
-        for (int base = m0; base < N; base += kt.L) {
+        // positions base + 4 * lane + j, base = m0 + t * L
+        for (int base = m0; base < Wc; base += L) {
           float acc[8][4];
-          sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, base, t0, lane, N, C);
-          float cand_sq[4];
+          const SvWinRows rows{WIN ? kb : nullptr, cnt, base};
+          sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, rows, t0, lane, N, C);
+          int crow[4];  // the row of each of this thread's 4 lanes, or -1
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            cand_sq[j] = m0 + 4 * lane + j < kt.L ? a[base + 4 * lane + j] : 0.f;
+            crow[j] = m0 + 4 * lane + j < L ? rows(4 * lane + j) : -1;
+          float cand_sq[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cand_sq[j] = crow[j] >= 0 ? a[crow[j]] : 0.f;
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int n = n0 + t0 + i;
@@ -388,10 +476,10 @@ sv_knn_select_kernel(const float* __restrict__ src,
             }
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              if (m0 + 4 * lane + j >= kt.L) continue;
+              if (crow[j] < 0) continue;
               const unsigned key = sv_approx_key(
                   sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq[j]), scale, kt.qlo,
-                  kt.qhi, base + 4 * lane + j, kt.ib);
+                  kt.qhi, crow[j], kt.ib);
               kv[j] = key > kv[j] ? key : kv[j];
             }
             *slot = make_uint4(kv[0], kv[1], kv[2], kv[3]);
@@ -399,12 +487,13 @@ sv_knn_select_kernel(const float* __restrict__ src,
         }
       } else {
         float acc[8][4];
-        sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
+        sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, SvRun{rb, N}, t0, lane,
+                           N, C);
         float cand_sq[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int m = m0 + 4 * lane + j;
-          cand_sq[j] = m < N ? a[m] : 0.f;
+          cand_sq[j] = m < M ? a[rb + 4 * lane + j] : 0.f;
         }
         __syncthreads();  // every warp is done with the staged chunk
 #pragma unroll
@@ -433,35 +522,35 @@ sv_knn_select_kernel(const float* __restrict__ src,
         if (n0 + t0 + i >= N) break;  // warp-uniform
         sv_u64* li = wlist + i * 32 * KW;
         const sv_u64 up = upper[t0 + i];
-        sv_u64 L[KW];
+        sv_u64 L_[KW];
 #pragma unroll
-        for (int w = 0; w < KW; ++w) L[w] = li[32 * w + lane];
-        sv_u64 T = sv_entry<KW>(L, kc - 1);
+        for (int w = 0; w < KW; ++w) L_[w] = li[32 * w + lane];
+        sv_u64 T = sv_entry<KW>(L_, kc - 1);
 #pragma unroll 1
         for (int j = 0; j < SEL_TM; j += 32) {
           const int m = m0 + j + lane;
           sv_u64 v = 0ull;
           if (m < M) {
             const unsigned key = wkeys[i * SEL_TM + j + lane];
-            v = sv_pack(key, FOLD ? sv_approx_row(key, kt.ib) : m, N);
+            v = sv_pack(key, FOLD ? sv_approx_row(key, kt.ib) : rb + j + lane, N);
           }
           const bool pass = v > T && v < up;
           unsigned mask = __ballot_sync(0xffffffffu, pass);
           if (__popc(mask) > SEL_SERIAL) {
-            sv_merge<KW>(L, pass ? v : 0ull, lane);
-            T = sv_entry<KW>(L, kc - 1);
+            sv_merge<KW>(L_, pass ? v : 0ull, lane);
+            T = sv_entry<KW>(L_, kc - 1);
           } else {  // T is refreshed after the batch: a key that falls
                     // below it meanwhile lands past entry kc - 1
             while (mask) {
               const int s = __ffs(mask) - 1;
               mask &= mask - 1;
-              sv_insert<KW>(L, __shfl_sync(0xffffffffu, v, s), lane);
+              sv_insert<KW>(L_, __shfl_sync(0xffffffffu, v, s), lane);
             }
-            T = sv_entry<KW>(L, kc - 1);
+            T = sv_entry<KW>(L_, kc - 1);
           }
         }
 #pragma unroll
-        for (int w = 0; w < KW; ++w) li[32 * w + lane] = L[w];
+        for (int w = 0; w < KW; ++w) li[32 * w + lane] = L_[w];
       }
     }
     __syncwarp();
@@ -482,19 +571,22 @@ sv_knn_select_kernel(const float* __restrict__ src,
   }
 }
 
-template <bool ROW, int KW, bool FAST, bool FOLD>
+// Shared memory of the window's kept-block list (sv_window_blocks).
+static size_t sv_window_smem(int N) { return (size_t)(N / SEL_TM + 2) * sizeof(int); }
+
+template <bool ROW, int KW, bool FAST, bool FOLD, bool WIN>
 static cudaError_t sv_knn_select_launch(const float* src, const float* aa,
                                         int* wins, int B, int N, int C, int k,
                                         cudaStream_t stream, bool point_major,
-                                        SvKeyTiles kt) {
-  const size_t smem = sv_select_smem(KW, FOLD);
+                                        SvKeyTiles kt, SvWindow win) {
+  const size_t smem = sv_select_smem(KW, FOLD) + (WIN ? sv_window_smem(N) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      sv_knn_select_kernel<ROW, KW, FAST, FOLD>,
+      sv_knn_select_kernel<ROW, KW, FAST, FOLD, WIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
-  sv_knn_select_kernel<ROW, KW, FAST, FOLD><<<grid, SEL_WARPS * 32, smem, stream>>>(
-      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1, kt);
+  sv_knn_select_kernel<ROW, KW, FAST, FOLD, WIN><<<grid, SEL_WARPS * 32, smem, stream>>>(
+      src, aa, wins, N, C, k, point_major ? 1 : N, point_major ? k : 1, kt, win);
   return cudaGetLastError();
 }
 
@@ -508,17 +600,28 @@ static cudaError_t sv_sqnorm(const float* src, float* aa, int B, int N, int C,
   return cudaGetLastError();
 }
 
+template <bool ROW, bool FAST, bool FOLD, bool WIN>
+static cudaError_t sv_knn_select_k(const float* src, const float* aa, int* wins,
+                                   int B, int N, int C, int k,
+                                   cudaStream_t stream, bool point_major,
+                                   SvKeyTiles kt, SvWindow win) {
+  return k <= 32 ? sv_knn_select_launch<ROW, 1, FAST, FOLD, WIN>(
+                       src, aa, wins, B, N, C, k, stream, point_major, kt, win)
+                 : sv_knn_select_launch<ROW, 2, FAST, FOLD, WIN>(
+                       src, aa, wins, B, N, C, k, stream, point_major, kt, win);
+}
+
 template <bool ROW, bool FAST, bool FOLD = false>
 static cudaError_t sv_knn_select_t(const float* src, float* aa, int* wins,
                                    int B, int N, int C, int k,
                                    cudaStream_t stream, bool point_major,
-                                   SvKeyTiles kt) {
+                                   SvKeyTiles kt, SvWindow win) {
   cudaError_t err = sv_sqnorm<ROW>(src, aa, B, N, C, stream);
   if (err != cudaSuccess) return err;
-  return k <= 32 ? sv_knn_select_launch<ROW, 1, FAST, FOLD>(
-                       src, aa, wins, B, N, C, k, stream, point_major, kt)
-                 : sv_knn_select_launch<ROW, 2, FAST, FOLD>(
-                       src, aa, wins, B, N, C, k, stream, point_major, kt);
+  return win.W ? sv_knn_select_k<ROW, FAST, FOLD, true>(
+                     src, aa, wins, B, N, C, k, stream, point_major, kt, win)
+               : sv_knn_select_k<ROW, FAST, FOLD, false>(
+                     src, aa, wins, B, N, C, k, stream, point_major, kt, win);
 }
 
 // Row bits of fast mode's packed key at N rows (quant.py::idx_bits).
@@ -528,42 +631,60 @@ static int sv_idx_bits(int N) {
   return b;
 }
 
+// (N / d) a power of two, d dividing N.
+static bool sv_halves(int N, int d) {
+  return d >= 1 && N % d == 0 && ((N / d) & (N / d - 1)) == 0;
+}
+
+// A window the kernels take (SvWindow): T, N and W multiples of 128, T
+// dividing N, T <= W < N, and with a fold (L > 0) W halving evenly to LW
+// >= k.
+static bool sv_window_ok(const SvWindow& win, int N, int k, int L) {
+  if (win.W == 0) return true;
+  if (win.keep == nullptr || win.ok == nullptr || win.T < SEL_TM ||
+      win.T % SEL_TM != 0 || N % win.T != 0 || N % SEL_TM != 0 ||
+      win.W % SEL_TM != 0 || win.W < win.T || win.W >= N)
+    return false;
+  return L == 0 || (win.LW >= k && sv_halves(win.W, win.LW));
+}
+
 // Squared norms + selection for a channel-major (B, C, N) source, or a
 // row-major (B, N, C) one when row_major. aa is a (B, N) scratch buffer the
 // wrapper allocated. wins is (B, k, N), or (B, N, k) when point_major.
 // With tile_scale (B, N / T), fast mode's key on tiles of T centres
 // (SvKeyTiles), else exact mode's; with a fold width L > 0 too, approx
 // mode's: N / L a power of two (N halves evenly down to L) and k <= L.
+// win: the candidate window (SvWindow), W = 0 for none.
 static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
                                  int B, int N, int C, int k,
                                  cudaStream_t stream, bool point_major = false,
                                  bool row_major = false,
                                  const float* tile_scale = nullptr, int T = 0,
-                                 int L = 0) {
-  if (k > N || k < 1 || C < 1) return cudaErrorInvalidValue;
+                                 int L = 0, SvWindow win = SvWindow{}) {
+  if (k > N || k < 1 || C < 1 || !sv_window_ok(win, N, k, L))
+    return cudaErrorInvalidValue;
   const int ib = sv_idx_bits(N);
   SvKeyTiles kt{tile_scale, T, (float)(-(1 << (18 < 31 - ib ? 18 : 31 - ib)) + 1),
                 (float)((1 << (31 - ib)) - 1), L, ib};
   if (tile_scale != nullptr && (T < 1 || N % T != 0 || ib > 30))
     return cudaErrorInvalidValue;
   if (L != 0) {
-    if (tile_scale == nullptr || L < 1 || k > L || N % L != 0 ||
-        ((N / L) & (N / L - 1)) != 0)
+    if (tile_scale == nullptr || k > L || !sv_halves(N, L))
       return cudaErrorInvalidValue;
     return row_major ? sv_knn_select_t<true, true, true>(src, aa, wins, B, N, C, k,
-                                                         stream, point_major, kt)
+                                                         stream, point_major, kt, win)
                      : sv_knn_select_t<false, true, true>(src, aa, wins, B, N, C, k,
-                                                          stream, point_major, kt);
+                                                          stream, point_major, kt, win);
   }
   if (tile_scale != nullptr)
     return row_major ? sv_knn_select_t<true, true>(src, aa, wins, B, N, C, k,
-                                                   stream, point_major, kt)
+                                                   stream, point_major, kt, win)
                      : sv_knn_select_t<false, true>(src, aa, wins, B, N, C, k,
-                                                    stream, point_major, kt);
+                                                    stream, point_major, kt, win);
   return row_major ? sv_knn_select_t<true, false>(src, aa, wins, B, N, C, k,
-                                                  stream, point_major, kt)
+                                                  stream, point_major, kt, win)
                    : sv_knn_select_t<false, false>(src, aa, wins, B, N, C, k,
-                                                   stream, point_major, kt);
+                                                   stream, point_major, kt, win);
 }
 
 // ---------------------------------------------------------------------------
@@ -576,12 +697,16 @@ static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
 // quantizes. The TPU kernel holds its whole (N, T) block of distances and
 // takes that min for free; here it costs one distance pass. A block of 8
 // warps owns 64 centres, as in the selection; a min has no order, so the
-// result is exact.
-template <bool ROW>
+// result is exact. With WIN (SvWindow) the min runs over the rows of the
+// key tile's kept blocks, and takes in 0.0 where the tile's window has
+// padding: the JAX kernel zeroes neg on padding before its min
+// (sv_round3.py:586-591), so the tile's scale sees (kept rows, and 0).
+template <bool ROW, bool WIN>
 static __global__ void __launch_bounds__(SEL_WARPS * 32)
 sv_neg_min_kernel(const float* __restrict__ src, const float* __restrict__ aa,
-                  float* __restrict__ neg_min, int N, int C) {
+                  float* __restrict__ neg_min, int N, int C, SvWindow win) {
   __shared__ __align__(16) float sm[SEL_KC * (SEL_CS + SEL_MS)];
+  extern __shared__ int sv_kb[];  // (WIN) the kept blocks, N / 128 + 2
   float* ctr_s = sm;
   float* cand_s = sm + SEL_KC * SEL_CS;
   const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
@@ -595,9 +720,17 @@ sv_neg_min_kernel(const float* __restrict__ src, const float* __restrict__ aa,
     ctr_sq[i] = n < N ? a[n] : 0.f;
     mn[i] = INFINITY;
   }
-  for (int m0 = 0; m0 < N; m0 += SEL_TM) {
+  int nblk = (N + SEL_TM - 1) / SEL_TM;
+  bool pad = false;  // the window has padding
+  if constexpr (WIN) {
+    bool ok;
+    sv_window_blocks(sv_kb, win, b, n0, N, nblk, ok);
+    pad = ok && nblk * SEL_TM < win.W;
+  }
+  for (int i = 0; i < nblk; ++i) {
+    const int m0 = (WIN ? sv_kb[i] : i) * SEL_TM;
     float acc[8][4];
-    sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, m0, t0, lane, N, C);
+    sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, SvRun{m0, N}, t0, lane, N, C);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + 4 * lane + j;
@@ -613,25 +746,33 @@ sv_neg_min_kernel(const float* __restrict__ src, const float* __restrict__ aa,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       mn[i] = fminf(mn[i], __shfl_xor_sync(0xffffffffu, mn[i], off));
+    if (pad) mn[i] = fminf(mn[i], 0.f);
     const int n = n0 + t0 + i;
     if (lane == 0 && n < N) neg_min[(size_t)b * N + n] = mn[i];
   }
 }
 
 // Squared norms + the pre-pass over a channel-major (B, C, N) source, or a
-// row-major (B, N, C) one when row_major; aa is (B, N) scratch.
+// row-major (B, N, C) one when row_major; aa is (B, N) scratch. win: the
+// candidate window (SvWindow, row-major sources only), W = 0 for none.
 static cudaError_t sv_neg_min(const float* src, float* aa, float* neg_min,
                               int B, int N, int C, cudaStream_t stream,
-                              bool row_major) {
-  if (N < 1 || C < 1) return cudaErrorInvalidValue;
+                              bool row_major, SvWindow win = SvWindow{}) {
+  if (N < 1 || C < 1 || !sv_window_ok(win, N, 1, 0) || (win.W && !row_major))
+    return cudaErrorInvalidValue;
   cudaError_t err = row_major ? sv_sqnorm<true>(src, aa, B, N, C, stream)
                               : sv_sqnorm<false>(src, aa, B, N, C, stream);
   if (err != cudaSuccess) return err;
   dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
-  if (row_major)
-    sv_neg_min_kernel<true><<<grid, SEL_WARPS * 32, 0, stream>>>(src, aa, neg_min, N, C);
+  if (win.W)
+    sv_neg_min_kernel<true, true><<<grid, SEL_WARPS * 32, sv_window_smem(N), stream>>>(
+        src, aa, neg_min, N, C, win);
+  else if (row_major)
+    sv_neg_min_kernel<true, false><<<grid, SEL_WARPS * 32, 0, stream>>>(
+        src, aa, neg_min, N, C, win);
   else
-    sv_neg_min_kernel<false><<<grid, SEL_WARPS * 32, 0, stream>>>(src, aa, neg_min, N, C);
+    sv_neg_min_kernel<false, false><<<grid, SEL_WARPS * 32, 0, stream>>>(
+        src, aa, neg_min, N, C, win);
   return cudaGetLastError();
 }
 

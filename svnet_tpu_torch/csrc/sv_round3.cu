@@ -35,6 +35,10 @@
 // a neighbour is one row read. Approx mode (sv_round3.py:209-234) is fast
 // mode with the selection's candidates folded to L lanes by key max
 // before the top k (sv_common.cuh); its grid is 16 or 8 bits as fast's.
+// The candidate window (window=, sv_round3.py:548-591, :1196-1205): the
+// selection ranks the kept 128-row blocks of each key tile only (an
+// O(N * W) scan; the TPU compacts them into VMEM scratch), or all N rows
+// where the device-side certificate failed; the block takes absolute ids.
 //
 // Graph reuse (sv_round3.py:480-540, take_wins): the round is given an
 // earlier round's neighbour ids and runs the block kernel alone -- no
@@ -53,18 +57,20 @@
 // the edge scalars over the ranks, wins (B, k, N). Fast mode: src_q
 // (B, N, S+3V) the block's rows through the gather grid, tile_scale
 // (B, N / T) the key tiles' scales; exact mode passes both null and T = 0.
-// L: approx mode's fold width, 0 in the other modes.
+// L: approx mode's fold width, 0 in the other modes. keep, ok, W, LW: the
+// candidate window, as sv_round3_first_launch's.
 extern "C" int sv_round3_launch(
     const float* src, float* aa, const float* wz, const float* w1,
     const float* beta, const float* a1, const float* b1, const float* w2,
     const float* scale2, const float* a2, const float* b2, float* s_out,
     float* v_out, float* ssum, int* wins, const float* src_q,
-    const float* tile_scale, int B, int N, int S, int V, int S_out, int V_out,
-    int k, int binary, int T, int L, void* stream) {
+    const float* tile_scale, const int* keep, const int* ok, int B, int N,
+    int S, int V, int S_out, int V_out, int k, int binary, int T, int L,
+    int W, int LW, void* stream) {
   return sv_conv_round<false>(src, aa, wz, w1, beta, a1, b1, w2, scale2, a2,
                               b2, s_out, v_out, ssum, wins, B, N, S, V, S_out,
                               V_out, k, binary, (cudaStream_t)stream, src_q,
-                              tile_scale, T, L);
+                              tile_scale, T, L, SvWindow{keep, ok, T, W, LW});
 }
 
 // A graph-reuse round: the block kernel on the caller's channel-major ids

@@ -27,6 +27,14 @@
 // scales (sv_round3.cu), and the block reads the points through the
 // gather grid (centres too, so a self-edge is 0). Approx mode: the same,
 // with the selection's candidates folded to L lanes (sv_common.cuh).
+//
+// The candidate window (window=, sv_round3.py:1274-1313, :1574-1583): on
+// a Morton-sorted cloud the selection ranks only the 128-row blocks its
+// key tile keeps (ops/window.py certifies them on the device), an
+// O(N * W) scan in place of O(N^2); the TPU compacts the kept blocks into
+// VMEM scratch, here the selection walks the kept-block list. Where the
+// certificate fails (ok = 0 on the device) it scans all N rows, with no
+// host sync.
 #include "sv_rounds.cuh"
 
 // pts (B, 3, N) channel-major; aa (B, N) scratch; wins (B, k, N) out;
@@ -36,16 +44,19 @@
 // (n_ch, V_out)); V_out is 10 or 16, anything else is refused. Fast mode:
 // pts_q (B, 3, N) the points through the gather grid, tile_scale
 // (B, N / T) the key tiles' scales; exact mode passes both null and T = 0.
-// L: approx mode's fold width, 0 in the other modes.
+// L: approx mode's fold width, 0 in the other modes. The candidate window
+// (W > 0; sv_common.cuh, SvWindow): keep (B, N / T, N / 128) and ok (one
+// int) from the pre-pass on the device, key tiles of T centres in every
+// mode, LW approx mode's fold width at W; W = 0: none, keep and ok null.
 extern "C" int sv_round3_first_launch(
     const float* pts, float* aa, const float* wz0, const float* wz1,
     const float* w1, const float* a1, const float* b1, const float* w2,
     const float* a2, const float* b2, float* s_out, float* v_out,
     float* ssum, int* wins, const float* pts_q, const float* tile_scale,
-    int B, int N, int k, int S_out, int V_out, int cross, int T, int L,
-    void* stream) {
+    const int* keep, const int* ok, int B, int N, int k, int S_out,
+    int V_out, int cross, int T, int L, int W, int LW, void* stream) {
   return sv_first_round<false>(pts, aa, wz0, wz1, w1, a1, b1, w2, a2, b2,
                                s_out, v_out, ssum, wins, B, N, k, S_out,
                                V_out, cross, (cudaStream_t)stream, pts_q,
-                               tile_scale, T, L);
+                               tile_scale, T, L, SvWindow{keep, ok, T, W, LW});
 }

@@ -285,7 +285,9 @@ static int sv_first_block(const float* pts, const int* wins, const float* wz0,
 // (tile_scale (B, N / T), sv_knn_select) selects on the raw points and
 // runs the block on pts_q, the points through the gather grid (neighbours
 // and centres alike, so a self-edge is 0); exact mode leaves pts_q null.
-// Approx mode is fast mode with the fold width L > 0.
+// Approx mode is fast mode with the fold width L > 0. win: the selection's
+// candidate window (sv_common.cuh, SvWindow), W = 0 for none; the block
+// kernel takes the absolute ids either way.
 template <bool ROW>
 static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           const float* wz1, const float* w1, const float* a1,
@@ -295,12 +297,12 @@ static int sv_first_round(const float* pts, float* aa, const float* wz0,
                           int S_out, int V_out, int cross, cudaStream_t st,
                           const float* pts_q = nullptr,
                           const float* tile_scale = nullptr, int T = 0,
-                          int L = 0) {
+                          int L = 0, SvWindow win = SvWindow{}) {
   if (S_out != F_S_OUT || (V_out != 10 && V_out != 16))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(pts, aa, wins, B, N, 3, k, st,
                                   /*point_major=*/ROW, /*row_major=*/ROW,
-                                  tile_scale, T, L);
+                                  tile_scale, T, L, win);
   if (err != cudaSuccess) return (int)err;
   return sv_first_block<ROW>(pts_q ? pts_q : pts, wins, wz0, wz1, w1, a1, b1,
                              w2, a2, b2, s_out, v_out, ssum, B, N, k, S_out,
@@ -759,7 +761,7 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
 // channel-major outputs). Fast mode (tile_scale (B, N / T)) selects on the
 // raw source and runs the block on src_q, the source through the gather
 // grid (row-major too); exact mode leaves src_q null. Approx mode is fast
-// mode with the fold width L > 0.
+// mode with the fold width L > 0; win as sv_first_round's.
 template <bool ROW>
 static int sv_conv_round(const float* src, float* aa, const float* wz,
                          const float* w1, const float* beta, const float* a1,
@@ -769,12 +771,12 @@ static int sv_conv_round(const float* src, float* aa, const float* wz,
                          int S, int V, int S_out, int V_out, int k, int binary,
                          cudaStream_t st, const float* src_q = nullptr,
                          const float* tile_scale = nullptr, int T = 0,
-                         int L = 0) {
+                         int L = 0, SvWindow win = SvWindow{}) {
   if (rb_layout(S, V, S_out, V_out, binary).total > SV_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = sv_knn_select(src, aa, wins, B, N, S + 3 * V, k, st,
                                   /*point_major=*/ROW, /*row_major=*/true,
-                                  tile_scale, T, L);
+                                  tile_scale, T, L, win);
   if (err != cudaSuccess) return (int)err;
   return sv_conv_block<ROW, false>(src_q ? src_q : src, wins, nullptr, wz, w1,
                                    beta, a1, b1, w2, scale2, a2, b2, s_out,

@@ -56,6 +56,11 @@ SV-DGCNN engines' round3 trunk in every mode: conv2..conv4 take the
 first round's ids ("spatial"), or conv3 and conv4 take conv2's
 ("conv2"), and select nothing (``sv_round3(wins_in=...)``); a gather
 window also Morton-sorts at entry. The other trunks raise.
+
+The candidate window (``window=``, svnet_tpu/infer.py:242-246, :554-567)
+goes to B1 and every selecting B2 of the SV-DGCNN engines' round3 trunk
+in every mode (ops/window.py); it excludes graph reuse, and the other
+trunks refuse it, where the JAX engines ignore it (ROADMAP C22).
 """
 
 from __future__ import annotations
@@ -345,14 +350,20 @@ class _DGCNNEngine:
 
     def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
                  k: int, binary: bool, mode: str, device, oracle: bool,
-                 trunk: str):
+                 trunk: str, window: int = 0):
         self.mode = config.check_mode(mode, trunk)
         self.trunk = trunk
         self.row_major = trunk != "round3"
+        if window and trunk != "round3":  # C22: JAX ignores it there
+            raise ValueError(f"window={window} is ported on the round3 trunk "
+                             f"only, not on {trunk!r}")
+        self.window = window
         self._first, self._round, self._point = TRUNKS[trunk](oracle)
-        if self.mode != "exact":  # the round3 trunk's rounds take the mode
-            self._first = functools.partial(self._first, mode=self.mode)
-            self._round = functools.partial(self._round, mode=self.mode)
+        if trunk == "round3":  # its rounds take the mode and the window
+            self._first = functools.partial(self._first, mode=self.mode,
+                                            window=window)
+            self._round = functools.partial(self._round, mode=self.mode,
+                                            window=window)
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
@@ -407,6 +418,9 @@ class _DGCNNEngine:
         if reuse != "none" and self.trunk != "round3":
             raise ValueError(f"graph_reuse={reuse!r} is ported on the round3 "
                              f"trunk only, not on {self.trunk!r}")
+        if reuse != "none" and self.window:
+            raise ValueError(f"graph_reuse={reuse!r} excludes the window "
+                             f"(window={self.window})")
         B, N, _ = points.shape
         dim = -1 if rm else 1  # the channel axis
         S1, V1 = self.dims["conv1"]
@@ -454,7 +468,12 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     default), the legacy row-major "round2", "round" (kernel B10a) or
     "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact", or
     "fast" or "approx" on the round3 trunk (approx Morton-sorts the
-    cloud first).
+    cloud first). ``window`` (round3 only; 0 = off): the certified Morton
+    candidate window of B1 and every selecting B2 (ops/window.py): each
+    key tile ranks at most that many rows of the 128-row blocks a pre-pass
+    keeps, or all N where the batch does not certify. It does not sort the
+    cloud: the caller does, or sets ``config.morton_entry``. It excludes
+    graph reuse, and another trunk refuses it (ROADMAP C22).
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
@@ -462,10 +481,11 @@ class SVDGCNNClsEngine(_DGCNNEngine):
 
     def __init__(self, weights: dict, num_classes: int = 40, k: int = 20,
                  binary: bool = True, mode: str = "exact", device="cuda",
-                 oracle: bool = False, rounds_impl: str = "round3"):
+                 oracle: bool = False, rounds_impl: str = "round3",
+                 window: int = 0):
         super().__init__(weights, CLS_DIMS, (1024 // 2, 1024 // 6), "svfuse",
                          k, binary, mode, device, oracle,
-                         check_rounds_impl(rounds_impl))
+                         check_rounds_impl(rounds_impl), window)
         self.num_classes = num_classes
         # the tail emits SVFuse channels j-major; the head's first linear
         # takes its rows in that order
@@ -506,11 +526,12 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
 
     def __init__(self, weights: dict, num_part: int = 50, k: int = 40,
                  binary: bool = True, mode: str = "exact", device="cuda",
-                 oracle: bool = False, rounds_impl: str = "round3"):
+                 oracle: bool = False, rounds_impl: str = "round3",
+                 window: int = 0):
         trunk = check_rounds_impl(rounds_impl)
         super().__init__(weights, PSEG_TRUNK, PSEG_DIMS["conv5"], "svfuse3",
                          k, binary, mode, device, oracle,
-                         "round3" if trunk == "round3" else "round2")
+                         "round3" if trunk == "round3" else "round2", window)
         self.num_part = num_part
         p = self.p
         self.v_off0 = point_v_off(0, [V for _, V in self.dims.values()])

@@ -37,12 +37,12 @@ _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes), all return an int (a
 # cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
 SIGNATURES = {
-    # pts, aa, 8 weights, s_out, v_out, ssum, wins, pts_q, tile_scale; B N
-    # k S_out V_out cross T L; stream
-    "sv_round3_first_launch": [_P] * 16 + [_I] * 8 + [_P],
-    # src, aa, 9 weights, s_out, v_out, ssum, wins, src_q, tile_scale; B N S
-    # V S_out V_out k binary T L; stream
-    "sv_round3_launch": [_P] * 17 + [_I] * 10 + [_P],
+    # pts, aa, 8 weights, s_out, v_out, ssum, wins, pts_q, tile_scale,
+    # keep, ok; B N k S_out V_out cross T L W LW; stream
+    "sv_round3_first_launch": [_P] * 18 + [_I] * 10 + [_P],
+    # src, aa, 9 weights, s_out, v_out, ssum, wins, src_q, tile_scale, keep,
+    # ok; B N S V S_out V_out k binary T L W LW; stream
+    "sv_round3_launch": [_P] * 19 + [_I] * 12 + [_P],
     # src, wins, wins' batch stride, 9 weights, s_out, v_out, ssum; B N S V
     # S_out V_out k binary; stream
     "sv_round3_reuse_launch": [_P, _P, _L] + [_P] * 12 + [_I] * 8 + [_P],
@@ -50,8 +50,8 @@ SIGNATURES = {
     # smax, vsum; B N S V S_out V_out binary; stream
     "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],
     # the row-major twins: sv_round2_first_launch and sv_round2_launch as
-    # the round3 entry points in exact mode (without the last two pointers,
-    # T and L), sv_point_rm_launch as
+    # the round3 entry points in exact mode (without the last four pointers
+    # and the last four ints), sv_point_rm_launch as
     # sv_point_launch without vrow
     "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
     "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
@@ -79,6 +79,12 @@ SIGNATURES = {
     "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
     # x, aa, neg_min; B N C; stream
     "sv_neg_min_launch": [_P] * 3 + [_I] * 3 + [_P],
+    # x, aa, neg_min, keep, ok; B N C T W; stream
+    "sv_neg_min_window_launch": [_P] * 5 + [_I] * 5 + [_P],
+    # x, aa, tau; B N C k; stream
+    "sv_window_tau_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, lo, hi, tau, keep; B N C T; stream
+    "sv_window_keep_launch": [_P] * 5 + [_I] * 4 + [_P],
     # src, idx, out; B n_src M k C; stream
     "sv_edge_gather_fwd_launch": [_P] * 3 + [_I] * 5 + [_P],
     # g, idx, dsrc, scratch; B n_src M k C; stream

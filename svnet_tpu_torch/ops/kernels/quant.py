@@ -64,17 +64,22 @@ def tile_scales(neg_min: torch.Tensor, T: int, M: int) -> torch.Tensor:
     return top / torch.minimum(worst, lim)
 
 
-def packed_keys(neg: torch.Tensor, scale: torch.Tensor, T: int) -> torch.Tensor:
+def packed_keys(neg: torch.Tensor, scale: torch.Tensor, T: int,
+                rows: torch.Tensor | None = None,
+                M: int | None = None) -> torch.Tensor:
     """neg (B, N centres, M candidates), scale (B, N/T) -> int32 keys
     ``q * 2^ib + (2^ib - 1 - row)``, q = floor(neg * scale) clamped; unique
-    along the candidates, larger first, ties of q to the lower row."""
-    B, N, M = neg.shape
+    along the candidates, larger first, ties of q to the lower row. A
+    candidate window passes its candidates' absolute ``rows``
+    (broadcastable to neg) and the cloud's ``M`` rows, which set ib."""
+    M = M or neg.shape[-1]
     ib = idx_bits(M)
     lo, hi = q_bounds(M)
     s = scale.repeat_interleave(T, dim=1)[:, :, None]
     q = torch.floor(neg * s).clamp_(lo, hi).to(torch.int32)
-    rows = torch.arange(M, device=neg.device, dtype=torch.int32)
-    return q * (1 << ib) + ((1 << ib) - 1 - rows)
+    if rows is None:
+        rows = torch.arange(M, device=neg.device, dtype=torch.int32)
+    return q * (1 << ib) + ((1 << ib) - 1 - rows.to(torch.int32))
 
 
 def key_rows(keys: torch.Tensor, M: int) -> torch.Tensor:

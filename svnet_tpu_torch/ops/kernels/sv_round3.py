@@ -41,6 +41,20 @@ makes one launch (``sv_round3_reuse``, also counted on
 TPU's compaction of the winners' row blocks, is bitwise the full gather,
 which is what runs here. The ids may be the first ranks of a wider
 tensor (``wins[:, :r]``): the kernel takes their batch stride.
+
+The candidate window (``window=``, sv_round3.py:548-591, :1274-1313,
+:1196-1205, :1574-1583; ops/window.py): for 0 < window < N the round
+tiles its centres by T in every mode (``key_tile``), the pre-pass
+certifies each tile's kept 128-row blocks, and where the whole batch
+fits W rows a tile ranks only those (compacted in block order; fast
+mode's key scale from the kept rows, with 0.0 where the window has
+padding; approx mode folding the W positions to ``quant.fold_width(W)``
+lanes), else every row, as without a window. The kernels read the
+certificate on the card: one launch of the windowed selection and the
+block (``<wrapper>.window_launches`` counts them beside ``launches``),
+after the pre-pass's kernels and, in fast and approx mode, the windowed
+scale pre-pass. Exact mode's result is the full scan's, bitwise. The
+window excludes ``wins_in``.
 """
 
 from __future__ import annotations
@@ -53,7 +67,12 @@ from svnet_tpu_torch.nn.sv_layers import binary_matmul, v2s_invariants
 from svnet_tpu_torch.ops.kernels import _build, quant
 from svnet_tpu_torch.ops.kernels.fold import Folded
 from svnet_tpu_torch.ops.kernels.knn import neg_min
-from svnet_tpu_torch.ops.knn import knn_approx_plain, knn_fast_plain
+from svnet_tpu_torch.ops.knn import (
+    knn_approx_plain,
+    knn_fast_plain,
+    knn_window_plain,
+)
+from svnet_tpu_torch.ops.window import check_window, prune_prepass
 
 
 def jmajor(s: torch.Tensor, multi: int = 3) -> torch.Tensor:
@@ -108,11 +127,13 @@ def first_perm(n_ch: int = 2) -> list[int]:
     return [j * n_ch + c for c in range(n_ch) for j in range(3)]
 
 
-def key_tile(mode: str, N: int, C: int, T: int | None, k: int) -> int | None:
-    """A round's key tile: None in exact mode, else ``T`` or the JAX
-    package's heuristic (``quant.round3_tiles``); it must divide N. In
-    approx mode N must fold (``quant.fold_width``) to at least k lanes."""
-    if config.check_mode(mode) == "exact":
+def key_tile(mode: str, N: int, C: int, T: int | None, k: int,
+             window: int = 0) -> int | None:
+    """A round's key tile: None in exact mode without an active window
+    (0 < window < N), else ``T`` or the JAX package's heuristic
+    (``quant.round3_tiles``); it must divide N. In approx mode N must fold
+    (``quant.fold_width``) to at least k lanes."""
+    if config.check_mode(mode) == "exact" and not 0 < window < N:
         return None
     T = T or quant.round3_tiles(N, C, mode)
     if N % T:
@@ -122,30 +143,59 @@ def key_tile(mode: str, N: int, C: int, T: int | None, k: int) -> int | None:
     return T
 
 
-def _select(x: torch.Tensor, k: int, T: int | None, mode: str):
+def round_window(x: torch.Tensor, k: int, T: int | None, window: int,
+                 mode: str, plain: bool = False):
+    """A round's candidate window over row-major x (B, N, C): None where
+    it is off, else (T, W, keep, ok) from ``ops.window.prune_prepass`` on
+    x's device (keep (B, N/T, N/128) and ok () int32, never read on the
+    host here; ``plain``: the pre-pass's plain block test). ``T`` is the
+    round's ``key_tile``."""
+    W = check_window(window, x.shape[1], T, k, mode)
+    if not W:
+        return None
+    keep, ok = prune_prepass(x, k, T, W, plain)
+    return T, W, keep.contiguous(), ok.to(torch.int32)
+
+
+def _select(x: torch.Tensor, k: int, T: int | None, mode: str, win=None):
     """The plain selection and the block's rows for row-major x (B, N, C):
     exact mode's (knn_plain, x), or fast or approx mode's on key tiles of
-    T (knn_fast_plain or knn_approx_plain, x through the mode's grid)."""
-    if T is None:
-        return ops.knn_plain(x, k), x
+    T (knn_fast_plain or knn_approx_plain, x through the mode's grid); over
+    a candidate window ``win`` (``round_window``) knn_window_plain's."""
+    rows = x if mode == "exact" else quant.grid_rows(x, mode)
+    if win is not None:
+        T, W, keep, ok = win
+        return knn_window_plain(x, k, T, W, keep, ok, mode), rows
+    if mode == "exact":
+        return ops.knn_plain(x, k), rows
     sel = knn_approx_plain if mode == "approx" else knn_fast_plain
-    return sel(x, k, T), quant.grid_rows(x, mode)
+    return sel(x, k, T), rows
 
 
-def _fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool):
+def _fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool, win=None):
     """The kernels' fast- and approx-mode arguments for row-major x
     (B, N, C): the block's rows through the mode's gather grid
-    (channel-major when ``cm``), the key tiles' scales from the pre-pass,
-    T and the fold width L (0: no fold); in exact mode (None, None, 0,
-    0). The tensors are returned to outlive the launch."""
-    if T is None:
-        return None, None, 0, 0
+    (channel-major when ``cm``), the key tiles' scales from the pre-pass
+    (over the window ``win``, if any) and the fold width L (0: no fold);
+    in exact mode (None, None, 0). The tensors are returned to outlive the
+    launch."""
+    if mode == "exact":
+        return None, None, 0
     N = x.shape[1]
     L = quant.fold_width(N) if mode == "approx" else N
     xq = quant.grid_rows(x, mode)
     xq = (xq.transpose(1, 2) if cm else xq).contiguous()
-    scale = quant.tile_scales(neg_min(x), T, N).contiguous()
-    return xq, scale, T, (L if L < N else 0)
+    scale = quant.tile_scales(neg_min(x, win), T, N).contiguous()
+    return xq, scale, (L if L < N else 0)
+
+
+def _window_args(win, mode: str) -> tuple:
+    """The launchers' window arguments: keep, ok, W and approx mode's fold
+    width at W (0 in the other modes); no window: (None, None, 0, 0)."""
+    if win is None:
+        return None, None, 0, 0
+    _, W, keep, ok = win
+    return keep, ok, W, (quant.fold_width(W) if mode == "approx" else 0)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -200,47 +250,51 @@ def first_block_rows(points: torch.Tensor, idx: torch.Tensor, folded: Folded,
 
 def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
                      V_out: int, k: int, cross: bool = False,
-                     T: int | None = None, mode: str = "fast"):
+                     T: int | None = None, mode: str = "exact", win=None):
     """The first round's function on row-major outputs, shared by the plain
     versions of both layouts: the kNN (fast or approx ``mode``'s on key
-    tiles of ``T`` when given), then ``first_block_rows``; (s, v ungated,
-    s_mean, ids (B, N, k) int32)."""
-    idx, rows = _select(points, k, T, mode)
+    tiles of ``T`` when given; over the candidate window ``win``), then
+    ``first_block_rows``; (s, v ungated, s_mean, ids (B, N, k) int32)."""
+    idx, rows = _select(points, k, T, mode, win)
     return (*first_block_rows(rows, idx, folded, S_out=S_out, V_out=V_out,
                               cross=cross), idx)
 
 
 def sv_round3_first_plain(points: torch.Tensor, folded: Folded, *,
                           S_out: int, V_out: int, k: int, cross: bool = False,
-                          mode: str = "exact", T: int | None = None):
+                          mode: str = "exact", T: int | None = None,
+                          window: int = 0):
     """Plain version of the first round; same outputs as the kernel, with
     the neighbour ids (B, k, N) int32 last."""
-    T = key_tile(mode, points.shape[1], 3, T, k)
+    T = key_tile(mode, points.shape[1], 3, T, k, window)
+    win = round_window(points, k, T, window, mode, plain=True)
     s, v, s_mean, idx = first_round_rows(points, folded, S_out=S_out,
                                          V_out=V_out, k=k, cross=cross, T=T,
-                                         mode=mode)
+                                         mode=mode, win=win)
     return s.transpose(1, 2), v.transpose(1, 2), s_mean, idx.transpose(1, 2)
 
 
 def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
                     V_out: int, k: int, cross: bool = False,
                     mode: str = "exact", T: int | None = None,
-                    emit_wins: bool = False):
+                    emit_wins: bool = False, window: int = 0):
     """points (B, N, 3) -> (s (B, S_out, N), v (B, 3*V_out, N) ungated,
     s_mean (B, 3*n_ch) c-major[, wins (B, k, N) int32]); the edges carry
     n_ch = 3 channels with ``cross`` (SV-PointNet), else 2. The kernel takes
     S_out = 32 and V_out = 10 or 16 (SV_DGCNN_PSEG's conv1). ``mode``
     "exact", "fast" or "approx" (key tiles of ``T``: see the module's
-    docstring)."""
+    docstring); ``window``: the candidate window (0 = off; see the
+    module's docstring)."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must lie in [1, N={N}]")
-    T = key_tile(mode, N, 3, T, k)
+    T = key_tile(mode, N, 3, T, k, window)
     if points.device.type == "cpu":
         out = sv_round3_first_plain(points, folded, S_out=S_out, V_out=V_out,
-                                    k=k, cross=cross, mode=mode, T=T)
+                                    k=k, cross=cross, mode=mode, T=T,
+                                    window=window)
         return out if emit_wins else out[:3]
     dev = require_cuda(points.device)
     _build.check_arg(points, "points", (B, N, 3), dev)
@@ -255,7 +309,9 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
          _build.check_arg(f["b2"], "b2", (1, V_out), dev)]
     lib = _build.lib()
     pts = points.transpose(1, 2).contiguous()  # (B, 3, N)
-    pts_q, scale, T, L = _fast_args(points, T, mode, cm=True)
+    win = round_window(points, k, T, window, mode)
+    pts_q, scale, L = _fast_args(points, T, mode, cm=True, win=win)
+    keep, ok, W, LW = _window_args(win, mode)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -263,16 +319,19 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_first_launch(
         pts.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), _ptr(pts_q), _ptr(scale), B, N, k,
-        S_out, V_out, int(cross), T, L, _build.stream_ptr(dev))
+        ssum.data_ptr(), wins.data_ptr(), _ptr(pts_q), _ptr(scale), _ptr(keep),
+        _ptr(ok), B, N, k, S_out, V_out, int(cross), T or 0, L, W, LW,
+        _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
+    sv_round3_first.window_launches += win is not None
     s_mean = ssum.sum(dim=2)[:, first_perm(n_ch)] / (N * k)
     out = (s, v, s_mean, wins)
     return out if emit_wins else out[:3]
 
 
 sv_round3_first.launches = 0
+sv_round3_first.window_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -304,17 +363,18 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
 
 def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
-                    T: int | None = None, mode: str = "fast",
-                    idx: torch.Tensor | None = None):
+                    T: int | None = None, mode: str = "exact",
+                    idx: torch.Tensor | None = None, win=None):
     """A conv round's function on row-major x (B, N, S + 3V), shared by the
     plain versions of both layouts: the kNN (fast or approx ``mode``'s on
-    key tiles of ``T`` when given) unless the ids ``idx`` (B, N, k) are
-    given (graph reuse: x through ``mode``'s grid, no selection), then
-    ``conv_block_rows``; (s (B, N, S_out), v (B, N, 3*V_out) ungated,
-    s_edge_mean (B, 2S), ids (B, N, k) int32)."""
+    key tiles of ``T`` when given; over the candidate window ``win``)
+    unless the ids ``idx`` (B, N, k) are given (graph reuse: x through
+    ``mode``'s grid, no selection), then ``conv_block_rows``; (s (B, N,
+    S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k)
+    int32)."""
     B, N, _ = x.shape
     if idx is None:
-        idx, rows = _select(x, k, T, mode)
+        idx, rows = _select(x, k, T, mode, win)
     else:
         rows = x if mode == "exact" else quant.grid_rows(x, mode)
     s, vm, s_e = conv_block_rows(rows, idx, folded, S=S, V=V, S_out=S_out,
@@ -327,22 +387,25 @@ def sv_round3_plain(src: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
                     mode: str = "exact", T: int | None = None,
                     wins_in: torch.Tensor | None = None,
-                    gather_window: int = 0):
+                    gather_window: int = 0, window: int = 0):
     """Plain version of a conv round on channel-major src (B, S+3V, N);
     same outputs as the kernel, with the neighbour ids (B, k, N) last.
     Given ``wins_in`` (B, k, N) (graph reuse) it is the block on those ids
     over ``mode``'s grid rows, no selection, and returns no ids; any
     ``gather_window`` gathers in full, as the kernel does."""
     if wins_in is not None:
+        if window:
+            raise ValueError("wins_in (graph reuse) excludes the window")
         config.check_mode(mode)
         s, v, se_mean, _ = conv_round_rows(
             src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out,
             k=k, binary=binary, mode=mode, idx=wins_in.transpose(1, 2))
         return s.transpose(1, 2), v.transpose(1, 2), se_mean
-    T = key_tile(mode, src.shape[2], S + 3 * V, T, k)
+    T = key_tile(mode, src.shape[2], S + 3 * V, T, k, window)
+    x = src.transpose(1, 2)
     s, v, se_mean, idx = conv_round_rows(
-        src.transpose(1, 2), folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k,
-        binary=binary, T=T, mode=mode)
+        x, folded, S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary,
+        T=T, mode=mode, win=round_window(x, k, T, window, mode, plain=True))
     return s.transpose(1, 2), v.transpose(1, 2), se_mean, idx.transpose(1, 2)
 
 
@@ -365,14 +428,15 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
               S_out: int, V_out: int, k: int, binary: bool = True,
               mode: str = "exact", T: int | None = None,
               emit_wins: bool = False, wins_in: torch.Tensor | None = None,
-              gather_window: int = 0, emitted: bool = False):
+              gather_window: int = 0, emitted: bool = False, window: int = 0):
     """src (B, S+3V, N) channel-major [s | v i-major] -> (s (B, S_out, N),
     v (B, 3*V_out, N) ungated, s_edge_mean (B, 2S)[, wins (B, k, N))];
     ``mode`` "exact", "fast" or "approx" (key tiles of ``T``: see the
-    module's docstring). ``wins_in`` (B, k, N) int32: graph reuse, the
+    module's docstring); ``window``: the candidate window (0 = off; see
+    the module's docstring). ``wins_in`` (B, k, N) int32: graph reuse, the
     round runs ``sv_round3_reuse`` on those ids (``emitted``: as it says
-    there); it excludes ``emit_wins``, and ``gather_window`` (0, or a
-    multiple of 128) needs it."""
+    there); it excludes ``emit_wins`` and ``window``, and
+    ``gather_window`` (0, or a multiple of 128) needs it."""
     C = S + 3 * V
     if src.dim() != 3 or src.shape[1] != C:
         raise ValueError(f"src: shape {tuple(src.shape)}, expected (B, {C}, N)")
@@ -384,22 +448,27 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     if wins_in is not None:
         if emit_wins:
             raise ValueError("wins_in (graph reuse) excludes emit_wins")
+        if window:
+            raise ValueError("wins_in (graph reuse) excludes the window")
         return sv_round3_reuse(src, wins_in, folded, S=S, V=V, S_out=S_out,
                                V_out=V_out, k=k, binary=binary, mode=mode,
                                emitted=emitted)
     if gather_window:
         raise ValueError("gather_window requires wins_in (a graph-reuse round)")
-    T = key_tile(mode, N, C, T, k)
+    T = key_tile(mode, N, C, T, k, window)
     if src.device.type == "cpu":
         out = sv_round3_plain(src, folded, S=S, V=V, S_out=S_out,
-                              V_out=V_out, k=k, binary=binary, mode=mode, T=T)
+                              V_out=V_out, k=k, binary=binary, mode=mode, T=T,
+                              window=window)
         return out if emit_wins else out[:3]
     dev = require_cuda(src.device)
     _build.check_arg(src, "src", (B, C, N), dev)
     w = _conv_weights(folded, S, V, S_out, V_out, dev)
     lib = _build.lib()
     rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
-    rows_q, scale, T, L = _fast_args(rows, T, mode, cm=False)
+    win = round_window(rows, k, T, window, mode)
+    rows_q, scale, L = _fast_args(rows, T, mode, cm=False, win=win)
+    keep, ok, W, LW = _window_args(win, mode)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
     v = torch.empty((B, 3 * V_out, N), device=dev)
@@ -407,16 +476,19 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_launch(
         rows.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), _ptr(rows_q), _ptr(scale), B, N, S,
-        V, S_out, V_out, k, int(binary), T, L, _build.stream_ptr(dev))
+        ssum.data_ptr(), wins.data_ptr(), _ptr(rows_q), _ptr(scale), _ptr(keep),
+        _ptr(ok), B, N, S, V, S_out, V_out, k, int(binary), T or 0, L, W, LW,
+        _build.stream_ptr(dev))
     _build.check(err, "sv_round3")
     sv_round3.launches += 1
+    sv_round3.window_launches += win is not None
     se_mean = ssum.sum(dim=2) / (N * k)
     out = (s, v, se_mean, wins)
     return out if emit_wins else out[:3]
 
 
 sv_round3.launches = 0
+sv_round3.window_launches = 0
 
 
 def sv_round3_reuse(src: torch.Tensor, wins: torch.Tensor, folded: Folded, *,

@@ -16,7 +16,7 @@ import torch
 
 from svnet_tpu_torch.ops.kernels import quant
 
-def _channel_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def channel_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_c a[..., c] * b[..., c], one channel at a time in order, each
     product and sum rounded on its own."""
     acc = a[..., 0] * b[..., 0]
@@ -36,9 +36,9 @@ def pairwise_neg_sqdist(x: torch.Tensor, y: torch.Tensor | None = None) -> torch
     """
     if y is None:
         y = x
-    xx = _channel_sum(x, x)
-    yy = _channel_sum(y, y)
-    inner = _channel_sum(x[:, :, None, :], y[:, None, :, :])
+    xx = channel_sum(x, x)
+    yy = channel_sum(y, y)
+    inner = channel_sum(x[:, :, None, :], y[:, None, :, :])
     return 2.0 * inner - xx[:, :, None] - yy[:, None, :]
 
 
@@ -95,6 +95,65 @@ def knn_approx_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
     N = x.shape[1]
     L = quant.fold_width(N, k)
     return _top_rows(quant.fold_keys(_fast_keys(x, T), L), k, N)
+
+
+def window_neg(x: torch.Tensor, T: int, keep: torch.Tensor, W: int):
+    """The distances of a certified candidate window: (neg (B*nt, T, W)
+    over each tile's compacted kept rows, +inf on padding; rows (B*nt, W)
+    absolute; valid (B*nt, W)). The same values as the full scan's
+    (``pairwise_neg_sqdist`` sums channel by channel)."""
+    from svnet_tpu_torch.ops.window import window_rows
+
+    B, N, C = x.shape
+    nt = N // T
+    rows, valid = window_rows(keep, W)  # (B, nt, W)
+    xf = x.float()
+    cand = torch.take_along_dim(xf, rows.reshape(B, nt * W, 1), dim=1)
+    neg = pairwise_neg_sqdist(xf.reshape(B * nt, T, C), cand.reshape(B * nt, W, C))
+    valid = valid.reshape(B * nt, W)
+    return neg.masked_fill(~valid[:, None, :], float("inf")), rows.reshape(B * nt, W), valid
+
+
+def window_neg_min(neg: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(B*nt, T, W) window distances -> (B*nt, T): each centre's least
+    over the kept rows, and 0.0 where its tile's window has padding (the
+    JAX kernel zeroes neg there before the tile's min, sv_round3.py:586-591)."""
+    mn = neg.amin(dim=-1)
+    pad = ~valid.all(dim=-1)
+    return torch.where(pad[:, None], torch.clamp(mn, max=0.0), mn)
+
+
+def knn_window_plain(x: torch.Tensor, k: int, T: int, W: int,
+                     keep: torch.Tensor, ok: torch.Tensor,
+                     mode: str = "exact") -> torch.Tensor:
+    """The windowed selection of ``mode`` (sv_round3.py:548-591, the W < N
+    branch): (B, N, C) -> (B, N, k) int32 absolute ids, each tile of T
+    centres ranking the compacted rows of its kept blocks (ops/window.py:
+    ``keep``, ``ok`` from ``prune_prepass``). Exact mode: the sortable key,
+    ties to the lower row (bitwise the full scan where certified). Fast
+    mode: the packed key on the tile's scale over the kept rows (with 0.0
+    where the window has padding), the idx bits of N. Approx mode: those
+    keys with padding lowest, the W positions folded to
+    ``quant.fold_width(W)`` lanes. Where ``ok`` is False, the full scan of
+    ``mode`` on key tiles of T."""
+    B, N, _ = x.shape
+    if not bool(ok):
+        if mode == "exact":
+            return knn_plain(x, k)
+        return (knn_approx_plain if mode == "approx" else knn_fast_plain)(x, k, T)
+    neg, rows, valid = window_neg(x, T, keep, W)
+    if mode == "exact":
+        pos = topk_rows(neg.masked_fill(~valid[:, None, :], float("-inf")), k)
+        ids = torch.gather(rows[:, None, :].expand(-1, T, -1), 2, pos)
+    else:
+        scale = quant.tile_scales(window_neg_min(neg, valid).reshape(B, N), T, N)
+        keys = quant.packed_keys(neg, scale.reshape(-1, 1), T,
+                                 rows=rows[:, None, :], M=N)
+        keys = keys.masked_fill(~valid[:, None, :], torch.iinfo(torch.int32).min)
+        if mode == "approx":
+            keys = quant.fold_keys(keys, quant.fold_width(W, k))
+        ids = _top_rows(keys, k, N)
+    return ids.reshape(B, N, k).to(torch.int32)
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Deformed-sphere surface clouds (counterpart of
 svnet_tpu/utils/synth.py::surface_clouds): unit-sphere samples pushed by
 three random Gaussian bump fields, clustered like real surfaces. The same
-seed gives the same clouds as the JAX package's generator."""
+seed gives the same clouds as the JAX package's generator. Strand clouds
+(``strand_clouds``): elongated inputs on which the candidate window
+certifies at small N."""
 
 from __future__ import annotations
 
@@ -21,3 +23,21 @@ def surface_clouds(seed: int, B: int, N: int) -> np.ndarray:
             p += 0.15 * np.exp(-np.sum((p - c) ** 2, 1) / 0.3)[:, None] * (p - c)
         clouds.append(p.astype(np.float32))
     return np.stack(clouds)
+
+
+def strand_clouds(seed: int, B: int, N: int, C: int = 3,
+                  length: float = 4.0) -> np.ndarray:
+    """(B, N, C) float32 clouds strung along a strand ``length`` long on
+    the first axis, centred on 0: the points in order along it (already
+    Morton-coherent), 0.02 of Gaussian jitter about it, channels past the
+    third smooth functions (amplitude 0.5) of the position along it. Each
+    point's neighbours lie in its own stretch of the strand, so the
+    candidate window (ops/window.py) certifies on them where it does not
+    on a compact surface of the same N."""
+    rng = np.random.default_rng(seed)
+    u = np.sort(rng.uniform(0.0, 1.0, size=(B, N)), axis=1)
+    x = rng.normal(scale=0.02, size=(B, N, C))
+    x[..., 0] += length * (u - 0.5)
+    if C > 3:
+        x[..., 3:] += 0.5 * np.sin(u[..., None] * np.arange(1, C - 2))
+    return x.astype(np.float32)

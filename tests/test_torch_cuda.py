@@ -1028,3 +1028,107 @@ def test_stage_split_anchors_track_the_kernels():
     got = ss.split({"rounds": 10.0, "serve:a": 7.0, "serve:b": 9.5, "train:c": 1.0},
                    "rounds", "serve:")
     assert got == {"kernel_ms": 10.0, "a": 3.0, "b": 0.5, "rest": 6.5}
+
+
+# the candidate window: (B, N, k, W, approx fold, input, key tile T) on
+# strand clouds (utils/synth.py), which certify at these N: k = 33 above a
+# 32-entry list; duplicated points (every odd row repeats an even one) at
+# a W that certifies (384) and one that does not (256); approx W = 384 at
+# fold 64 (L = 48 at W, 64 at N); one cloud of the batch shuffled
+# ("mixed"), so the whole batch falls back to the full scan; T = 256, two
+# blocks a tile
+WINDOW_FORCED = [(2, 1024, 33, 384, 256, None, 128), (3, 512, 20, 256, 256, "dup", 128),
+                 (3, 512, 20, 384, 256, "dup", 128), (2, 1024, 20, 384, 64, None, 128),
+                 (2, 1024, 20, 384, 256, "mixed", 128), (2, 2048, 20, 768, 256, None, 256)]
+
+
+def _window_input(b, n, c, kind, seed):
+    """Strand clouds (B, N, C), duplicated or with the last cloud
+    shuffled as ``kind`` says."""
+    from svnet_tpu_torch.utils.synth import strand_clouds
+
+    x = torch.from_numpy(strand_clouds(seed, b, n, c))
+    if kind == "dup":
+        h = x[:, 1::2].shape[1]
+        x[:, 1::2] = x[:, ::2][:, :h]
+    elif kind == "mixed":
+        x[-1] = x[-1, torch.randperm(n, generator=torch.Generator().manual_seed(seed))]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8], ids=["gb16", "gb8"])
+@pytest.mark.parametrize("shape", WINDOW_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-W{s[3]}-fold{s[4]}-T{s[6]}"
+                              + (f"-{s[5]}" if s[5] else "") for s in WINDOW_FORCED])
+def test_window_rounds_match_plain_on_card(shape, bits):
+    """The candidate window in exact, fast and approx mode at 16- and 8-bit
+    gathers: the pre-pass's kernels (window_tau, window_keep) and the
+    scale pre-pass over the window bitwise their plain versions (tau also
+    at N = 256, where the band holds the other block twice); B1
+    (xyz) and B2 ((5, 3) -> (13, 7), binary and FP), ids and outputs
+    bitwise their plain versions, with ``ok`` read on the card true and
+    false; exact mode bitwise the full scan; one windowed launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_round3 as kr
+    from svnet_tpu_torch.ops.window import (
+        prune_prepass,
+        window_tau,
+        window_tau_plain,
+    )
+
+    b, n, k, W, fold, kind, T = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(41)
+    was = (config.fast_gather_bits, config.approx_gather_bits, config.approx_fold)
+    config.set_fast_gather_bits(bits)
+    config.set_approx_gather_bits(bits)
+    config.set_approx_fold(fold)
+    try:
+        pts = _window_input(b, n, 3, kind, 41).to(dev)
+        rows = _window_input(b, n, 14, kind, 42).to(dev)
+        for x in (pts, rows):
+            keep, ok = prune_prepass(x, k, T, W)
+            assert bool(ok) == (kind is None or (kind == "dup" and W == 384))
+            pkeep, pok = prune_prepass(x, k, T, W, plain=True)
+            assert torch.equal(keep, pkeep) and bool(pok) == bool(ok)
+            assert torch.equal(window_tau(x, k), window_tau_plain(x, k))
+            win = (T, W, keep, ok.to(torch.int32))
+            assert torch.equal(kk.neg_min(x, win), kk.neg_min_window_plain(x, win))
+        small = _window_input(2, 256, 14, kind, 43).to(dev)
+        assert torch.equal(window_tau(small, k), window_tau_plain(small, k))
+        src = rows.transpose(1, 2).contiguous()
+        f1 = {name: w.to(dev) for name, w in _first_weights(2, 10, gen).items()}
+        for mode in ("exact", "fast", "approx"):
+            kw = dict(S_out=32, V_out=10, k=k, mode=mode, T=T, window=W)
+            before = kr.sv_round3_first.window_launches
+            got = sv_round3_first(pts, f1, emit_wins=True, **kw)
+            assert kr.sv_round3_first.window_launches == before + 1
+            for g, w in zip(got, sv_round3_first_plain(pts, f1, **kw)):
+                assert torch.equal(g, w)
+            if mode == "exact":
+                full = sv_round3_first(pts, f1, S_out=32, V_out=10, k=k,
+                                       emit_wins=True)
+                assert all(torch.equal(g, w) for g, w in zip(got, full))
+            for binary in (True, False):
+                f = {name: w.to(dev) for name, w in
+                     _round_weights(5, 3, 13, 7, binary, gen).items()}
+                kw = dict(S=5, V=3, S_out=13, V_out=7, k=k, binary=binary,
+                          mode=mode, T=T, window=W)
+                before = kr.sv_round3.window_launches
+                got = sv_round3(src, f, emit_wins=True, **kw)
+                assert kr.sv_round3.window_launches == before + 1
+                for g, w in zip(got, sv_round3_plain(src, f, **kw)):
+                    assert torch.equal(g, w)
+                if mode == "exact":
+                    full = sv_round3(src, f, S=5, V=3, S_out=13, V_out=7, k=k,
+                                     binary=binary, emit_wins=True)
+                    assert all(torch.equal(g, w) for g, w in zip(got, full))
+    finally:
+        config.set_fast_gather_bits(was[0])
+        config.set_approx_gather_bits(was[1])
+        config.set_approx_fold(was[2])
