@@ -19,9 +19,11 @@ the XNOR-popcount +-1 product through its bench
 (utils/bench_binary_matmul.py); then fast mode (packed 18-bit kNN keys per
 key tile, 16- and 8-bit gather grids) and approx mode (those keys folded
 to approx_fold lanes, the Morton entry sort) through B1 and B2 of both
-SV-DGCNN engines and the SV-PointNet classifier, graph reuse, and the
-certified Morton candidate window at N = 8192. Phases; any failure
-raises and the script exits non-zero:
+SV-DGCNN engines and the SV-PointNet classifier, graph reuse, the
+certified Morton candidate window at N = 8192, and fast and approx mode
+on the legacy row-major trunks (round2 in both SV-DGCNN engines, round in
+the classifier). Phases; any failure raises and the script exits
+non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -199,6 +201,26 @@ raises and the script exits non-zero:
      (4, 8192, 3), k = 40, exact, windowed and not, logits bitwise;
      medians and each round's kept share of the 128-row blocks and
      certificate printed with the card
+ 20  the legacy trunks' fast and approx mode: 5 requests each through
+     SVDGCNNClsEngine (128, 1024, 3) with rounds_impl="round2" in fast
+     and approx mode and "round" in fast mode, and SVDGCNNPsegEngine
+     (32, 2048, 3) with "round2" in fast and approx mode (tile 64: key
+     tiles of 256); per request the trunk's first round once, its conv
+     round three times, the pre-pass neg_min four times and
+     sv_point_block once; top-1 agrees with the plain twin on >= 99%
+     (bitwise expected); the median printed beside the same trunk in
+     exact mode on the same requests and phase 13's, with the card
+
+Phase 2 also holds the legacy trunks' fast and approx mode
+(phase2_legacy): B10b (sv_round2_first, sv_round2) in fast and approx
+mode at the cls and partseg shapes and B10a (sv_round_first, sv_round)
+with exact=False at the cls shape, key tiles from the engines'
+heuristic (T = 256), inputs chained through the plain versions, ids
+(B10b) and outputs bitwise, binary timed beside the same kernel in exact
+mode, FP bitwise; and LEGACY_FORCED ((B, N, k, T) = (2, 1000, 7, 8),
+(2, 1024, 33, 256), (3, 256, 40, 64) with duplicated points, (1, 2048,
+64, 128), (2, 512, 20, 512)), every first-round instantiation and
+B10b's conv round in both modes, B10a's fast.
 
 Phase 2 also holds the window (phase2_window): B1 and B2 with window=W
 against their plain versions, ids and outputs bitwise, at phase 19's cls
@@ -1985,14 +2007,16 @@ def phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev):
 
 
 def timed_fast(rep, label, name, kern, plain, exact, cost):
-    """A fast-mode call (kern) bitwise its plain version, ids included,
-    then timed beside the plain version and beside ``exact``, the same
-    kernel in exact mode on the same input. Returns the plain outputs."""
+    """A fast-mode call (kern) bitwise its plain version, ids included
+    where the wrapper returns them, then timed beside the plain version
+    and beside ``exact``, the same kernel in exact mode on the same input.
+    Returns the plain outputs."""
     ko, po = kern(), plain()
     sync(ko[0].device)
     check_equal(label, ko, po)
     ms, plain_ms, exact_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(exact)
-    log(f"  {label}: ids and outputs bitwise; kernel {ms} ms (exact mode "
+    what = "ids and outputs" if len(ko) > 3 else "outputs"  # B10a: no ids
+    log(f"  {label}: {what} bitwise; kernel {ms} ms (exact mode "
         f"{exact_ms} ms), plain {plain_ms} ms, bound {cost}")
     rep.add(name, 0.0, ms, plain_ms, cost)
     return po
@@ -2685,6 +2709,207 @@ def phase18(w_bin, gen, dev, counters, card):
 
 
 # ---------------------------------------------------------------------------
+# the legacy row-major trunks' fast and approx mode (round2, round)
+# ---------------------------------------------------------------------------
+
+# the legacy trunks' key-tile parameter: the SV-DGCNN engines' default
+# (svnet_tpu/infer.py:236, :549), whence T = 256 at N = 1024 and 2048
+LEGACY_TILE = 64
+
+
+def legacy_name(kernel, mode, tag):
+    """The kernels line's name of a legacy fast or approx entry:
+    'sv_round2 fast', 'sv_round2_first approx pseg', 'sv_round fast'."""
+    return f"{kernel} {mode}" + ("" if tag == "cls" else f" {tag}")
+
+
+def phase2_legacy(rep, eng, eng_fp, dg, gen, dev):
+    """B10b (round2) in fast and approx mode at the cls (128, 1024, 20) and
+    partseg (32, 2048, 40) shapes and B10a (round) with exact=False at the
+    cls shape, against their plain versions: ids (B10b) and outputs
+    bitwise, inputs chained through the plain versions, binary timed beside
+    the same kernel in exact mode on the same input, FP bitwise; key tiles
+    from the engines' heuristic (quant.auto_round_tile); then
+    LEGACY_FORCED."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops.kernels import quant
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+
+    runs = [("round2", mode, tag, dg[f"{tag} round2"], shape)
+            for tag, shape in (("cls", (B, N, K)),
+                               ("pseg", (B_PSEG, N_PSEG, K_PSEG)))
+            for mode in ("fast", "approx")]
+    runs.append(("round", "fast", "cls", {"kernel": eng, "kernel_fp": eng_fp},
+                 (B, N, K)))
+    for impl, mode, tag, engs, (b, n, k) in runs:
+        e, e_fp = engs["kernel"], engs["kernel_fp"]
+        if impl == "round2":
+            first, first_p, rnd, rnd_p = (k2.sv_round2_first,
+                                          k2.sv_round2_first_plain,
+                                          k2.sv_round2, k2.sv_round2_plain)
+            kmode, xmode = dict(mode=mode), dict(mode="exact")
+        else:
+            first, first_p, rnd, rnd_p = (k1.sv_round_first,
+                                          k1.sv_round_first_plain,
+                                          k1.sv_round, k1.sv_round_plain)
+            kmode, xmode = dict(exact=False), dict(exact=True)
+        ids = dict(emit_wins=True) if impl == "round2" else {}
+        S1, V1 = e.dims["conv1"]
+        pts = cloud(b, n, gen, dev)
+        T = quant.auto_round_tile(n, LEGACY_TILE, k, 3, mode)
+        kw = dict(S_out=S1, V_out=V1, k=k, T=T)
+        f = e.folded_first
+        name = legacy_name(first.__name__, mode, tag)
+        ef, pm1 = edge_flops(0, 1, S1, V1, True)
+        cost = bound(knn_flops(b, n, 3) + b * n * k * ef,
+                     4.0 * b * n * (3 + S1 + 3 * V1 + 6 + k), b * n * k * pm1)
+        po = timed_fast(rep, f"{name} B={b} N={n} k={k} T={T}", name,
+                        lambda: first(pts, f, **ids, **kmode, **kw),
+                        lambda: first_p(pts, f, **kmode, **kw),
+                        lambda: first(pts, f, **xmode, **kw), cost)
+        g = se_gate(e.p["conv1"], po[2]).repeat(1, 3)
+        outs = [(po[0], po[1] * g[:, None, :])]
+        for rname, (S, V, S_out, V_out) in e.rounds.items():
+            src = torch.cat(outs[-1], dim=-1).contiguous()
+            C = S + 3 * V
+            T = quant.auto_round_tile(n, LEGACY_TILE, k, C, mode)
+            name = legacy_name(rnd.__name__, mode, tag)
+            ef, pm1 = edge_flops(S, V, S_out, V_out, binary=True)
+            cost = bound(knn_flops(b, n, C) + b * n * k * ef,
+                         4.0 * b * n * (C + S_out + 3 * V_out + 2 * S + k),
+                         b * n * k * pm1)
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, T=T)
+            fb, ffp = e.folded[rname], e_fp.folded[rname]
+            po = timed_fast(
+                rep, f"{name} {rname} binary B={b} N={n} k={k} T={T}", name,
+                lambda: rnd(src, fb, binary=True, **ids, **kmode, **kw),
+                lambda: rnd_p(src, fb, binary=True, **kmode, **kw),
+                lambda: rnd(src, fb, binary=True, **xmode, **kw), cost)
+            check_equal(f"{name} {rname} fp",
+                        rnd(src, ffp, binary=False, **ids, **kmode, **kw),
+                        rnd_p(src, ffp, binary=False, **kmode, **kw))
+            g = se_gate(e.p[rname], po[2]).repeat(1, 3)
+            outs.append((po[0], po[1] * g[:, None, :]))
+    phase2_legacy_forced(gen, dev)
+
+
+# (B, N, k, key tile T, duplicated points) of the legacy trunks' fast and
+# approx mode, as tests/test_torch_cuda.py's: T = 8 at N = 1000 (approx
+# L = 250), k = 33 above a 32-entry list, N at the fold (approx is fast)
+# with ties, k = 64 over several key tiles, one key tile a cloud
+LEGACY_FORCED = ((2, 1000, 7, 8, False), (2, 1024, 33, 256, False),
+                 (3, 256, 40, 64, True), (1, 2048, 64, 128, False),
+                 (2, 512, 20, 512, False))
+
+
+def phase2_legacy_forced(gen, dev):
+    """B10b's first round (xyz and cross, V_out 10 and 16) and conv round
+    ((5, 3) -> (13, 7) and cls conv4's widths, binary and FP) in fast and
+    approx mode, and B10a's with exact=False, at LEGACY_FORCED: ids and
+    outputs bitwise their plain versions; at N <= 256 approx's ids are
+    fast's."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+
+    for b, n, k, T, dup in LEGACY_FORCED:
+        pts = select_input(b, n, 3, dup, gen, dev)
+        for cross in (False, True):
+            for V_out in (10, 16):
+                n_ch = 3 if cross else 2
+                f = {name: torch.randn(*shape, generator=gen).to(dev)
+                     for name, shape in (("wz0", (n_ch, 3)), ("wz1", (n_ch, 3)),
+                                         ("w1", (6 * n_ch, 32)), ("a1", (1, 32)),
+                                         ("b1", (1, 32)), ("w2", (n_ch, V_out)),
+                                         ("a2", (1, V_out)), ("b2", (1, V_out)))}
+                kw = dict(S_out=32, V_out=V_out, k=k, cross=cross, T=T)
+                tag = f"B={b} N={n} k={k} T={T}"
+                for mode in ("fast", "approx"):
+                    got = k2.sv_round2_first(pts, f, emit_wins=True, mode=mode, **kw)
+                    check_equal(f"sv_round2_first {mode} {tag}", got,
+                                k2.sv_round2_first_plain(pts, f, mode=mode, **kw))
+                    if mode == "approx" and n <= 256:
+                        check_equal(f"sv_round2_first approx=fast ids {tag}",
+                                    got[3:], k2.sv_round2_first(
+                                        pts, f, emit_wins=True, mode="fast", **kw)[3:])
+                check_equal(f"sv_round_first fast {tag}",
+                            k1.sv_round_first(pts, f, exact=False, **kw),
+                            k1.sv_round_first_plain(pts, f, exact=False, **kw))
+        for S, V, S_out, V_out in ((5, 3, 13, 7), (64, 21, 128, 42)):
+            src = select_input(b, n, S + 3 * V, dup, gen, dev)
+            for binary in (True, False):
+                f = round_weights(S, V, S_out, V_out, binary, gen, dev)
+                kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k,
+                          binary=binary, T=T)
+                tag = f"B={b} N={n} k={k} T={T}"
+                for mode in ("fast", "approx"):
+                    check_equal(f"sv_round2 {mode} {tag}",
+                                k2.sv_round2(src, f, emit_wins=True, mode=mode, **kw),
+                                k2.sv_round2_plain(src, f, mode=mode, **kw))
+                check_equal(f"sv_round fast {tag}",
+                            k1.sv_round(src, f, exact=False, **kw),
+                            k1.sv_round_plain(src, f, exact=False, **kw))
+        log(f"  legacy forced B={b} N={n} k={k} T={T}" + (" ties" if dup else "")
+            + ": B10b fast and approx, B10a fast (first: xyz, cross; V_out 10, "
+            "16; conv: binary, fp) bitwise their plain versions")
+
+
+def phase20(dg, w_bin, gen, dev, counters, card):
+    """The legacy trunks' fast and approx mode at the path shapes: 5
+    requests each through SVDGCNNClsEngine (128, 1024, 3) with
+    rounds_impl="round2" in fast and approx mode and "round" in fast mode,
+    and SVDGCNNPsegEngine (32, 2048, 3) with "round2" in fast and approx
+    mode; launches per request checked (the pre-pass once a round); top-1
+    against the plain twin (>= 0.99; bitwise expected); the median beside
+    the same trunk in exact mode on the same requests and phase 13's.
+    Returns launches by entry name."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+
+    p_pseg = init_params_pseg(PARTS, K_PSEG, True,
+                              torch.Generator().manual_seed(SEED + 12))
+    cls_req = lambda: (cloud(B, N, gen, dev),)  # noqa: E731
+    pseg_req = lambda: (cloud(B_PSEG, N_PSEG, gen, dev), labels(B_PSEG, gen, dev))  # noqa: E731
+    out = {}
+    for impl, mode, tag, engine, w, args, request in (
+            ("round2", "fast", "cls", SVDGCNNClsEngine, w_bin, (CLASSES, K), cls_req),
+            ("round2", "approx", "cls", SVDGCNNClsEngine, w_bin, (CLASSES, K), cls_req),
+            ("round2", "fast", "pseg", SVDGCNNPsegEngine, p_pseg, (PARTS, K_PSEG), pseg_req),
+            ("round2", "approx", "pseg", SVDGCNNPsegEngine, p_pseg, (PARTS, K_PSEG), pseg_req),
+            ("round", "fast", "cls", SVDGCNNClsEngine, w_bin, (CLASSES, K), cls_req)):
+        first, rnd = (("sv_round2_first", "sv_round2") if impl == "round2"
+                      else ("sv_round_first", "sv_round"))
+        want_per = {first: 1, rnd: 3, "neg_min": 4, "sv_point_block": 1}
+        label = f"phase 20 {tag} {impl} {mode}"
+        kw = dict(mode=mode, device=dev, rounds_impl=impl, tile=LEGACY_TILE)
+        eng = engine(w, *args, True, **kw)
+        oracle = engine(w, *args, True, oracle=True, **kw)
+        requests = [request() for _ in range(REQUESTS)]
+        got, want, _, launches = serve(label, eng, oracle, requests, counters,
+                                       want_per, card)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: logits {tuple(got.shape)} not finite")
+        agreement(f"{label}: vs its plain engine", got, want)
+        exact = dg[f"{tag} {impl}"]["kernel"]  # the same weights, exact mode
+        exact_ms = request_median(exact, requests)
+        ex = torch.cat([exact(*req) for req in requests])
+        top1 = (got.argmax(-1) == ex.argmax(-1)).float().mean().item()
+        log(f"{label}: median {MEDIANS[label]:.3f} ms; {impl} exact on the same "
+            f"requests {exact_ms:.3f} ms (phase 13 {tag} "
+            f"{MEDIANS['phase 13 ' + tag]:.3f} ms) | {card}; top-1 agreement "
+            f"with exact mode {top1:.6f} (random weights, not a bar)")
+        out[legacy_name(first, mode, tag)] = launches[first]
+        out[legacy_name(rnd, mode, tag)] = launches[rnd]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the candidate window (window=)
 # ---------------------------------------------------------------------------
 
@@ -3258,6 +3483,8 @@ def main() -> int:
     phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_reuse(rep, eng, eng_fp, dg, gen, dev)
     W_long = phase2_window(rep, eng, eng_fp, gen, dev)
+    phase2_legacy(rep, dg["cls round"]["kernel"], dg["cls round"]["kernel_fp"],
+                  dg, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -3381,6 +3608,9 @@ def main() -> int:
     # phase 19: the candidate window at N = 8192
     launches.update(phase19(w_bin, W_long, gen, dev, counters, card))
 
+    # phase 20: the legacy trunks' fast and approx mode
+    launches.update(phase20(dg, w_bin, gen, dev, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -3455,6 +3685,14 @@ def main() -> int:
                             "svnet_tpu/ops/pallas/sv_round3.py:946")
     src_of["window_keep"] = ("svnet_tpu_torch/csrc/window.cu",
                              "svnet_tpu/ops/pallas/sv_round3.py:972")
+    # the legacy trunks' fast and approx mode (B10b: _build_key, :213;
+    # B10a: exact=False's packed key, sv_round.py:85-97)
+    for tag in ("cls", "pseg"):
+        for mode in ("fast", "approx"):
+            for name in ("sv_round2_first", "sv_round2"):
+                src_of[legacy_name(name, mode, tag)] = src_of[f"{name} {tag}"]
+    for name in ("sv_round_first", "sv_round"):
+        src_of[legacy_name(name, "fast", "cls")] = src_of[name]
     # the TPU kernel takes each key tile's worst distance from its own
     # (N, T) block (_packed_key_t); here a pre-pass kernel does
     for name in ("neg_min", "neg_min pseg"):

@@ -3,12 +3,16 @@
 The JAX package's three serving modes are ported. "exact": f32-exact
 neighbour ordering (sortable-int key of the f32 distance, ties to the
 minimum row id) and f32 arithmetic throughout. "fast", on the round3
-trunk only (B1, B2): 18-bit packed distance keys per key tile and a
+trunk (B1, B2): 18-bit packed distance keys per key tile and a
 fixed-point gather grid of ``fast_gather_bits`` (ops/kernels/quant.py).
-"approx", on the round3 trunk only: fast's keys folded to
-``approx_fold`` candidate lanes by key max before the top-k, a gather
-grid of ``approx_gather_bits``, and the SV-DGCNN engines' Morton entry
-sort (``morton_entry`` forces the sort in any mode). Graph reuse, on
+"approx", on the round3 trunk: fast's keys folded to ``approx_fold``
+candidate lanes by key max before the top-k, a gather grid of
+``approx_gather_bits``, and the SV-DGCNN engines' Morton entry sort
+(``morton_entry`` forces the sort in any mode). The legacy row-major
+trunks "round2" (B10b) and "round" (B10a) take fast and approx mode
+with their own fixed grids and fold, which read none of these knobs
+(``check_mode`` refuses the knobs there, C23); the "edge" trunk runs
+exact mode only. Graph reuse, on
 the round3 trunk of the SV-DGCNN engines in every mode: ``graph_reuse``
 ("spatial": every conv round takes the first round's xyz neighbour ids;
 "conv2": conv3 and conv4 take conv2's), ``reuse_k`` (reuse rounds take
@@ -112,12 +116,30 @@ def set_reuse_gather_window(width: int) -> None:
 
 def check_mode(mode: str, trunk: str = "round3") -> str:
     """``mode`` if it is ported on ``trunk``: exact everywhere, fast and
-    approx on the round3 trunk (B1, B2) only."""
+    approx on the round3, round2 and round trunks, not on "edge".
+
+    The legacy trunks gather through a fixed grid (round2: 16 bits; round:
+    bf16) and round2 folds to a fixed 256 lanes (svnet_tpu/ops/pallas/
+    sv_round2.py:58, :95-120; sv_round.py:68-70), whatever the knobs say.
+    JAX ignores the knobs there; the port refuses a setting that would
+    not act (C23), as it refuses graph reuse and the window off round3:
+    ``fast_gather_bits`` 8 in fast mode, ``approx_gather_bits`` 8 or an
+    ``approx_fold`` other than 256 in approx mode."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported; supported: {MODES}")
-    if mode != "exact" and trunk != "round3":
-        raise ValueError(f"mode {mode!r} is ported on the round3 trunk only, "
-                         f"not on {trunk!r}")
+    if mode == "exact" or trunk == "round3":
+        return mode
+    if trunk not in ("round2", "round"):
+        raise ValueError(f"mode {mode!r} is not ported on the {trunk!r} "
+                         f"trunk; it runs exact mode only")
+    knobs = ({"fast_gather_bits": (fast_gather_bits, 16)} if mode == "fast"
+             else {"approx_gather_bits": (approx_gather_bits, 16),
+                   "approx_fold": (approx_fold, 256)})
+    for name, (value, fixed) in knobs.items():
+        if value != fixed:
+            raise ValueError(f"{name}={value} does not act on the {trunk!r} "
+                             f"trunk ({mode} mode there reads no knob); only "
+                             f"the default {fixed} is taken (C23)")
     return mode
 
 

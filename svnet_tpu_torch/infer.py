@@ -40,15 +40,26 @@ stage launches its kernel; on the CPU the kernels' plain versions run.
 ``mode="fast"`` (the JAX engines' default) changes the first round and
 the conv rounds (B1, B2: packed distance keys per key tile, the gather
 grid; ops/kernels/sv_round3.py) and nothing else, so it is taken on the
-round3 trunk and by the SV-PointNet engines; the other trunks refuse it.
-``mode="approx"`` (JAX's certified serving pick) also folds each
-centre's candidates before the top k (``config.approx_fold``), gathers
-through ``config.approx_gather_bits``' grid, and on the SV-DGCNN
-engines' round3 trunk Morton-sorts the cloud at entry (ops/morton.py;
+round3 trunk and by the SV-PointNet engines. ``mode="approx"`` (JAX's
+certified serving pick) also folds each centre's candidates before the
+top k (``config.approx_fold``), gathers through
+``config.approx_gather_bits``' grid, and on the SV-DGCNN engines' round3
+trunk Morton-sorts the cloud at entry (ops/morton.py;
 ``config.morton_entry`` sorts in every mode), as svnet_tpu/infer.py:56-77
 does: the classifier's pooling does not see the order, and the part
 segmenter puts its per-point logits back in the input's order. The
 SV-PointNet engines never sort, as the JAX engines do not.
+
+The legacy trunks take fast and approx mode too, as the JAX engines do
+(svnet_tpu/infer.py:416-470, :774-792), with their own fixed grids and no
+Morton sort: "round2" (B10b) at the 16-bit grid, approx folding to 256
+lanes; "round" (B10a, ``exact=False`` for both) at the bf16 gather with
+fast's key unfolded, so approx is fast there. Their key tile is
+``quant.auto_round_tile(N, tile, k, C, mode)`` for each round's C, from
+the engines' ``tile`` (64, as JAX's), and it is part of the result. The
+knobs of fast and approx mode do not act there, and are refused (C23,
+``config.check_mode``). The classifier's "edge" trunk runs exact mode
+only.
 
 Graph reuse (``config.graph_reuse``, ``reuse_k``, ``reuse_gather_window``;
 svnet_tpu/infer.py:315-365, :640-690) is read at each call, on the
@@ -75,6 +86,7 @@ from svnet_tpu_torch.config import BN_EPS, EPS
 from svnet_tpu_torch.nn.sv_layers import binary_matmul
 from svnet_tpu_torch.models.sv_dgcnn import PSEG_DIMS
 from svnet_tpu_torch.ops import morton
+from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.fold import (
     fold_first_params,
     fold_point_like_params,
@@ -350,20 +362,22 @@ class _DGCNNEngine:
 
     def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
                  k: int, binary: bool, mode: str, device, oracle: bool,
-                 trunk: str, window: int = 0):
+                 trunk: str, window: int = 0, tile: int = 64):
         self.mode = config.check_mode(mode, trunk)
-        self.trunk = trunk
+        self.trunk, self.tile = trunk, tile
         self.row_major = trunk != "round3"
         if window and trunk != "round3":  # C22: JAX ignores it there
             raise ValueError(f"window={window} is ported on the round3 trunk "
                              f"only, not on {trunk!r}")
         self.window = window
         self._first, self._round, self._point = TRUNKS[trunk](oracle)
-        if trunk == "round3":  # its rounds take the mode and the window
-            self._first = functools.partial(self._first, mode=self.mode,
-                                            window=window)
-            self._round = functools.partial(self._round, mode=self.mode,
-                                            window=window)
+        # the rounds' mode: round3's also takes the window, round (B10a)
+        # takes exact=...
+        kw = {"round3": dict(mode=self.mode, window=window),
+              "round2": dict(mode=self.mode),
+              "round": dict(exact=self.mode == "exact")}.get(trunk, {})
+        self._first = functools.partial(self._first, **kw)
+        self._round = functools.partial(self._round, **kw)
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
@@ -404,6 +418,14 @@ class _DGCNNEngine:
             return points, None
         return morton.sort_points(points)
 
+    def _key_tile(self, N: int, C: int) -> dict:
+        """A legacy round's key tile over C channels (``T``; JAX's
+        ``_auto_round_tile``); round3's rounds pick their own, the edge
+        trunk's take none."""
+        if self.trunk not in ("round2", "round"):
+            return {}
+        return {"T": quant.auto_round_tile(N, self.tile, self.k, C, self.mode)}
+
     def _trunk(self, points: torch.Tensor):
         """The four rounds, each round's v gated. round3: s (B, S_c, N) and
         v (B, 3V_c, N) as per-round j-major blocks; the row-major trunks:
@@ -425,12 +447,13 @@ class _DGCNNEngine:
         dim = -1 if rm else 1  # the channel axis
         S1, V1 = self.dims["conv1"]
         s, v, *ids = self._first(points, self.folded_first, p["conv1"],
-                                 S_out=S1, V_out=V1, k=k)
+                                 S_out=S1, V_out=V1, k=k,
+                                 **self._key_tile(N, 3))
         wins = ids[0] if reuse == "spatial" else None
         outs = [(s, v)]
         for name, (S, V, S_out, V_out) in self.rounds.items():
             joint = torch.cat(outs[-1], dim=dim)
-            kk, kw = k, {}
+            kk, kw = k, self._key_tile(N, S + 3 * V)
             if wins is not None:
                 kk = rk if 0 < rk < k else k
                 kw = dict(wins_in=wins[:, :kk],  # rank-major: the nearest kk
@@ -466,9 +489,11 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     float32 points on ``device``: the card unless the caller passes
     ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
     default), the legacy row-major "round2", "round" (kernel B10a) or
-    "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact", or
-    "fast" or "approx" on the round3 trunk (approx Morton-sorts the
-    cloud first). ``window`` (round3 only; 0 = off): the certified Morton
+    "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact",
+    "fast" or "approx" (on round3 approx Morton-sorts the cloud first; the
+    edge trunk takes exact only; see the module's docstring); ``tile``:
+    the legacy trunks' key-tile parameter (``quant.auto_round_tile``).
+    ``window`` (round3 only; 0 = off): the certified Morton
     candidate window of B1 and every selecting B2 (ops/window.py): each
     key tile ranks at most that many rows of the 128-row blocks a pre-pass
     keeps, or all N where the batch does not certify. It does not sort the
@@ -482,10 +507,10 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     def __init__(self, weights: dict, num_classes: int = 40, k: int = 20,
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3",
-                 window: int = 0):
+                 window: int = 0, tile: int = 64):
         super().__init__(weights, CLS_DIMS, (1024 // 2, 1024 // 6), "svfuse",
                          k, binary, mode, device, oracle,
-                         check_rounds_impl(rounds_impl), window)
+                         check_rounds_impl(rounds_impl), window, tile)
         self.num_classes = num_classes
         # the tail emits SVFuse channels j-major; the head's first linear
         # takes its rows in that order
@@ -527,11 +552,12 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
     def __init__(self, weights: dict, num_part: int = 50, k: int = 40,
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3",
-                 window: int = 0):
+                 window: int = 0, tile: int = 64):
         trunk = check_rounds_impl(rounds_impl)
         super().__init__(weights, PSEG_TRUNK, PSEG_DIMS["conv5"], "svfuse3",
                          k, binary, mode, device, oracle,
-                         "round3" if trunk == "round3" else "round2", window)
+                         "round3" if trunk == "round3" else "round2", window,
+                         tile)
         self.num_part = num_part
         p = self.p
         self.v_off0 = point_v_off(0, [V for _, V in self.dims.values()])

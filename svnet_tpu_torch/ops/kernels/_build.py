@@ -50,15 +50,15 @@ SIGNATURES = {
     # smax, vsum; B N S V S_out V_out binary; stream
     "sv_point_launch": [_P] * 17 + [_I] * 7 + [_P],
     # the row-major twins: sv_round2_first_launch and sv_round2_launch as
-    # the round3 entry points in exact mode (without the last four pointers
-    # and the last four ints), sv_point_rm_launch as
-    # sv_point_launch without vrow
-    "sv_round2_first_launch": [_P] * 14 + [_I] * 6 + [_P],
-    "sv_round2_launch": [_P] * 15 + [_I] * 8 + [_P],
+    # the round3 entry points without the window (the last two pointers
+    # and the last two ints), sv_point_rm_launch as sv_point_launch
+    # without vrow
+    "sv_round2_first_launch": [_P] * 16 + [_I] * 8 + [_P],
+    "sv_round2_launch": [_P] * 17 + [_I] * 10 + [_P],
     "sv_point_rm_launch": [_P] * 16 + [_I] * 7 + [_P],
     # B10a, as the round2 entry points
-    "sv_round_first_launch": [_P] * 14 + [_I] * 6 + [_P],
-    "sv_round_launch": [_P] * 15 + [_I] * 8 + [_P],
+    "sv_round_first_launch": [_P] * 16 + [_I] * 8 + [_P],
+    "sv_round_launch": [_P] * 17 + [_I] * 10 + [_P],
     # pts, ids, 8 weights, s_out, v_out, ssum; B N k S_out V_out; stream
     "sv_edge_first_launch": [_P] * 13 + [_I] * 5 + [_P],
     # src, ids, gate, 9 weights, s_out, v_out; B N S V S_out V_out k

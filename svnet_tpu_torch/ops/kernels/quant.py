@@ -19,6 +19,12 @@ L <= ``config.approx_fold`` lanes, lane i the best of the rows m = i mod
 L, before the top-k; its grid's bits are ``config.approx_gather_bits``
 (``gb8``).
 
+The legacy row-major trunks read none of these knobs. Round2
+(sv_round2.py) keys as round3 does, on key tiles of ``auto_round_tile``,
+always gathers through the 16-bit grid and folds to the fixed
+``APPROX_L2``; round 1's fast variant (sv_round.py, ``exact=False``)
+takes the same key unfolded and gathers bf16 rows (``bf16_rows``).
+
 Everything here is plain tensor code, run as is on every device: the
 kernels take its results (the grid's rows, the tiles' scales) as inputs.
 """
@@ -30,6 +36,7 @@ import torch
 from svnet_tpu_torch import config
 
 Q_BITS = 18  # the distance field's bits at N <= 8192 (sv_round2.py:57)
+APPROX_L2 = 256  # round2's fixed approx fold width (sv_round2.py:58)
 
 
 def idx_bits(N: int) -> int:
@@ -101,20 +108,22 @@ def gather_bits(mode: str) -> int:
     return 8 if gb8(mode) else 16
 
 
-def fold_width(N: int, k: int = 1) -> int:
+def fold_width(N: int, k: int = 1, fold: int | None = None) -> int:
     """Approx mode's folded candidate width L (``_build_key_t``,
-    sv_round3.py:209-234): N halved while above ``config.approx_fold``.
+    sv_round3.py:209-234; round2's ``_build_key``, sv_round2.py:213-228):
+    N halved while above ``fold`` (``config.approx_fold`` unless given).
     Raises where the JAX package asserts (an odd width to halve) and for
     k > L, where its top k would decode empty lanes into rows."""
+    fold = config.approx_fold if fold is None else fold
     w = N
-    while w > config.approx_fold:
+    while w > fold:
         if w % 2:
             raise ValueError(f"approx fold: width {w} (of N={N}) is odd; "
-                             f"N must halve evenly to <= {config.approx_fold}")
+                             f"N must halve evenly to <= {fold}")
         w //= 2
     if k > w:
         raise ValueError(f"approx mode: k={k} above the folded width L={w} "
-                         f"(N={N}, approx_fold={config.approx_fold})")
+                         f"(N={N}, fold {fold})")
     return w
 
 
@@ -144,11 +153,22 @@ def grid_codes(x: torch.Tensor, bits: int):
     return q.to(torch.int16), torch.reciprocal(scale)
 
 
-def grid_rows(x: torch.Tensor, mode: str = "fast") -> torch.Tensor:
-    """x (..., C) through ``mode``'s gather grid (``gather_bits``):
-    ``float(code) * inv``, what the block reads for neighbours and centres
-    alike."""
-    q, inv = grid_codes(x, gather_bits(mode))
+def bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """Round 1's fast gather (sv_round.py:68-70, :232-233): every value
+    rounded to bf16 (to nearest even) and read back in f32; a self-edge
+    is exactly 0."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def grid_rows(x: torch.Tensor, mode: str = "fast",
+              grid: int | str | None = None) -> torch.Tensor:
+    """x (..., C) through a gather grid, what the block reads for
+    neighbours and centres alike: ``grid`` 16 or 8 bits (``float(code) *
+    inv``), "bf16" (``bf16_rows``), or None for ``mode``'s bits
+    (``gather_bits``)."""
+    if grid == "bf16":
+        return bf16_rows(x)
+    q, inv = grid_codes(x, gather_bits(mode) if grid is None else grid)
     return q.to(torch.float32) * inv
 
 
@@ -177,3 +197,24 @@ def round3_tiles(N: int, C: int, mode: str) -> int:
     if N % T:
         T = N
     return T
+
+
+def auto_round_tile(N: int, tile: int, k: int = 20, C: int = 64,
+                    mode: str = "fast") -> int:
+    """The legacy trunks' key tile T (``_auto_round_tile``,
+    svnet_tpu/infer.py:80-101): the largest power of two at most
+    ``min(max(4 * tile, 64), N, max(9e6 // (div * N), 32))``, div 20 in
+    exact mode (which also caps it by k and C) and 12 otherwise, halved
+    until it divides N, and at least 8. In fast and approx mode it is
+    part of the result (the keys' scale is per tile)."""
+    sel_div = 20 if mode == "exact" else 12
+    t = min(max(tile * 4, 64), N, max(9_000_000 // (sel_div * N), 32))
+    if mode == "exact":
+        t = min(t, max(4_500_000 // max(16 * k * C, 1), 32))
+    p2 = 1
+    while p2 * 2 <= t:
+        p2 *= 2
+    t = p2
+    while N % t:
+        t //= 2
+    return max(int(t), 8)

@@ -157,33 +157,39 @@ def round_window(x: torch.Tensor, k: int, T: int | None, window: int,
     return T, W, keep.contiguous(), ok.to(torch.int32)
 
 
-def _select(x: torch.Tensor, k: int, T: int | None, mode: str, win=None):
+def _select(x: torch.Tensor, k: int, T: int | None, mode: str, win=None,
+            grid: int | str | None = None, fold: int | None = None):
     """The plain selection and the block's rows for row-major x (B, N, C):
     exact mode's (knn_plain, x), or fast or approx mode's on key tiles of
-    T (knn_fast_plain or knn_approx_plain, x through the mode's grid); over
-    a candidate window ``win`` (``round_window``) knn_window_plain's."""
-    rows = x if mode == "exact" else quant.grid_rows(x, mode)
+    T (knn_fast_plain, or knn_approx_plain at the fold width ``fold``; x
+    through the gather grid ``grid``, ``quant.grid_rows``); over a
+    candidate window ``win`` (``round_window``) knn_window_plain's. The
+    round3 trunk leaves ``grid`` and ``fold`` None (``config``'s); the
+    legacy trunks pass their own."""
+    rows = x if mode == "exact" else quant.grid_rows(x, mode, grid)
     if win is not None:
         T, W, keep, ok = win
         return knn_window_plain(x, k, T, W, keep, ok, mode), rows
     if mode == "exact":
         return ops.knn_plain(x, k), rows
-    sel = knn_approx_plain if mode == "approx" else knn_fast_plain
-    return sel(x, k, T), rows
+    if mode == "approx":
+        return knn_approx_plain(x, k, T, fold), rows
+    return knn_fast_plain(x, k, T), rows
 
 
-def _fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool, win=None):
+def fast_args(x: torch.Tensor, T: int | None, mode: str, cm: bool, win=None,
+              grid: int | str | None = None, fold: int | None = None):
     """The kernels' fast- and approx-mode arguments for row-major x
-    (B, N, C): the block's rows through the mode's gather grid
-    (channel-major when ``cm``), the key tiles' scales from the pre-pass
-    (over the window ``win``, if any) and the fold width L (0: no fold);
-    in exact mode (None, None, 0). The tensors are returned to outlive the
-    launch."""
+    (B, N, C): the block's rows through the gather grid ``grid``
+    (``_select``; channel-major when ``cm``), the key tiles' scales from
+    the pre-pass (over the window ``win``, if any) and the fold width L at
+    ``fold`` (0: no fold); in exact mode (None, None, 0). The tensors are
+    returned to outlive the launch."""
     if mode == "exact":
         return None, None, 0
     N = x.shape[1]
-    L = quant.fold_width(N) if mode == "approx" else N
-    xq = quant.grid_rows(x, mode)
+    L = quant.fold_width(N, fold=fold) if mode == "approx" else N
+    xq = quant.grid_rows(x, mode, grid)
     xq = (xq.transpose(1, 2) if cm else xq).contiguous()
     scale = quant.tile_scales(neg_min(x, win), T, N).contiguous()
     return xq, scale, (L if L < N else 0)
@@ -198,7 +204,8 @@ def _window_args(win, mode: str) -> tuple:
     return keep, ok, W, (quant.fold_width(W) if mode == "approx" else 0)
 
 
-def _ptr(t: torch.Tensor | None):
+def data_ptr(t: torch.Tensor | None):
+    """A launcher's pointer argument: the tensor's address, or None."""
     return None if t is None else t.data_ptr()
 
 
@@ -250,12 +257,14 @@ def first_block_rows(points: torch.Tensor, idx: torch.Tensor, folded: Folded,
 
 def first_round_rows(points: torch.Tensor, folded: Folded, *, S_out: int,
                      V_out: int, k: int, cross: bool = False,
-                     T: int | None = None, mode: str = "exact", win=None):
+                     T: int | None = None, mode: str = "exact", win=None,
+                     grid: int | str | None = None, fold: int | None = None):
     """The first round's function on row-major outputs, shared by the plain
-    versions of both layouts: the kNN (fast or approx ``mode``'s on key
-    tiles of ``T`` when given; over the candidate window ``win``), then
+    versions of both layouts and trunks: the kNN (fast or approx ``mode``'s
+    on key tiles of ``T`` when given, ``grid`` and ``fold`` as
+    ``_select``'s; over the candidate window ``win``), then
     ``first_block_rows``; (s, v ungated, s_mean, ids (B, N, k) int32)."""
-    idx, rows = _select(points, k, T, mode, win)
+    idx, rows = _select(points, k, T, mode, win, grid, fold)
     return (*first_block_rows(rows, idx, folded, S_out=S_out, V_out=V_out,
                               cross=cross), idx)
 
@@ -310,7 +319,7 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     lib = _build.lib()
     pts = points.transpose(1, 2).contiguous()  # (B, 3, N)
     win = round_window(points, k, T, window, mode)
-    pts_q, scale, L = _fast_args(points, T, mode, cm=True, win=win)
+    pts_q, scale, L = fast_args(points, T, mode, cm=True, win=win)
     keep, ok, W, LW = _window_args(win, mode)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
@@ -319,8 +328,8 @@ def sv_round3_first(points: torch.Tensor, folded: Folded, *, S_out: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_first_launch(
         pts.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), _ptr(pts_q), _ptr(scale), _ptr(keep),
-        _ptr(ok), B, N, k, S_out, V_out, int(cross), T or 0, L, W, LW,
+        ssum.data_ptr(), wins.data_ptr(), data_ptr(pts_q), data_ptr(scale), data_ptr(keep),
+        data_ptr(ok), B, N, k, S_out, V_out, int(cross), T or 0, L, W, LW,
         _build.stream_ptr(dev))
     _build.check(err, "sv_round3_first")
     sv_round3_first.launches += 1
@@ -364,17 +373,18 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
 def conv_round_rows(x: torch.Tensor, folded: Folded, *, S: int, V: int,
                     S_out: int, V_out: int, k: int, binary: bool,
                     T: int | None = None, mode: str = "exact",
-                    idx: torch.Tensor | None = None, win=None):
+                    idx: torch.Tensor | None = None, win=None,
+                    grid: int | str | None = None, fold: int | None = None):
     """A conv round's function on row-major x (B, N, S + 3V), shared by the
-    plain versions of both layouts: the kNN (fast or approx ``mode``'s on
-    key tiles of ``T`` when given; over the candidate window ``win``)
-    unless the ids ``idx`` (B, N, k) are given (graph reuse: x through
-    ``mode``'s grid, no selection), then ``conv_block_rows``; (s (B, N,
-    S_out), v (B, N, 3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k)
-    int32)."""
+    plain versions of both layouts and trunks: the kNN (fast or approx
+    ``mode``'s on key tiles of ``T`` when given, ``grid`` and ``fold`` as
+    ``_select``'s; over the candidate window ``win``) unless the ids
+    ``idx`` (B, N, k) are given (graph reuse: x through ``mode``'s grid,
+    no selection), then ``conv_block_rows``; (s (B, N, S_out), v (B, N,
+    3*V_out) ungated, s_edge_mean (B, 2S), ids (B, N, k) int32)."""
     B, N, _ = x.shape
     if idx is None:
-        idx, rows = _select(x, k, T, mode, win)
+        idx, rows = _select(x, k, T, mode, win, grid, fold)
     else:
         rows = x if mode == "exact" else quant.grid_rows(x, mode)
     s, vm, s_e = conv_block_rows(rows, idx, folded, S=S, V=V, S_out=S_out,
@@ -467,7 +477,7 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     lib = _build.lib()
     rows = src.transpose(1, 2).contiguous()  # the kernels read neighbour rows
     win = round_window(rows, k, T, window, mode)
-    rows_q, scale, L = _fast_args(rows, T, mode, cm=False, win=win)
+    rows_q, scale, L = fast_args(rows, T, mode, cm=False, win=win)
     keep, ok, W, LW = _window_args(win, mode)
     aa = torch.empty((B, N), device=dev)
     s = torch.empty((B, S_out, N), device=dev)
@@ -476,8 +486,8 @@ def sv_round3(src: torch.Tensor, folded: Folded, *, S: int, V: int,
     wins = torch.empty((B, k, N), device=dev, dtype=torch.int32)
     err = lib.sv_round3_launch(
         rows.data_ptr(), aa.data_ptr(), *w, s.data_ptr(), v.data_ptr(),
-        ssum.data_ptr(), wins.data_ptr(), _ptr(rows_q), _ptr(scale), _ptr(keep),
-        _ptr(ok), B, N, S, V, S_out, V_out, k, int(binary), T or 0, L, W, LW,
+        ssum.data_ptr(), wins.data_ptr(), data_ptr(rows_q), data_ptr(scale), data_ptr(keep),
+        data_ptr(ok), B, N, S, V, S_out, V_out, k, int(binary), T or 0, L, W, LW,
         _build.stream_ptr(dev))
     _build.check(err, "sv_round3")
     sv_round3.launches += 1

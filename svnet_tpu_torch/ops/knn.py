@@ -86,14 +86,15 @@ def knn_fast_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
     return _top_rows(_fast_keys(x, T), k, x.shape[1])
 
 
-def knn_approx_plain(x: torch.Tensor, k: int, T: int) -> torch.Tensor:
+def knn_approx_plain(x: torch.Tensor, k: int, T: int,
+                     fold: int | None = None) -> torch.Tensor:
     """Approx mode's selection (sv_round3.py:209-234, :449-458): fast
-    mode's keys folded to L = ``quant.fold_width(N)`` lanes by key max,
-    then the top k of the L; the winners are distinct rows, one a residue
-    class mod L. Raises for k > L (the JAX kernel would decode its empty
-    lanes into rows that are not neighbours)."""
+    mode's keys folded to L = ``quant.fold_width(N, k, fold)`` lanes by
+    key max, then the top k of the L; the winners are distinct rows, one
+    a residue class mod L. Raises for k > L (the JAX kernel would decode
+    its empty lanes into rows that are not neighbours)."""
     N = x.shape[1]
-    L = quant.fold_width(N, k)
+    L = quant.fold_width(N, k, fold)
     return _top_rows(quant.fold_keys(_fast_keys(x, T), L), k, N)
 
 

@@ -237,8 +237,10 @@ def test_round3_approx_matches_jax(conv_weights, bits, name, t):
 
 def test_approx_refusals():
     """k above the folded width, a width that halves to an odd number,
-    approx off the round3 trunk and knobs out of range raise; a cloud at
-    or below the fold is fast mode's round bitwise."""
+    approx on the edge trunk, approx knobs on the legacy trunks (which
+    fold at a fixed 256 and gather at 16 bits or bf16; C23) and knobs out
+    of range raise; a cloud at or below the fold is fast mode's round
+    bitwise."""
     w = init_params(10, K, False, torch.Generator().manual_seed(0))
     folded = fold_first_params(w["params"]["init_scalar"], w["params"]["conv1"],
                                w["batch_stats"]["conv1"])
@@ -254,9 +256,13 @@ def test_approx_refusals():
             sv_round3_first(torch.zeros(1, 300, 3), folded, k=K, T=300, **kw)
         assert quant.fold_width(64) == 64 and quant.fold_width(1024) == 64
     for impl in ("round2", "round", "edge"):
-        with pytest.raises(ValueError):
-            SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
-                             rounds_impl=impl)
+        for knobs in (dict(fold=64), dict(bits=8)):
+            with _approx(**knobs), pytest.raises(ValueError):
+                SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
+                                 rounds_impl=impl)
+    with pytest.raises(ValueError):
+        SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
+                         rounds_impl="edge")
     for bad in (62, 65, 0):
         with pytest.raises(ValueError):
             config.set_approx_fold(bad)

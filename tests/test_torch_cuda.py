@@ -1132,3 +1132,100 @@ def test_window_rounds_match_plain_on_card(shape, bits):
         config.set_fast_gather_bits(was[0])
         config.set_approx_gather_bits(was[1])
         config.set_approx_fold(was[2])
+
+
+# the legacy trunks' fast and approx mode: (B, N, k, key tile T, duplicated
+# points): T = 8 at N = 1000 (approx L = 250, no multiple of the
+# selection's 128-lane tile), k = 33 above a 32-entry list at one key tile
+# of 256, N at the fold (approx is fast) with ties, k = 64 with several
+# key tiles, one key tile a cloud (T = N = 512, L = 256)
+LEGACY_FORCED = [(2, 1000, 7, 8, False), (2, 1024, 33, 256, False),
+                 (3, 256, 40, 64, True), (1, 2048, 64, 128, False),
+                 (2, 512, 20, 512, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "approx"])
+@pytest.mark.parametrize("shape", LEGACY_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-T{s[3]}"
+                              + ("-dup" if s[4] else "") for s in LEGACY_FORCED])
+def test_legacy_modes_match_plain_on_card(shape, mode):
+    """B10b in fast and approx mode (16-bit grid, fold 256) and B10a with
+    exact=False (bf16 gather; fast only, once): the first round (xyz and
+    cross, V_out 10 and 16) and the conv round ((5, 3) -> (13, 7) and
+    (32, 10) -> (32, 10), binary and FP), ids and outputs bitwise their
+    plain versions; at N <= 256 approx's ids are fast's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+
+    b, n, k, t, dup = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(29)
+    pts = _select_input(b, n, 3, dup, 29).to(dev)
+    for cross in (False, True):
+        for V_out in (10, 16):
+            f = {name: w.to(dev) for name, w in
+                 _first_weights(3 if cross else 2, V_out, gen).items()}
+            kw = dict(S_out=32, V_out=V_out, k=k, cross=cross, T=t)
+            got = k2.sv_round2_first(pts, f, emit_wins=True, mode=mode, **kw)
+            for g, w in zip(got, k2.sv_round2_first_plain(pts, f, mode=mode, **kw)):
+                assert torch.equal(g, w)
+            if mode == "approx" and n <= 256:
+                assert torch.equal(got[3], k2.sv_round2_first(
+                    pts, f, emit_wins=True, mode="fast", **kw)[3])
+            if mode == "fast":
+                for g, w in zip(k1.sv_round_first(pts, f, exact=False, **kw),
+                                k1.sv_round_first_plain(pts, f, exact=False, **kw)):
+                    assert torch.equal(g, w)
+    for S, V, S_out, V_out in ((5, 3, 13, 7), (32, 10, 32, 10)):
+        src = _select_input(b, n, S + 3 * V, dup, 30).to(dev)
+        for binary in (True, False):
+            f = {name: w.to(dev) for name, w in
+                 _round_weights(S, V, S_out, V_out, binary, gen).items()}
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary,
+                      T=t)
+            got = k2.sv_round2(src, f, emit_wins=True, mode=mode, **kw)
+            for g, w in zip(got, k2.sv_round2_plain(src, f, mode=mode, **kw)):
+                assert torch.equal(g, w)
+            if mode == "fast":
+                for g, w in zip(k1.sv_round(src, f, exact=False, **kw),
+                                k1.sv_round_plain(src, f, exact=False, **kw)):
+                    assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,mode", [("round2", "fast"), ("round2", "approx"),
+                                       ("round", "fast")])
+def test_legacy_mode_engines_on_card(impl, mode):
+    """The classifier's round2 trunk in fast and approx mode and its round
+    trunk in fast mode at N = 512 (key tiles of 256): the kernels' launches
+    per request (the pre-pass once a round), logits bitwise the plain
+    twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_round as k1
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.sv_point import sv_point_block
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(31)
+    w = init_params(40, 10, True, gen)
+    pts = torch.randn(2, 512, 3, generator=gen).to(dev)
+    first, rnd = ((k2.sv_round2_first, k2.sv_round2) if impl == "round2"
+                  else (k1.sv_round_first, k1.sv_round))
+    fns = (first, rnd, kk.neg_min, sv_point_block)
+    eng = TorchEngine(w, 40, 10, True, device=dev, rounds_impl=impl, mode=mode)
+    before = [f.launches for f in fns]
+    out = eng(pts)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 3, 4, 1]
+    oracle = TorchEngine(w, 40, 10, True, device=dev, rounds_impl=impl,
+                         mode=mode, oracle=True)
+    before = [f.launches for f in fns]
+    assert torch.equal(out, oracle(pts))
+    assert [f.launches for f in fns] == before

@@ -23,7 +23,7 @@ from svnet_tpu import models
 from svnet_tpu.infer import SVDGCNNPsegEngine as JaxPsegEngine
 from svnet_tpu.ops.pallas.sv_point import sv_point_block_cm as jax_point
 from svnet_tpu.ops.pallas.sv_round3 import sv_round3 as jax_round
-from svnet_tpu_torch import ops
+from svnet_tpu_torch import config, ops
 from svnet_tpu_torch.infer import SVDGCNNPsegEngine
 from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNPseg, init_params_pseg
 from svnet_tpu_torch.ops.kernels.sv_point import sv_point_block_cm
@@ -244,8 +244,17 @@ def test_pseg_engine_checks_arguments():
         eng(torch.zeros(1, 16, 3, dtype=torch.float64), torch.zeros(1, 16))
     with pytest.raises(ValueError):
         SVDGCNNPsegEngine(w, PARTS, K, True, mode="turbo", device="cpu")
-    for impl in ("round2", "round", "edge"):  # fast, approx on round3 only
-        for mode in ("fast", "approx"):
-            with pytest.raises(ValueError):
-                SVDGCNNPsegEngine(w, PARTS, K, True, mode=mode, device="cpu",
-                                  rounds_impl=impl)
+    # fast and approx run round2 for all three, whose fixed grid and fold
+    # refuse the knobs that would not act (C23)
+    was = (config.fast_gather_bits, config.approx_fold)
+    try:
+        config.set_fast_gather_bits(8)
+        config.set_approx_fold(512)
+        for impl in ("round2", "round", "edge"):
+            for mode in ("fast", "approx"):
+                with pytest.raises(ValueError):
+                    SVDGCNNPsegEngine(w, PARTS, K, True, mode=mode,
+                                      device="cpu", rounds_impl=impl)
+    finally:
+        config.set_fast_gather_bits(was[0])
+        config.set_approx_fold(was[1])

@@ -12,7 +12,7 @@ import torch
 
 from svnet_tpu import models
 from svnet_tpu.infer import SVDGCNNClsEngine as JaxEngine
-from svnet_tpu_torch import ops
+from svnet_tpu_torch import config, ops
 from svnet_tpu_torch.infer import SVDGCNNClsEngine
 from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, init_params
 from svnet_tpu_torch.utils.convert import from_flax
@@ -92,7 +92,23 @@ def test_engine_rotation_invariant():
     ("fast", "edge"), ("approx", "round2")])
 def test_engine_rejects_other_modes(mode, rounds_impl):
     """Modes not ported on the trunk: an unknown mode anywhere, fast and
-    approx off round3."""
-    with pytest.raises(ValueError):
+    approx on the edge trunk; on the legacy trunks, which take fast and
+    approx mode, a knob of the mode that would not act there (C23:
+    8-bit gathers, a fold other than 256)."""
+    was = (config.fast_gather_bits, config.approx_gather_bits,
+           config.approx_fold)
+    if rounds_impl in ("round2", "round"):
         SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
                          mode=mode, device="cpu", rounds_impl=rounds_impl)
+        if mode == "fast":
+            config.set_fast_gather_bits(8)
+        else:
+            config.set_approx_fold(512)
+    try:
+        with pytest.raises(ValueError):
+            SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
+                             mode=mode, device="cpu", rounds_impl=rounds_impl)
+    finally:
+        config.set_fast_gather_bits(was[0])
+        config.set_approx_gather_bits(was[1])
+        config.set_approx_fold(was[2])

@@ -105,15 +105,28 @@ def test_round_plain_matches_jax(engines, name, binary):
 
 
 def test_round_wrappers_refuse_fast_mode_and_bad_shapes(engines):
+    """exact=False (the fast variant, tests/test_torch_round1_modes.py)
+    refuses what its packed key cannot hold, N above 8192, and a key tile
+    that does not divide N; exact mode reads no key tile; bad shapes
+    raise."""
     eng = engines[True]
     S, V, S_out, V_out = ROUNDS["conv2"]
     kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=K)
     src = torch.zeros(1, 16, S + 3 * V)
-    with pytest.raises(NotImplementedError, match="exact=False"):
+    with pytest.raises(ValueError, match="8192"):
+        sv_round(torch.zeros(1, 8448, S + 3 * V), eng.folded["conv2"],
+                 exact=False, **kw)
+    with pytest.raises(ValueError, match="8192"):
+        sv_round_first(torch.zeros(1, 8448, 3), eng.folded_first, S_out=32,
+                       V_out=10, k=K, exact=False)
+    with pytest.raises(ValueError, match="divide"):  # T = 128 by default
         sv_round(src, eng.folded["conv2"], exact=False, **kw)
-    with pytest.raises(NotImplementedError, match="exact=False"):
+    with pytest.raises(ValueError, match="divide"):  # T = 256 by default
         sv_round_first(torch.zeros(1, 16, 3), eng.folded_first, S_out=32,
                        V_out=10, k=K, exact=False)
+    assert sv_round(src, eng.folded["conv2"], exact=False, T=8,
+                    **kw)[0].shape == (1, 16, S_out)
+    assert sv_round(src, eng.folded["conv2"], **kw)[0].shape == (1, 16, S_out)
     with pytest.raises(ValueError):  # channel-major input
         sv_round(src.transpose(1, 2).contiguous(), eng.folded["conv2"], **kw)
     with pytest.raises(ValueError):
