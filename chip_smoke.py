@@ -20,10 +20,11 @@ the XNOR-popcount +-1 product through its bench
 key tile, 16- and 8-bit gather grids) and approx mode (those keys folded
 to approx_fold lanes, the Morton entry sort) through B1 and B2 of both
 SV-DGCNN engines and the SV-PointNet classifier, graph reuse, the
-certified Morton candidate window at N = 8192, and fast and approx mode
+certified Morton candidate window at N = 8192, fast and approx mode
 on the legacy row-major trunks (round2 in both SV-DGCNN engines, round in
-the classifier). Phases; any failure raises and the script exits
-non-zero:
+the classifier) and on the classifier's edge trunk, and B4's fast and
+approx mode through its own entry point. Phases; any failure raises and
+the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -210,6 +211,32 @@ non-zero:
      sv_point_block once; top-1 agrees with the plain twin on >= 99%
      (bitwise expected); the median printed beside the same trunk in
      exact mode on the same requests and phase 13's, with the card
+ 21  the edge trunk's fast and approx mode: 5 requests each through
+     SVDGCNNClsEngine (128, 1024, 3) with rounds_impl="edge" in fast and
+     in approx mode; per request knn four times (the exact kNN: no
+     pre-pass), sv_edge_first_block once and sv_edge_block three times
+     with exact=False, sv_point_block once, neg_min never; top-1 agrees
+     with the plain twin on >= 99% (bitwise expected); approx logits
+     bitwise fast's; the medians printed beside the edge trunk in exact
+     mode on the same requests and phase 14's, with the card. Then B4's
+     modes through their entry point, knn(x, 20, mode, tile=128), on the
+     edge trunk's four round inputs (phase 2), counts zeroed first: knn
+     and its pre-pass neg_min four times each a mode, ids bitwise
+
+Phase 2 also holds the edge trunk's modes (phase2_edge_modes): B10d and
+B10c with exact=False against their plain versions, outputs bitwise, at
+the cls shape (128, 1024, 20) on B4's exact ids, inputs chained through
+the plain exact=False rounds, binary timed beside the same kernel in
+exact mode, B10c FP bitwise (its max difference from exact mode logged:
+linear2 through bf16); B4 in fast and approx mode (key tiles of 128, the
+fixed 256-lane fold) on each round's input at the cls shape (C = 3, 62,
+62, 127) and at the partseg shape (32, 2048, 40; C = 3, 80, 80, 136, the
+round2 trunk's round inputs), ids bitwise, one pre-pass a call, timed
+beside exact B4 and torch.cdist + torch.topk; and the forced shapes:
+B10c at CONV_FORCED's (2, 1000, 7) and (2, 1001, 33) (5, 3) -> (13, 7),
+binary and FP; B10d at (2, 1000, 7); B4 at KNN_MODE_FORCED (N = 256 at
+the fold, 512 folded to 256 on two key tiles, 384 folded to 192 lanes at
+k = 40, ties on key tiles of 64).
 
 Phase 2 also holds the legacy trunks' fast and approx mode
 (phase2_legacy): B10b (sv_round2_first, sv_round2) in fast and approx
@@ -2910,6 +2937,270 @@ def phase20(dg, w_bin, gen, dev, counters, card):
 
 
 # ---------------------------------------------------------------------------
+# the edge trunk's fast and approx mode (B10c, B10d exact=False), B4's mode
+# ---------------------------------------------------------------------------
+
+KNN_TILE = 128  # B4's key tile at both JAX callers (infer.py:305, ops/knn.py:89)
+# (B, N, C, k, tile, duplicated points) of B4's modes, as
+# tests/test_torch_edge_modes.py's: N at the fold, two key tiles folded
+# 512 -> 256, N = 384 folded to 192 lanes at k = 40, ties on tiles of 64
+KNN_MODE_FORCED = ((2, 256, 3, 8, 128, False), (2, 512, 16, 20, 128, False),
+                   (1, 384, 16, 40, 128, False), (2, 256, 3, 8, 64, True))
+
+
+def knn_mode_cost(b, n, c, k):
+    """(least ms, what bounds it) of B4 in fast or approx mode: the
+    distances of all pairs once, then per pair the key (scale, floor,
+    clamp, pack: 4 operations; the fold's max is one more in approx mode,
+    counted here too); x read once, the ids written once."""
+    return bound(knn_flops(b, n, c) + 5.0 * b * n * n, 4.0 * b * n * (c + k))
+
+
+def compare_knn_mode(rep, tag, x, kk, mode, time_it, tile=KNN_TILE):
+    """B4 with ``mode`` (the pre-pass, then the selection on the key tiles'
+    scales; folded to 256 lanes in approx mode) bitwise its plain version,
+    one kernel and one pre-pass launch a call (knn.neg_min_launches);
+    timed beside exact B4 and torch.cdist + torch.topk on the same x.
+    Returns the plain ids."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels.knn import knn, knn_mode_plain, neg_min
+
+    before = (knn.launches, neg_min.launches, knn.neg_min_launches)
+    ko = knn(x, kk, mode=mode, tile=tile)
+    after = (knn.launches, neg_min.launches, knn.neg_min_launches)
+    po = knn_mode_plain(x, kk, mode, tile)
+    sync(x.device)
+    if [a - b for a, b in zip(after, before)] != [1, 1, 1]:
+        raise AssertionError(f"{tag}: launches (knn, neg_min, its pre-pass "
+                             f"count) {before} -> {after}, not one each")
+    if not torch.equal(ko, po):
+        check_ids(tag, ko.transpose(1, 2), po.transpose(1, 2), x)
+        raise AssertionError(f"{tag}: ids not bitwise the plain version's")
+    name = f"knn {mode}"
+    if not time_it:
+        log(f"  {tag}: ids bitwise the plain version's")
+        rep.add(name, 0.0)
+        return po
+    bb, nn, C = x.shape
+
+    def library():
+        return torch.topk(torch.cdist(x, x), kk, dim=-1, largest=False).indices
+
+    ms, plain_ms = (cuda_ms(lambda: knn(x, kk, mode=mode, tile=tile)),
+                    cuda_ms(lambda: knn_mode_plain(x, kk, mode, tile)))
+    exact_ms, lib_ms = cuda_ms(lambda: knn(x, kk)), cuda_ms(library)
+    cost = knn_mode_cost(bb, nn, C, kk)
+    log(f"  {tag}: ids bitwise the plain version's; kernel {ms} ms (the "
+        f"pre-pass included; exact B4 {exact_ms} ms), plain {plain_ms} ms, "
+        f"cdist+topk {lib_ms} ms, bound {cost}")
+    rep.add(name, 0.0, ms, plain_ms, cost, lib_ms)
+    return po
+
+
+def phase2_edge_modes(rep, eng, eng_fp, dg, gen, dev):
+    """The edge trunk's fast and approx mode against the plain versions at
+    the cls shape (128, 1024, 20), inputs chained through the plain
+    exact=False rounds: B10d with exact=False (on the bf16 points) and
+    B10c with exact=False at conv2-4 (sv_round_block_kernel<true, true,
+    true>), binary timed beside the same kernel in exact mode on the same
+    input and ids, FP bitwise; B4 in fast and approx mode (T = 128) on
+    each round's input, timed beside exact B4 and cdist + topk; B4's modes
+    at the partseg shapes (32, 2048, 40) on the round2 trunk's round
+    inputs; then the forced shapes (CONV_FORCED's (5, 3) -> (13, 7) at
+    N = 1000 and 1001, FIRST_FORCED's (2, 1000, 7), KNN_MODE_FORCED).
+    Returns the cls round inputs (B4's inputs on the edge trunk)."""
+    import torch
+
+    from svnet_tpu_torch.infer import se_gate
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels import sv_round2 as k2
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    def timed(label, name, kern, plain, exact, cost):
+        ko, po = kern(), plain()
+        sync(dev)
+        check_equal(label, ko, po)
+        ms, plain_ms, exact_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(exact)
+        log(f"  {label}: outputs bitwise; kernel {ms} ms (exact mode "
+            f"{exact_ms} ms), plain {plain_ms} ms, bound {cost}")
+        rep.add(name, 0.0, ms, plain_ms, cost)
+        return po
+
+    b, n, k = B, N, K
+    shape = f"B={b} N={n} k={k}"
+    S1, V1 = eng.dims["conv1"]
+    pts = cloud(b, n, gen, dev)
+    feats = [pts]
+    for mode in ("fast", "approx"):
+        compare_knn_mode(rep, f"knn {mode} cls {shape} C=3", pts, k, mode, True)
+    idx = knn(pts, k)
+    f, kw = eng.folded_first, dict(S_out=S1, V_out=V1, k=k)
+    ef, pm1 = edge_flops(0, 1, S1, V1, True)
+    cost = bound(b * n * k * ef, 4.0 * b * n * (3 + k + S1 + 3 * V1 + 6),
+                 b * n * k * pm1)
+    po = timed(f"sv_edge_first_block exact=False {shape}",
+               "sv_edge_first_block exact=False",
+               lambda: kf.sv_edge_first_block(pts, idx, f, exact=False, **kw),
+               lambda: kf.sv_edge_first_block_plain(pts, idx, f, exact=False, **kw),
+               lambda: kf.sv_edge_first_block(pts, idx, f, **kw), cost)
+    g = se_gate(eng.p["conv1"], po[2]).repeat(1, 3)
+    outs = [(po[0], po[1] * g[:, None, :])]
+    for name, (S, V, S_out, V_out) in eng.rounds.items():
+        src = torch.cat(outs[-1], dim=-1).contiguous()
+        feats.append(src)
+        C = S + 3 * V
+        for mode in ("fast", "approx"):
+            compare_knn_mode(rep, f"knn {mode} cls {shape} C={C} ({name})", src,
+                             k, mode, True)
+        idx = knn(src, k)
+        ef, pm1 = edge_flops(S, V, S_out, V_out, binary=True)
+        cost = bound(b * n * k * ef,
+                     4.0 * (b * n * (C + k + S_out + 3 * V_out) + b * V_out),
+                     b * n * k * pm1)
+        kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=True)
+        kfp = dict(kw, binary=False)
+        fb, ffp = eng.folded[name], eng_fp.folded[name]
+        gate = ke.svblock_gate(eng.p[name], src[..., :S], idx)
+        po = timed(f"sv_edge_block exact=False {name} binary {shape}",
+                   "sv_edge_block exact=False",
+                   lambda: ke.sv_edge_block(src, idx, gate, fb, exact=False, **kw),
+                   lambda: ke.sv_edge_block_plain(src, idx, gate, fb, exact=False,
+                                                  **kw),
+                   lambda: ke.sv_edge_block(src, idx, gate, fb, **kw), cost)
+        gate_fp = ke.svblock_gate(eng_fp.p[name], src[..., :S], idx)
+        got = ke.sv_edge_block(src, idx, gate_fp, ffp, exact=False, **kfp)
+        check_equal(f"sv_edge_block exact=False {name} fp {shape}", got,
+                    ke.sv_edge_block_plain(src, idx, gate_fp, ffp, exact=False,
+                                           **kfp))
+        exact = ke.sv_edge_block(src, idx, gate_fp, ffp, **kfp)
+        log(f"  sv_edge_block exact=False {name} fp {shape}: outputs bitwise; "
+            f"max |dv| from exact mode {(got[1] - exact[1]).abs().max().item():.3g}"
+            " (linear2 through bf16)")
+        outs.append(po)
+
+    # B4's modes at the partseg shapes, on the round2 trunk's round inputs
+    e = dg["pseg round2"]["kernel"]
+    bp, np_, kp = B_PSEG, N_PSEG, K_PSEG
+    x = cloud(bp, np_, gen, dev)
+    rounds = list(e.rounds.items())  # conv2..conv4: the last input is conv3's
+    for i in range(len(rounds) + 1):
+        for mode in ("fast", "approx"):
+            compare_knn_mode(rep, f"knn {mode} pseg B={bp} N={np_} "
+                             f"C={x.shape[-1]} k={kp}", x, kp, mode, True)
+        if i == len(rounds):
+            break
+        if i == 0:
+            S1, V1 = e.dims["conv1"]
+            s, v, _ = k2.sv_round2_first(x, e.folded_first, S_out=S1, V_out=V1,
+                                         k=kp)
+        else:
+            name, (S, V, S_out, V_out) = rounds[i - 1]
+            s, v, _ = k2.sv_round2(x, e.folded[name], S=S, V=V, S_out=S_out,
+                                   V_out=V_out, k=kp, binary=True)
+        x = torch.cat([s, v], dim=-1).contiguous()
+
+    # forced shapes
+    for bb, nn, kk_, S, V, S_out, V_out in CONV_FORCED[:2]:
+        src = torch.randn(bb, nn, S + 3 * V, generator=gen).to(dev)
+        idx = knn(src, kk_)
+        gate = torch.rand(bb, V_out, generator=gen).to(dev)
+        for binary in (True, False):
+            f = round_weights(S, V, S_out, V_out, binary, gen, dev)
+            kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=kk_, binary=binary)
+            check_equal(f"sv_edge_block exact=False forced B={bb} N={nn} k={kk_}",
+                        ke.sv_edge_block(src, idx, gate, f, exact=False, **kw),
+                        ke.sv_edge_block_plain(src, idx, gate, f, exact=False,
+                                               **kw))
+        log(f"  sv_edge_block exact=False forced B={bb} N={nn} k={kk_} "
+            f"({S}, {V}) -> ({S_out}, {V_out}): binary and fp bitwise")
+    pts = cloud(2, N_RAGGED, gen, dev)
+    idx = knn(pts, 7)
+    f, kw = eng_fp.folded_first, dict(S_out=32, V_out=10, k=7, exact=False)
+    check_equal(f"sv_edge_first_block exact=False forced N={N_RAGGED} k=7",
+                kf.sv_edge_first_block(pts, idx, f, **kw),
+                kf.sv_edge_first_block_plain(pts, idx, f, **kw))
+    for bb, nn, c, kk_, tile, dup in KNN_MODE_FORCED:
+        x = select_input(bb, nn, c, dup, gen, dev)
+        for mode in ("fast", "approx"):
+            compare_knn_mode(rep, f"knn {mode} forced B={bb} N={nn} C={c} "
+                             f"k={kk_} T={tile}" + (" ties" if dup else ""),
+                             x, kk_, mode, False, tile)
+    return feats
+
+
+def phase21(dg, w_bin, feats, gen, dev, counters, card):
+    """The edge trunk's fast and approx mode on the main path: 5 requests
+    each through SVDGCNNClsEngine (128, 1024, 3) with rounds_impl="edge"
+    in fast and in approx mode; per request knn four times (exact: no
+    pre-pass), sv_edge_first_block once, sv_edge_block three times,
+    sv_point_block once and neg_min never; top-1 against the plain twin
+    (>= 0.99; bitwise expected); approx bitwise fast; the medians beside
+    the edge trunk in exact mode on the same requests and phase 14's.
+    Then B4's modes through their entry point, knn(x, 20, mode=...,
+    tile=128), on the four round inputs of the edge trunk (``feats``),
+    the counts zeroed first: knn and neg_min four times each a mode, the
+    ids bitwise the plain version's. Returns launches by entry name."""
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine
+    from svnet_tpu_torch.ops.kernels import knn as kk
+
+    requests = [(cloud(B, N, gen, dev),) for _ in range(REQUESTS)]
+    want_per = {"knn": 4, "sv_edge_first_block": 1, "sv_edge_block": 3,
+                "sv_point_block": 1, "neg_min": 0}
+    exact = dg["cls edge"]["kernel"]  # the same weights, exact mode
+    exact_ms = request_median(exact, requests)
+    out, logits = {}, {}
+    for mode in ("fast", "approx"):
+        label = f"phase 21 edge {mode}"
+        kw = dict(mode=mode, device=dev, rounds_impl="edge")
+        eng = SVDGCNNClsEngine(w_bin, CLASSES, K, True, **kw)
+        oracle = SVDGCNNClsEngine(w_bin, CLASSES, K, True, oracle=True, **kw)
+        pre = kk.knn.neg_min_launches
+        got, want, _, launches = serve(label, eng, oracle, requests, counters,
+                                       want_per, card)
+        if kk.knn.neg_min_launches != pre:
+            raise AssertionError(f"{label}: the exact kNN launched a pre-pass")
+        if (got.shape != (REQUESTS * B, CLASSES)
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{label}: logits {tuple(got.shape)} not finite")
+        agreement(f"{label}: vs its plain engine", got, want)
+        ex = torch.cat([exact(*req) for req in requests])
+        top1 = (got.argmax(-1) == ex.argmax(-1)).float().mean().item()
+        log(f"{label}: median {MEDIANS[label]:.3f} ms; edge exact on the same "
+            f"requests {exact_ms:.3f} ms (phase 14 edge "
+            f"{MEDIANS['phase 14 edge']:.3f} ms) | {card}; top-1 agreement with "
+            f"exact mode {top1:.6f} (random weights, not a bar)")
+        logits[mode] = got
+        for name in ("sv_edge_first_block", "sv_edge_block"):
+            out[f"{name} exact=False"] = (out.get(f"{name} exact=False", 0)
+                                          + launches[name])
+    if not torch_equal(logits["fast"], logits["approx"]):
+        raise AssertionError("phase 21: edge approx logits are not fast's")
+    log("phase 21: edge approx logits bitwise edge fast's")
+    for mode in ("fast", "approx"):
+        for fn in counters:
+            fn.launches = 0
+        kk.knn.neg_min_launches = 0
+        ids = [kk.knn(x, K, mode=mode, tile=KNN_TILE) for x in feats]
+        sync(dev)
+        per = {fn.__name__: fn.launches for fn in counters if fn.launches}
+        if per != {"knn": 4, "neg_min": 4} or kk.knn.neg_min_launches != 4:
+            raise AssertionError(f"phase 21 knn {mode}: launches {per}, "
+                                 f"pre-pass {kk.knn.neg_min_launches}")
+        for x, got in zip(feats, ids):
+            if not torch.equal(got, kk.knn_mode_plain(x, K, mode, KNN_TILE)):
+                raise AssertionError(f"phase 21 knn {mode}: ids not bitwise")
+        log(f"phase 21: knn(x, {K}, mode={mode!r}, tile={KNN_TILE}) on the edge "
+            f"trunk's round inputs C={[x.shape[-1] for x in feats]}: launches "
+            f"{per}, ids bitwise the plain version's")
+        out[f"knn {mode}"] = per["knn"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the candidate window (window=)
 # ---------------------------------------------------------------------------
 
@@ -3395,6 +3686,7 @@ def phase19(w_bin, W, gen, dev, counters, card):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     # phase 0
@@ -3485,6 +3777,8 @@ def main() -> int:
     W_long = phase2_window(rep, eng, eng_fp, gen, dev)
     phase2_legacy(rep, dg["cls round"]["kernel"], dg["cls round"]["kernel_fp"],
                   dg, gen, dev)
+    edge_feats = phase2_edge_modes(rep, dg["cls edge"]["kernel"],
+                                   dg["cls edge"]["kernel_fp"], dg, gen, dev)
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -3611,6 +3905,9 @@ def main() -> int:
     # phase 20: the legacy trunks' fast and approx mode
     launches.update(phase20(dg, w_bin, gen, dev, counters, card))
 
+    # phase 21: the edge trunk's fast and approx mode; B4's modes
+    launches.update(phase21(dg, w_bin, edge_feats, gen, dev, counters, card))
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -3693,6 +3990,12 @@ def main() -> int:
                 src_of[legacy_name(name, mode, tag)] = src_of[f"{name} {tag}"]
     for name in ("sv_round_first", "sv_round"):
         src_of[legacy_name(name, "fast", "cls")] = src_of[name]
+    # the edge trunk's exact=False (B10c: sv_edge.py:144-152's bf16
+    # linear2) and B4's fast and approx mode (knn.py:38-96)
+    for name in ("sv_edge_first_block", "sv_edge_block"):
+        src_of[f"{name} exact=False"] = src_of[name]
+    for mode in ("fast", "approx"):
+        src_of[f"knn {mode}"] = src_of["knn"]
     # the TPU kernel takes each key tile's worst distance from its own
     # (N, T) block (_packed_key_t); here a pre-pass kernel does
     for name in ("neg_min", "neg_min pseg"):
@@ -3730,6 +4033,7 @@ def main() -> int:
         f"{pn_step_ms:.3f} ms, peak {pn_peak / 2**30:.3f} GiB; un-fused SV-DGCNN "
         f"train step median {dg_step_ms:.3f} ms; SV-DGCNN partseg request peak "
         f"{pseg_peak / 2**30:.3f} GiB")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,9 @@ candidate lanes by key max before the top-k, a gather grid of
 ``approx_gather_bits``, and the SV-DGCNN engines' Morton entry sort
 (``morton_entry`` forces the sort in any mode). The legacy row-major
 trunks "round2" (B10b) and "round" (B10a) take fast and approx mode
-with their own fixed grids and fold, which read none of these knobs
-(``check_mode`` refuses the knobs there, C23); the "edge" trunk runs
-exact mode only. Graph reuse, on
+with their own fixed grids and fold, and the classifier's "edge" trunk
+(B10c, B10d) with its bf16 gather and exact kNN; none of them reads
+these knobs (``check_mode`` refuses the knobs there, C23). Graph reuse, on
 the round3 trunk of the SV-DGCNN engines in every mode: ``graph_reuse``
 ("spatial": every conv round takes the first round's xyz neighbour ids;
 "conv2": conv3 and conv4 take conv2's), ``reuse_k`` (reuse rounds take
@@ -115,12 +115,14 @@ def set_reuse_gather_window(width: int) -> None:
 
 
 def check_mode(mode: str, trunk: str = "round3") -> str:
-    """``mode`` if it is ported on ``trunk``: exact everywhere, fast and
-    approx on the round3, round2 and round trunks, not on "edge".
+    """``mode`` if it is ported on ``trunk``: exact, fast and approx on
+    every trunk (round3, round2, round and edge).
 
-    The legacy trunks gather through a fixed grid (round2: 16 bits; round:
-    bf16) and round2 folds to a fixed 256 lanes (svnet_tpu/ops/pallas/
-    sv_round2.py:58, :95-120; sv_round.py:68-70), whatever the knobs say.
+    The legacy trunks gather through a fixed grid (round2: 16 bits; round
+    and edge: bf16), round2 folds to a fixed 256 lanes and the edge trunk
+    selects by its exact kNN in every mode (svnet_tpu/ops/pallas/
+    sv_round2.py:58, :95-120; sv_round.py:68-70; sv_edge.py:63-84;
+    svnet_tpu/infer.py:303-310), whatever the knobs say.
     JAX ignores the knobs there; the port refuses a setting that would
     not act (C23), as it refuses graph reuse and the window off round3:
     ``fast_gather_bits`` 8 in fast mode, ``approx_gather_bits`` 8 or an
@@ -129,9 +131,8 @@ def check_mode(mode: str, trunk: str = "round3") -> str:
         raise ValueError(f"mode {mode!r} is not ported; supported: {MODES}")
     if mode == "exact" or trunk == "round3":
         return mode
-    if trunk not in ("round2", "round"):
-        raise ValueError(f"mode {mode!r} is not ported on the {trunk!r} "
-                         f"trunk; it runs exact mode only")
+    if trunk not in ("round2", "round", "edge"):
+        raise ValueError(f"unknown trunk {trunk!r}")
     knobs = ({"fast_gather_bits": (fast_gather_bits, 16)} if mode == "fast"
              else {"approx_gather_bits": (approx_gather_bits, 16),
                    "approx_fold": (approx_fold, 256)})

@@ -1,9 +1,18 @@
-// Standalone exact kNN on Hopper: neighbour ids (B, N, k), self included.
+// Standalone kNN on Hopper, exact, fast and approx mode: neighbour ids
+// (B, N, k), self included.
 //
-// Replaces svnet_tpu/ops/pallas/knn.py::knn_pallas (exact mode): per
-// centre, the k largest negative squared distances over all N candidates,
-// ranked by the sortable-int key of the f32 distance with ties to the
-// minimum row id, without an (N, N) array in device memory.
+// Replaces svnet_tpu/ops/pallas/knn.py::knn_pallas: per centre, the k
+// largest negative squared distances over all N candidates, without an
+// (N, N) array in device memory. Exact mode ranks by the sortable-int key
+// of the f32 distance with ties to the minimum row id. Fast mode
+// (knn.py:38-96, sv_round2.py:197-210) ranks by the packed key q * 2^ib +
+// (2^ib - 1 - row), q the distance quantized on the scale of each key tile
+// of T centres (the tile of the TPU kernel's (T, N) block), whose worst
+// distance the pre-pass (sv_neg_min_launch) finds; approx mode folds those
+// keys to L lanes by key max first (a fixed 256-lane fold,
+// sv_round2.py:58). These are the selection's fast and approx
+// instantiations of the serving rounds (sv_common.cuh), told the scales,
+// T and L.
 //
 // What bounds it on the H100: B*N*N*C multiply-adds of the distances
 // (C = 3, 62, 62, 127 on the training path), rounded op by op in f32 on
@@ -19,10 +28,15 @@
 #include "sv_common.cuh"
 
 // x (B, C, N) channel-major; aa (B, N) scratch; ids (B, N, k) int32.
-extern "C" int sv_knn_launch(const float* x, float* aa, int* ids, int B,
-                             int N, int C, int k, void* stream) {
+// Fast mode: tile_scale (B, N / T), the key tiles' scales
+// (quant.py::tile_scales); approx mode also L > 0, the fold width. Exact
+// mode passes a null tile_scale and T = L = 0.
+extern "C" int sv_knn_launch(const float* x, float* aa, int* ids,
+                             const float* tile_scale, int B, int N, int C,
+                             int k, int T, int L, void* stream) {
   return (int)sv_knn_select(x, aa, ids, B, N, C, k, (cudaStream_t)stream,
-                            /*point_major=*/true);
+                            /*point_major=*/true, /*row_major=*/false,
+                            tile_scale, T, L);
 }
 
 // Fast mode's pre-pass (sv_common.cuh::sv_neg_min): x (B, N, C) row-major;

@@ -1,4 +1,4 @@
-// The ids-consuming SV-DGCNN rounds, exact mode, on Hopper: the first
+// The ids-consuming SV-DGCNN rounds, exact and fast mode, on Hopper: the first
 // round (kernel B10d) and a conv round with its gate applied (B10c) of the
 // rounds_impl="edge" trunk, whose neighbour ids come from a separate kNN
 // (B4, csrc/knn.cu, point-major (B, N, k)).
@@ -12,6 +12,14 @@
 // k by the caller's gate (B, V_out), computed on the host from the ids'
 // degree histogram (ops/kernels/sv_edge.py::svblock_gate), and returns no
 // statistics.
+//
+// exact=False (sv_edge_first.py:40-57, sv_edge.py:57-159): both rounds read
+// their rows and centres through one bf16 cast (the TPU's bf16 one-hot
+// matmul), which the wrappers make (quant.bf16_rows) and pass as the
+// source: the first round needs nothing more. The conv round's linear2
+// also reads each edge vector [nbr - ctr | ctr] through bf16 and a w2 that
+// the wrapper rounded to bf16 (sv_round_block_kernel's V2BF16); the frames,
+// invariants and linear1 keep the f32 differences.
 //
 // What bounds it on the H100: with no selection inside, the block math --
 // frames, invariants and linear2 in f32 on the CUDA cores; a binary
@@ -42,14 +50,21 @@ extern "C" int sv_edge_first_launch(
 // src (B, N, S+3V) row-major [s | v i-major]; ids (B, N, k) int32 in
 // [0, N); gate (B, V_out); weights of fold_svblock_params; outputs s_out
 // (B, N, S_out) and v_out (B, N, 3V_out) gated: mean over k, then * gate.
+// exact = 0: src is the source through bf16 and w2 rounded to bf16 (see
+// above); linear2 reads the edge vectors through bf16.
 extern "C" int sv_edge_launch(
     const float* src, const int* ids, const float* gate, const float* wz,
     const float* w1, const float* beta, const float* a1, const float* b1,
     const float* w2, const float* scale2, const float* a2, const float* b2,
     float* s_out, float* v_out, int B, int N, int S, int V, int S_out,
-    int V_out, int k, int binary, void* stream) {
-  return sv_conv_block<true, true>(src, ids, gate, wz, w1, beta, a1, b1, w2,
-                                   scale2, a2, b2, s_out, v_out, nullptr, B,
-                                   N, S, V, S_out, V_out, k, binary,
-                                   (cudaStream_t)stream);
+    int V_out, int k, int binary, int exact, void* stream) {
+  if (exact)
+    return sv_conv_block<true, true>(src, ids, gate, wz, w1, beta, a1, b1, w2,
+                                     scale2, a2, b2, s_out, v_out, nullptr, B,
+                                     N, S, V, S_out, V_out, k, binary,
+                                     (cudaStream_t)stream);
+  return sv_conv_block<true, true, true>(src, ids, gate, wz, w1, beta, a1, b1,
+                                         w2, scale2, a2, b2, s_out, v_out,
+                                         nullptr, B, N, S, V, S_out, V_out, k,
+                                         binary, (cudaStream_t)stream);
 }

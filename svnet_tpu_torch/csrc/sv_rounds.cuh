@@ -379,8 +379,12 @@ static RbSmem rb_layout(int S, int V, int S_out, int V_out, int binary,
 // first ranks of a wider tensor) and of the outputs. GATED: v
 // leaves gated, (sum * (1/k)) * gate[b, o] with gate (B, V_out), and no
 // gate statistics are summed (ssum unused); else v leaves ungated and ssum
-// takes the per-point sums of the edge scalars.
-template <bool ROW, bool GATED = false>
+// takes the per-point sums of the edge scalars. V2BF16 (B10c's exact=False):
+// linear2 reads each edge vector [nbr - ctr | ctr] rounded to bf16 (the
+// caller passes w2 rounded to bf16); the frames and invariants read VE as
+// it is, and the invariants stage, VE's last other reader, rounds it in
+// place, once a value.
+template <bool ROW, bool GATED = false, bool V2BF16 = false>
 static __global__ void __launch_bounds__(RB_THREADS, 1)
 sv_round_block_kernel(
     const float* __restrict__ src, const int* __restrict__ wins,
@@ -442,6 +446,11 @@ sv_round_block_kernel(
     }
   };
 
+  // linear2's operand: an edge vector's value, through bf16 with V2BF16
+  auto sv_v2 = [](float v) {
+    if constexpr (V2BF16) return __bfloat162float(__float2bfloat16_rn(v));
+    return v;
+  };
   // channel c < 2V of component i3 of edge e's vector [nbr - ctr | ctr]
   auto ve_at = [&](int e, int i3, int c) {
     return c < V ? VE[((size_t)e * 3 + i3) * V + c]
@@ -533,6 +542,11 @@ sv_round_block_kernel(
             else
               Xf[(size_t)e * IN1 + q] = s;
           }
+          if constexpr (V2BF16)
+            if (c < V) {  // linear2's operand from here on
+              float* ve = VE + (size_t)e * 3 * V + c;
+              ve[0] = sv_v2(v0), ve[V] = sv_v2(v1), ve[2 * V] = sv_v2(v2);
+            }
         }
       }
       __syncthreads();
@@ -659,7 +673,7 @@ sv_round_block_kernel(
           for (int jj = 0; jj < 3; ++jj) w[jj] = w2s[(V + c) * V_out + os[jj]];
 #pragma unroll
           for (int i3 = 0; i3 < 3; ++i3) {
-            const float v = cvec[i3 * V + c];
+            const float v = sv_v2(cvec[i3 * V + c]);
 #pragma unroll
             for (int g = 0; g < RB_G; ++g)
 #pragma unroll
@@ -725,7 +739,7 @@ sv_round_block_kernel(
 // (GATED: v gated, no statistics), on a persistent grid of as many blocks
 // as the card holds at once. ids_bs: the ids' batch stride in elements (0:
 // packed, N * k).
-template <bool ROW, bool GATED>
+template <bool ROW, bool GATED, bool V2BF16 = false>
 static int sv_conv_block(const float* src, const int* wins, const float* gate,
                          const float* wz, const float* w1, const float* beta,
                          const float* a1, const float* b1, const float* w2,
@@ -735,7 +749,7 @@ static int sv_conv_block(const float* src, const int* wins, const float* gate,
                          cudaStream_t st, long long ids_bs = 0) {
   const RbSmem L = rb_layout(S, V, S_out, V_out, binary, /*stats=*/!GATED);
   if (L.total > SV_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kern = sv_round_block_kernel<ROW, GATED>;
+  auto kern = sv_round_block_kernel<ROW, GATED, V2BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;

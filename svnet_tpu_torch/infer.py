@@ -14,7 +14,8 @@ The SV-DGCNN engines run one of four trunks, chosen by ``rounds_impl``:
   here, as round2 -> sv_point_block
   "edge" (classifier): knn -> sv_edge_first_block -> gate, then per conv
   round knn over the joint features -> svblock_gate -> sv_edge_block (the
-  gate applied inside) -> sv_point_block
+  gate applied inside) -> sv_point_block; the kNN (B4) is exact in every
+  mode
 
 (the part segmenter runs round2 for "round" and "edge", as the JAX
 engine does; an unknown name raises)
@@ -58,8 +59,11 @@ fast's key unfolded, so approx is fast there. Their key tile is
 ``quant.auto_round_tile(N, tile, k, C, mode)`` for each round's C, from
 the engines' ``tile`` (64, as JAX's), and it is part of the result. The
 knobs of fast and approx mode do not act there, and are refused (C23,
-``config.check_mode``). The classifier's "edge" trunk runs exact mode
-only.
+``config.check_mode``). The classifier's "edge" trunk takes fast and
+approx mode too (svnet_tpu/infer.py:430-482): both are ``exact=False``
+on B10d and B10c (the bf16 gather, and B10c's linear2 through bf16), on
+the exact kNN of B4, with no Morton sort and no pre-pass, so approx is
+fast there; the knobs are refused as on the legacy trunks.
 
 Graph reuse (``config.graph_reuse``, ``reuse_k``, ``reuse_gather_window``;
 svnet_tpu/infer.py:315-365, :640-690) is read at each call, on the
@@ -372,10 +376,10 @@ class _DGCNNEngine:
         self.window = window
         self._first, self._round, self._point = TRUNKS[trunk](oracle)
         # the rounds' mode: round3's also takes the window, round (B10a)
-        # takes exact=...
+        # and edge (B10d, B10c) take exact=...
         kw = {"round3": dict(mode=self.mode, window=window),
-              "round2": dict(mode=self.mode),
-              "round": dict(exact=self.mode == "exact")}.get(trunk, {})
+              "round2": dict(mode=self.mode)}.get(
+                  trunk, dict(exact=self.mode == "exact"))
         self._first = functools.partial(self._first, **kw)
         self._round = functools.partial(self._round, **kw)
         self.device = config.resolve_device(device)
@@ -490,8 +494,9 @@ class SVDGCNNClsEngine(_DGCNNEngine):
     ``device="cpu"``. ``rounds_impl`` picks the trunk: "round3" (the
     default), the legacy row-major "round2", "round" (kernel B10a) or
     "edge" (a separate kNN, kernels B10d and B10c). ``mode``: "exact",
-    "fast" or "approx" (on round3 approx Morton-sorts the cloud first; the
-    edge trunk takes exact only; see the module's docstring); ``tile``:
+    "fast" or "approx" (on round3 approx Morton-sorts the cloud first; on
+    the edge trunk both are exact=False on B10d and B10c, on the exact
+    kNN; see the module's docstring); ``tile``:
     the legacy trunks' key-tile parameter (``quant.auto_round_tile``).
     ``window`` (round3 only; 0 = off): the certified Morton
     candidate window of B1 and every selecting B2 (ops/window.py): each

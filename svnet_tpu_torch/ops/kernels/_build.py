@@ -62,8 +62,8 @@ SIGNATURES = {
     # pts, ids, 8 weights, s_out, v_out, ssum; B N k S_out V_out; stream
     "sv_edge_first_launch": [_P] * 13 + [_I] * 5 + [_P],
     # src, ids, gate, 9 weights, s_out, v_out; B N S V S_out V_out k
-    # binary; stream
-    "sv_edge_launch": [_P] * 14 + [_I] * 8 + [_P],
+    # binary exact; stream
+    "sv_edge_launch": [_P] * 14 + [_I] * 9 + [_P],
     # xp, wp, out; M N L; stream
     "xnor_popcount_launch": [_P] * 3 + [_I] * 3 + [_P],
     # src, gate, 9 weights and W1's packed signs (after w1), s_out, v_out;
@@ -75,8 +75,8 @@ SIGNATURES = {
     "sv_pack_bytes": [_I] * 2,
     # w1, out; K S_out; stream
     "sv_pack_signs_launch": [_P] * 2 + [_I] * 2 + [_P],
-    # x, aa, ids; B N C k; stream
-    "sv_knn_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, aa, ids, tile_scale; B N C k T L; stream
+    "sv_knn_launch": [_P] * 4 + [_I] * 6 + [_P],
     # x, aa, neg_min; B N C; stream
     "sv_neg_min_launch": [_P] * 3 + [_I] * 3 + [_P],
     # x, aa, neg_min, keep, ok; B N C T W; stream

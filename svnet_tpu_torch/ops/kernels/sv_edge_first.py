@@ -1,4 +1,4 @@
-"""The ids-consuming first round, exact mode, kernel B10d (counterpart of
+"""The ids-consuming first round, kernel B10d (counterpart of
 svnet_tpu/ops/pallas/sv_edge_first.py::sv_edge_first_block): the first
 round of the classifier's ``rounds_impl="edge"`` trunk, on the neighbour
 ids of a separate kNN over the points.
@@ -8,6 +8,13 @@ ids of a separate kNN over the points.
 the mean of the init-scalar edge features in the reference's c-major
 order ``[c*3 + j]`` (sv_edge_first.py:84-88), which the caller's conv1
 gate reads. The ids are checked as ``sv_round3.check_ids`` does.
+
+``exact=False`` (sv_edge_first.py:40-57) reads the points, neighbours
+and centres alike, through one bf16 cast (``quant.bf16_rows``: rounded
+to nearest even, read back in f32; a self-edge is exactly 0); everything
+after runs in f32, as on the JAX package's CPU oracle. So the function
+is exact mode's on the rounded points, and both the plain version and
+the kernel take those.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches
 csrc/sv_edge.cu or raises. ``sv_edge_first_block.launches`` counts
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from svnet_tpu_torch.config import require_cuda
-from svnet_tpu_torch.ops.kernels import _build
+from svnet_tpu_torch.ops.kernels import _build, quant
 from svnet_tpu_torch.ops.kernels.fold import Folded
 from svnet_tpu_torch.ops.kernels.sv_round3 import (
     check_ids,
@@ -30,16 +37,20 @@ from svnet_tpu_torch.ops.kernels.sv_round3 import (
 
 def sv_edge_first_block_plain(points: torch.Tensor, idx: torch.Tensor,
                               folded: Folded, *, S_out: int, V_out: int,
-                              k: int):
+                              k: int, exact: bool = True):
     """Plain version: the first-round plain core on the given ids."""
+    if not exact:
+        points = quant.bf16_rows(points)
     return first_block_rows(points, idx, folded, S_out=S_out, V_out=V_out)
 
 
 def sv_edge_first_block(points: torch.Tensor, idx: torch.Tensor,
-                        folded: Folded, *, S_out: int, V_out: int, k: int):
+                        folded: Folded, *, S_out: int, V_out: int, k: int,
+                        exact: bool = True):
     """points (B, N, 3), idx (B, N, k) int32 -> (s (B, N, S_out), v
     (B, N, 3*V_out) ungated, s_mean (B, 6) c-major). The kernel takes
-    S_out = 32 and V_out = 10 or 16."""
+    S_out = 32 and V_out = 10 or 16. ``exact=False``: the points through
+    bf16 (see the module's docstring)."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected (B, N, 3)")
     B, N, _ = points.shape
@@ -48,9 +59,11 @@ def sv_edge_first_block(points: torch.Tensor, idx: torch.Tensor,
     check_ids(idx, (B, N, k), N, points.device)
     if points.device.type == "cpu":
         return sv_edge_first_block_plain(points, idx, folded, S_out=S_out,
-                                         V_out=V_out, k=k)
+                                         V_out=V_out, k=k, exact=exact)
     dev = require_cuda(points.device)
     _build.check_arg(points, "points", (B, N, 3), dev)
+    if not exact:
+        points = quant.bf16_rows(points)
     if not idx.is_contiguous():
         raise ValueError("idx: must be contiguous")
     f = folded

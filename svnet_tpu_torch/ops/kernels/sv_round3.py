@@ -349,11 +349,13 @@ sv_round3_first.window_launches = 0
 
 
 def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
-                    S: int, V: int, S_out: int, V_out: int, binary: bool):
+                    S: int, V: int, S_out: int, V_out: int, binary: bool,
+                    v2_bf16: bool = False):
     """A conv round's block on row-major x (B, N, S + 3V) and the neighbour
     ids ``idx`` (B, N, k): (s (B, N, S_out), v (B, N, 3, V_out) ungated,
     the edge scalars s_e (B, N, k, 2S)). Shared by every conv round's plain
-    version."""
+    version. ``v2_bf16``: linear2 reads the edge vectors and w2 rounded to
+    bf16 (B10c's ``exact=False``, sv_edge.py:144-152)."""
     B, N, _ = x.shape
     k = idx.shape[-1]
     s_e, v_e = ops.get_graph_feature_sv(
@@ -365,7 +367,10 @@ def conv_block_rows(x: torch.Tensor, idx: torch.Tensor, folded: Folded, *,
     else:
         h = ordered_matmul(xc, folded["w1"])
     y = _leaky(h * folded["a1"] + folded["b1"])
-    wl = ordered_matmul(v_e, folded["w2"]) * folded["scale2"]
+    v2, w2 = v_e, folded["w2"]
+    if v2_bf16:
+        v2, w2 = quant.bf16_rows(v_e), quant.bf16_rows(w2)
+    wl = ordered_matmul(v2, w2) * folded["scale2"]
     vb = wl * vector_bn_scale(wl, folded["a2"], folded["b2"])
     return torch.amax(y, dim=2), _rank_mean(vb), s_e  # svpool: max, mean
 

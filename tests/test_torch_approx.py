@@ -237,9 +237,10 @@ def test_round3_approx_matches_jax(conv_weights, bits, name, t):
 
 def test_approx_refusals():
     """k above the folded width, a width that halves to an odd number,
-    approx on the edge trunk, approx knobs on the legacy trunks (which
-    fold at a fixed 256 and gather at 16 bits or bf16; C23) and knobs out
-    of range raise; a cloud at or below the fold is fast mode's round
+    approx knobs on the legacy trunks and the edge trunk (which fold at a
+    fixed 256 or select exactly, and gather at 16 bits or bf16; C23) and
+    knobs out of range raise, while approx mode itself is taken on the
+    edge trunk; a cloud at or below the fold is fast mode's round
     bitwise."""
     w = init_params(10, K, False, torch.Generator().manual_seed(0))
     folded = fold_first_params(w["params"]["init_scalar"], w["params"]["conv1"],
@@ -260,9 +261,8 @@ def test_approx_refusals():
             with _approx(**knobs), pytest.raises(ValueError):
                 SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
                                  rounds_impl=impl)
-    with pytest.raises(ValueError):
-        SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
-                         rounds_impl="edge")
+    assert SVDGCNNClsEngine(w, 10, K, False, mode="approx", device="cpu",
+                            rounds_impl="edge").mode == "approx"
     for bad in (62, 65, 0):
         with pytest.raises(ValueError):
             config.set_approx_fold(bad)

@@ -1229,3 +1229,134 @@ def test_legacy_mode_engines_on_card(impl, mode):
     before = [f.launches for f in fns]
     assert torch.equal(out, oracle(pts))
     assert [f.launches for f in fns] == before
+
+
+# the edge trunk's fast and approx mode (exact=False): B10c's conv block
+# at CONV_FORCED, B10d's first round at FIRST_FORCED
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+@pytest.mark.parametrize("shape", CONV_FORCED,
+                         ids=[f"N{s[1]}-k{s[2]}-S{s[3]}-V{s[4]}-So{s[5]}-Vo{s[6]}"
+                              for s in CONV_FORCED])
+def test_edge_block_fast_shape_forced_on_card(shape, binary):
+    """B10c with exact=False (sv_round_block_kernel<true, true, true>: the
+    bf16 rows, linear2 through bf16) bitwise its plain version on B4's
+    ids where neither the MMA tile nor the edge tile divides the widths, N
+    or k; exact mode's instantiation on the same input stays bitwise its
+    own, and the two differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    b, n, k, S, V, S_out, V_out = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(41)
+    f = {name: t.to(dev) for name, t in
+         _round_weights(S, V, S_out, V_out, binary, gen).items()}
+    src = torch.randn(b, n, S + 3 * V, generator=gen).to(dev)
+    kw = dict(S=S, V=V, S_out=S_out, V_out=V_out, k=k, binary=binary)
+    idx = knn(src, k)
+    gate = torch.rand(b, V_out, generator=gen).to(dev)
+    before = ke.sv_edge_block.launches
+    got = ke.sv_edge_block(src, idx, gate, f, exact=False, **kw)
+    assert ke.sv_edge_block.launches == before + 1
+    for g, w in zip(got, ke.sv_edge_block_plain(src, idx, gate, f, exact=False,
+                                                **kw)):
+        assert torch.equal(g, w)
+    exact = ke.sv_edge_block(src, idx, gate, f, **kw)
+    for g, w in zip(exact, ke.sv_edge_block_plain(src, idx, gate, f, **kw)):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[1], exact[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V_out", [10, 16])
+@pytest.mark.parametrize("shape", FIRST_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}" for s in FIRST_FORCED])
+def test_edge_first_fast_shape_forced_on_card(shape, V_out):
+    """B10d with exact=False (the first-round block on the bf16 points)
+    bitwise its plain version on B4's ids at FIRST_FORCED."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels.knn import knn
+
+    b, n, k = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    config.set_full_fp32()
+    gen = torch.Generator().manual_seed(42)
+    f = {name: w.to(dev) for name, w in _first_weights(2, V_out, gen).items()}
+    pts = torch.randn(b, n, 3, generator=gen).to(dev)
+    idx = knn(pts, k)
+    kw = dict(S_out=32, V_out=V_out, k=k, exact=False)
+    for g, w in zip(kf.sv_edge_first_block(pts, idx, f, **kw),
+                    kf.sv_edge_first_block_plain(pts, idx, f, **kw)):
+        assert torch.equal(g, w)
+
+
+# B4's fast and approx mode: (B, N, C, k, key tile, duplicated points):
+# one key tile a cloud; several, folded 2048 -> 256 at k = 64; N = 384
+# folded to 192 lanes at k = 40; ties on key tiles of 64; C off the
+# selection's 32-channel chunk
+KNN_MODES_FORCED = [(2, 256, 3, 8, 256, False), (2, 2048, 127, 64, 128, False),
+                    (1, 384, 16, 40, 128, False), (3, 512, 62, 33, 64, True),
+                    (2, 1024, 3, 20, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "approx"])
+@pytest.mark.parametrize("shape", KNN_MODES_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-C{s[2]}-k{s[3]}-T{s[4]}"
+                              + ("-dup" if s[5] else "") for s in KNN_MODES_FORCED])
+def test_knn_modes_match_plain_on_card(shape, mode):
+    """B4 with mode= (the pre-pass, then the selection on the key tiles'
+    scales, folded in approx mode) bitwise its plain version; one kernel
+    launch and one pre-pass a call, counted on knn.neg_min_launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import knn as kk
+
+    b, n, c, k, tile, dup = shape
+    x = _select_input(b, n, c, dup, 43).to(torch.device("cuda"))
+    before = (kk.knn.launches, kk.neg_min.launches, kk.knn.neg_min_launches)
+    got = kk.knn(x, k, mode=mode, tile=tile)
+    assert (kk.knn.launches, kk.neg_min.launches, kk.knn.neg_min_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(got, kk.knn_mode_plain(x, k, mode, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "fp"])
+def test_cls_edge_mode_engines_on_card(binary):
+    """The classifier's edge trunk in fast and approx mode: per request
+    knn x4 (exact: no pre-pass), B10d x1, B10c x3, B3r x1; logits bitwise
+    the plain twin's; approx equal to fast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.models.sv_dgcnn import init_params
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.kernels import sv_edge as ke
+    from svnet_tpu_torch.ops.kernels import sv_edge_first as kf
+    from svnet_tpu_torch.ops.kernels.sv_point import sv_point_block
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(44)
+    w = init_params(40, 10, binary, gen)
+    pts = torch.randn(2, 300, 3, generator=gen).to(dev)
+    fns = (kk.knn, kf.sv_edge_first_block, ke.sv_edge_block, sv_point_block,
+           kk.neg_min)
+    outs = {}
+    for mode in ("fast", "approx"):
+        eng = TorchEngine(w, 40, 10, binary, device=dev, rounds_impl="edge",
+                          mode=mode)
+        before = [f.launches for f in fns]
+        outs[mode] = eng(pts)
+        assert [f.launches - b for f, b in zip(fns, before)] == [4, 1, 3, 1, 0]
+        oracle = TorchEngine(w, 40, 10, binary, device=dev, rounds_impl="edge",
+                             mode=mode, oracle=True)
+        assert torch.equal(outs[mode], oracle(pts))
+    assert torch.equal(outs["fast"], outs["approx"])

@@ -91,13 +91,13 @@ def test_engine_rotation_invariant():
     ("turbo", "round3"), ("fast", "round2"), ("fast", "round"),
     ("fast", "edge"), ("approx", "round2")])
 def test_engine_rejects_other_modes(mode, rounds_impl):
-    """Modes not ported on the trunk: an unknown mode anywhere, fast and
-    approx on the edge trunk; on the legacy trunks, which take fast and
-    approx mode, a knob of the mode that would not act there (C23:
-    8-bit gathers, a fold other than 256)."""
+    """Modes not ported on the trunk: an unknown mode anywhere; on the
+    legacy trunks and the edge trunk, which take fast and approx mode, a
+    knob of the mode that would not act there (C23: 8-bit gathers, a fold
+    other than 256)."""
     was = (config.fast_gather_bits, config.approx_gather_bits,
            config.approx_fold)
-    if rounds_impl in ("round2", "round"):
+    if rounds_impl in ("round2", "round", "edge"):
         SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
                          mode=mode, device="cpu", rounds_impl=rounds_impl)
         if mode == "fast":

@@ -168,32 +168,27 @@ def test_rotations_are_rotations():
 
 @pytest.mark.parametrize("trunk", ["round2", "round", "edge"])
 def test_config_accepts_only_exact_and_requires_cuda(trunk):
-    """The edge trunk takes exact mode only; the legacy row-major trunks
-    take fast and approx mode at the knobs' defaults and refuse a knob
-    that would not act there (C23); a CUDA device is required."""
+    """The legacy row-major trunks and the edge trunk take fast and approx
+    mode at the knobs' defaults and refuse a knob that would not act
+    there (C23); a CUDA device is required."""
     assert config.check_mode("exact", trunk) == "exact"
     for mode in ("fast", "approx"):
-        if trunk == "edge":
-            with pytest.raises(ValueError):
+        assert config.check_mode(mode, trunk) == mode
+    was = (config.fast_gather_bits, config.approx_gather_bits,
+           config.approx_fold)
+    try:
+        for setter, value, mode in ((config.set_fast_gather_bits, 8, "fast"),
+                                    (config.set_approx_gather_bits, 8, "approx"),
+                                    (config.set_approx_fold, 128, "approx")):
+            setter(value)
+            with pytest.raises(ValueError, match="C23"):
                 config.check_mode(mode, trunk)
-        else:
-            assert config.check_mode(mode, trunk) == mode
-    if trunk != "edge":
-        was = (config.fast_gather_bits, config.approx_gather_bits,
-               config.approx_fold)
-        try:
-            for setter, value, mode in ((config.set_fast_gather_bits, 8, "fast"),
-                                        (config.set_approx_gather_bits, 8, "approx"),
-                                        (config.set_approx_fold, 128, "approx")):
-                setter(value)
-                with pytest.raises(ValueError, match="C23"):
-                    config.check_mode(mode, trunk)
-                assert config.check_mode(mode) == mode  # round3 reads it
-                assert config.check_mode("exact", trunk) == "exact"
-        finally:
-            config.set_fast_gather_bits(was[0])
-            config.set_approx_gather_bits(was[1])
-            config.set_approx_fold(was[2])
+            assert config.check_mode(mode) == mode  # round3 reads it
+            assert config.check_mode("exact", trunk) == "exact"
+    finally:
+        config.set_fast_gather_bits(was[0])
+        config.set_approx_gather_bits(was[1])
+        config.set_approx_fold(was[2])
     with pytest.raises(RuntimeError):
         config.require_cuda("cpu")
 

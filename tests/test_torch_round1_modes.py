@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
+from svnet_tpu_torch import config
 from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
 from svnet_tpu_torch.models import sv_pointnet
 from svnet_tpu_torch.models.sv_dgcnn import init_params
@@ -221,7 +222,8 @@ def test_round_fast_refuses_what_jax_cannot_key():
     """exact=False above 8192 rows (the key's 13 column bits; JAX asserts
     in ``sv_round`` and corrupts its first round's keys) and a key tile
     that does not divide N raise in both wrappers; the classifier's edge
-    trunk refuses fast and approx mode."""
+    trunk takes fast and approx mode (tests/test_torch_edge_modes.py) but
+    refuses a knob that would not act there (C23)."""
     eng = SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
                            device="cpu", rounds_impl="round")
     S, V, S_out, V_out = ROUNDS["conv2"]
@@ -234,6 +236,14 @@ def test_round_fast_refuses_what_jax_cannot_key():
             sv_round(torch.zeros(1, n, S + 3 * V), eng.folded["conv2"], T=t,
                      **kw)
     for mode in ("fast", "approx"):
+        edge = SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K,
+                                True, device="cpu", mode=mode, rounds_impl="edge")
+        assert edge.mode == mode
+    was = config.fast_gather_bits
+    config.fast_gather_bits = 8
+    try:
         with pytest.raises(ValueError, match="edge"):
             SVDGCNNClsEngine(init_params(CLASSES, K, True), CLASSES, K, True,
-                             device="cpu", mode=mode, rounds_impl="edge")
+                             device="cpu", mode="fast", rounds_impl="edge")
+    finally:
+        config.fast_gather_bits = was
