@@ -292,7 +292,12 @@ kernel in exact mode on the same input; the pre-pass (neg_min, each
 centre's farthest candidate) bitwise on every round's input, timed beside
 torch.cdist + amax; and FAST_FORCED (N = 1000, 1001, 256; k = 7, 33, 40,
 64; T = N where no tile divides N, T = 128 and 64 giving several key
-tiles a cloud; duplicated points), every B1 and B2 instantiation.
+tiles a cloud; duplicated points), every B1 and B2 instantiation. The
+pre-passes at forced shapes (phase2_prepass_forced): neg_min bitwise at
+PREPASS_FORCED ((B, N, C) = (2, 1000, 5), (2, 1001, 33), (3, 130, 1),
+(1, 50, 127), (2, 1024, 62) with duplicated points, (1, 256, 3) one
+point repeated: N off the 128-row tiles, C off the 16-channel stage) and
+window_tau at k = 1, 20, 40, 384 on duplicated rows.
 
 The last lines of output are the card line, one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -399,6 +404,32 @@ def bound(flops: float, nbytes: float, pm1_flops: float = 0.0):
 def knn_flops(b, n, c):
     """Distances of all pairs: c multiply-adds, then 2*inner - |x|^2 - |y|^2."""
     return b * n * n * (2.0 * c + 3.0)
+
+
+def neg_min_flops(b, n, c):
+    """The pre-pass's least work: the inner products of the n (n + 1) / 2
+    unordered pairs (an inner product serves both centres), then every
+    ordered pair's 2*inner - |x|^2 - |y|^2."""
+    return b * (n * (n + 1) / 2.0 * 2.0 * c + n * n * 3.0)
+
+
+def neg_min_window_flops(keep, T, c):
+    """The windowed pre-pass's least work on a certified batch: the inner
+    products of each 128 x 128 tile (I <= J) of a cloud that feeds either
+    side (an inner product serves both; a diagonal tile's n (n + 1) / 2
+    pairs), then 2*inner - |x|^2 - |y|^2 for each ordered pair that is fed.
+    keep (B, N/T, N/128): tile I's rows take block J where keep[b, I*128/T,
+    J] is set."""
+    import torch
+
+    nt = keep.shape[-1]
+    rows = torch.arange(nt, device=keep.device) * 128 // T
+    fed = keep[:, rows, :] != 0  # (B, I, J)
+    either = fed | fed.transpose(1, 2)
+    diag = int(torch.diagonal(either, dim1=1, dim2=2).sum())
+    off = (int(either.sum()) - diag) // 2
+    return (off * 128.0 * 128 + diag * 128.0 * 129 / 2) * 2.0 * c + \
+        int(fed.sum()) * 128.0 * 128 * 3.0
 
 
 def edge_flops(S, V, S_out, V_out, first=False, binary=False, cross=False):
@@ -1930,10 +1961,54 @@ def compare_neg_min(rep, name, x, time_it):
     ms, plain_ms, lib_ms = (cuda_ms(lambda: neg_min(x)),
                             cuda_ms(lambda: neg_min_plain(x)),
                             cuda_ms(lambda: torch.cdist(x, x).amax(dim=-1)))
-    cost = bound(knn_flops(bb, nn, C), 4.0 * bb * nn * (C + 1))
+    cost = bound(neg_min_flops(bb, nn, C), 4.0 * bb * nn * (C + 1))
     log(f"  {name} B={bb} N={nn} C={C}: bitwise; kernel {ms} ms, plain "
         f"{plain_ms} ms, cdist+amax {lib_ms} ms, bound {cost}")
     rep.add(name, 0.0, ms, plain_ms, cost, lib_ms)
+
+
+# (B, N, C, input) of the pre-pass: N off its 128-row tiles, C off its
+# 16-channel stage, duplicated points, one point repeated
+PREPASS_FORCED = ((2, 1000, 5, None), (2, 1001, 33, None), (3, 130, 1, None),
+                  (1, 50, 127, None), (2, 1024, 62, "dup"), (1, 256, 3, "same"))
+
+
+def phase2_prepass_forced(dev):
+    """The pre-pass (neg_min) bitwise its plain version at PREPASS_FORCED,
+    one launch a call; the window's tau (window_tau) bitwise its plain
+    version at k = 1, 20, 40, 384 on duplicated rows (every band distance
+    at least twice), (2, 1024, 14) and (3, 256, 5)."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels.knn import neg_min, neg_min_plain
+    from svnet_tpu_torch.ops.window import window_tau, window_tau_plain
+
+    gen = torch.Generator().manual_seed(SEED + 50)
+
+    def dup(x):
+        x[:, 1::2] = x[:, 0::2][:, : x[:, 1::2].shape[1]]
+        return x
+
+    for b, n, c, kind in PREPASS_FORCED:
+        x = torch.randn(b, n, c, generator=gen)
+        if kind == "dup":
+            dup(x)
+        elif kind == "same":
+            x[:] = x[:, :1]
+        x = x.to(dev)
+        before = neg_min.launches
+        got = neg_min(x)
+        if neg_min.launches != before + 1:
+            raise AssertionError(f"neg_min ({b}, {n}, {c}): launches "
+                                 f"{neg_min.launches - before} != 1")
+        check_equal(f"neg_min forced ({b}, {n}, {c}) {kind}", (got,), (neg_min_plain(x),))
+    for b, n, c in ((2, 1024, 14), (3, 256, 5)):
+        x = dup(torch.randn(b, n, c, generator=gen)).to(dev)
+        for k in (1, 20, 40, 384):
+            check_equal(f"window_tau forced ({b}, {n}, {c}) k={k}",
+                        (window_tau(x, k),), (window_tau_plain(x, k),))
+    log(f"  pre-passes at PREPASS_FORCED and window_tau at k = 1, 20, 40, 384 "
+        "on duplicated rows: bitwise")
 
 
 # (B, N, k, key tile T or None) of B1 and B2 in fast mode: N and k that no
@@ -3316,6 +3391,31 @@ def compare_prepass(rep, x, k, T, W):
         "margin and ok)")
 
 
+def compare_neg_min_window(rep, name, x, k, T, W):
+    """The pre-pass over prune_prepass's window at W (neg_min with
+    (T, W, keep, ok)) bitwise its plain version on x (B, N, C), timed
+    beside its plain version and the pre-pass without a window."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.window import prune_prepass
+
+    b, n, C = x.shape
+    keep, okt = prune_prepass(x, k, T, W)
+    win = (T, W, keep, okt.to(torch.int32))
+    check_equal(f"neg_min window C={C}", (kk.neg_min(x, win),),
+                (kk.neg_min_window_plain(x, win),))
+    ok = bool(okt)
+    cost = bound(neg_min_window_flops(keep, T, C) if ok else neg_min_flops(b, n, C),
+                 4.0 * b * n * (C + 1))
+    ms = cuda_ms(lambda: kk.neg_min(x, win))
+    plain_ms = cuda_ms(lambda: kk.neg_min_window_plain(x, win), reps=1)
+    full_ms = cuda_ms(lambda: kk.neg_min(x))
+    log(f"  neg_min window B={b} N={n} C={C} T={T} certified {ok}: bitwise; "
+        f"kernel {ms} ms (full {full_ms} ms), plain {plain_ms} ms, bound {cost}")
+    rep.add(name, 0.0, ms, plain_ms, cost)
+
+
 def phase2_window(rep, eng, eng_fp, gen, dev):
     """B1 and B2 with the candidate window against their plain versions,
     ids and outputs bitwise, in exact, fast and approx mode (fold 256) at
@@ -3332,10 +3432,8 @@ def phase2_window(rep, eng, eng_fp, gen, dev):
     import torch
 
     from svnet_tpu_torch.infer import se_gate
-    from svnet_tpu_torch.ops.kernels import knn as kk
     from svnet_tpu_torch.ops.kernels import quant
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
-    from svnet_tpu_torch.ops.window import prune_prepass
 
     b, n, k = B_LONG, N_LONG, K
     pts = surface(b, n, SEED + 40, dev)
@@ -3397,22 +3495,8 @@ def phase2_window(rep, eng, eng_fp, gen, dev):
                 outs.append((po[0], po[1] * g[:, :, None]))
             if mode == "approx" and bits == 8:
                 for x in inputs:  # the scale pre-pass over each round's window
-                    C = x.shape[-1]
-                    T = quant.round3_tiles(n, C, mode)
-                    keep, okt = prune_prepass(x, k, T, W)
-                    win = (T, W, keep, okt.to(torch.int32))
-                    check_equal(f"neg_min window C={C}", (kk.neg_min(x, win),),
-                                (kk.neg_min_window_plain(x, win),))
-                    pairs, ok, _ = window_pairs(x, k, T, W)
-                    cost = bound(pairs * (2.0 * C + 3), 4.0 * b * n * (C + 1))
-                    ms = cuda_ms(lambda: kk.neg_min(x, win))
-                    plain_ms = cuda_ms(lambda: kk.neg_min_window_plain(x, win), reps=1)
-                    full_ms = cuda_ms(lambda: kk.neg_min(x))
-                    log(f"  neg_min window C={C} T={T} certified {ok}: bitwise; "
-                        f"kernel {ms} ms (full {full_ms} ms), plain {plain_ms} ms, "
-                        f"bound {cost}")
-                    rep.add(window_name("neg_min", mode, bits), 0.0, ms,
-                            plain_ms, cost)
+                    compare_neg_min_window(rep, window_name("neg_min", mode, bits),
+                                           x, k, quant.round3_tiles(n, x.shape[-1], mode), W)
             if mode == "exact":
                 for x in inputs:
                     compare_prepass(rep, x, k, quant.round3_tiles(n, x.shape[-1], mode), W)
@@ -3772,6 +3856,7 @@ def main() -> int:
     phase2_pointnet(rep, pn, gen, dev)
     phase2_gather(rep, gen, dev)
     phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev)
+    phase2_prepass_forced(dev)
     phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_reuse(rep, eng, eng_fp, dg, gen, dev)
     W_long = phase2_window(rep, eng, eng_fp, gen, dev)

@@ -3,7 +3,8 @@
 // (sv_point.cu): the kNN selection kernel over a channel-major (B, C, N)
 // or a row-major (B, N, C) source, by exact mode's key, fast mode's or
 // approx mode's folded one, over all N rows or a certified candidate
-// window, the fast key's pre-pass (each centre's farthest candidate), a
+// window; a staged tile of inner products (sv_pair_inner, for the fast
+// key's pre-pass in knn.cu and the window's tau in window.cu); a
 // shared-memory block GEMM, and small helpers.
 #pragma once
 
@@ -39,7 +40,7 @@ static __device__ __forceinline__ float sv_leaky(float y) {
 // rounded op by op with no FMA contraction, like the plain version
 // (svnet_tpu_torch/ops/knn.py::pairwise_neg_sqdist); a row's distance to
 // itself is exactly 0 because inner and the norms are summed in the same
-// channel order (sv_sqnorm_kernel below).
+// channel order (sv_row_sqnorm below).
 static __device__ __forceinline__ float sv_neg_dist(float inner, float ctr_sq,
                                                     float cand_sq) {
   return __fsub_rn(__fsub_rn(__fmul_rn(2.f, inner), ctr_sq), cand_sq);
@@ -104,10 +105,22 @@ static __device__ __forceinline__ sv_u64 sv_pack(unsigned ukey, int row, int N) 
 
 static __host__ __device__ inline size_t sv_align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
+// sum_c p[c * stride]^2, summed from 0.f in channel order with the
+// rounding of every inner product of the selection and the pre-passes, so
+// that every self-distance is exactly 0. Every squared norm of a row goes
+// through here.
+static __device__ __forceinline__ float sv_row_sqnorm(const float* __restrict__ p,
+                                                      long long stride, int C) {
+  float acc = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float v = p[(long long)c * stride];
+    acc = __fadd_rn(acc, __fmul_rn(v, v));
+  }
+  return acc;
+}
+
 // aa[b*N + m] = sum_c x[b, c, m]^2 over a channel-major (B, C, N) source,
-// or sum_c x[b, m, c]^2 over a row-major (B, N, C) one, summed in channel
-// order with the rounding of the selection's inner products, so that every
-// self-distance is exactly 0.
+// or sum_c x[b, m, c]^2 over a row-major (B, N, C) one (sv_row_sqnorm).
 template <bool ROW>
 static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
                                         float* __restrict__ aa, int B, int N,
@@ -115,14 +128,8 @@ static __global__ void sv_sqnorm_kernel(const float* __restrict__ x,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * N) return;
   const long long b = i / N, m = i % N;
-  const float* p = ROW ? x + i * C : x + b * C * (long long)N + m;
-  const long long stride = ROW ? 1 : N;
-  float acc = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float v = p[(long long)c * stride];
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
-  }
-  aa[i] = acc;
+  aa[i] = ROW ? sv_row_sqnorm(x + i * C, 1, C)
+              : sv_row_sqnorm(x + b * C * (long long)N + m, N, C);
 }
 
 // ---------------------------------------------------------------------------
@@ -688,92 +695,127 @@ static cudaError_t sv_knn_select(const float* src, float* aa, int* wins,
 }
 
 // ---------------------------------------------------------------------------
-// fast mode's pre-pass: each centre's farthest candidate
+// a staged tile of inner products over a row-major source
 // ---------------------------------------------------------------------------
-// neg_min[b*N + n] = min over all N candidates m of neg(n, m), by the
-// selection's own distance stage (sv_tile_inner, sv_neg_dist), so that
-// the key tiles' scales (quant.py::tile_scales, the min over each tile of
-// T centres, taken outside) come from the very values the selection
-// quantizes. The TPU kernel holds its whole (N, T) block of distances and
-// takes that min for free; here it costs one distance pass. A block of 8
-// warps owns 64 centres, as in the selection; a min has no order, so the
-// result is exact. With WIN (SvWindow) the min runs over the rows of the
-// key tile's kept blocks, and takes in 0.0 where the tile's window has
-// padding: the JAX kernel zeroes neg on padding before its min
-// (sv_round3.py:586-591), so the tile's scale sees (kept rows, and 0).
-template <bool ROW, bool WIN>
-static __global__ void __launch_bounds__(SEL_WARPS * 32)
-sv_neg_min_kernel(const float* __restrict__ src, const float* __restrict__ aa,
-                  float* __restrict__ neg_min, int N, int C, SvWindow win) {
-  __shared__ __align__(16) float sm[SEL_KC * (SEL_CS + SEL_MS)];
-  extern __shared__ int sv_kb[];  // (WIN) the kept blocks, N / 128 + 2
-  float* ctr_s = sm;
-  float* cand_s = sm + SEL_KC * SEL_CS;
-  const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t0 = warp * 8;
-  const float* x = src + (size_t)b * C * N;
-  const float* a = aa + (size_t)b * N;
-  float ctr_sq[8], mn[8];
+#define SV_PI_KC 16  // channels a stage
+
+static __device__ __forceinline__ unsigned sv_smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of one f32 into shared memory, 0 there where !valid (src must
+// still be a mapped address).
+static __device__ __forceinline__ void sv_cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sv_smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void sv_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+static __device__ __forceinline__ void sv_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// dst[cc * (ROWS + 4) + t] = channel c0 + cc of row row_of(t) of a
+// row-major (N, C) source (0 where it is -1), t < ROWS, cc < nc <=
+// SV_PI_KC, by cp.async: thread i copies channels i % 8 + 8 v of rows
+// i / 8 + blockDim / 8 u, so a warp copies 8 consecutive channels of 4
+// rows, its 32 stores fall in 32 banks (row stride = 4 mod 32), and each
+// row's address is taken once.
+template <int ROWS, class RowOf>
+static __device__ __forceinline__ void sv_stage_async(float* dst,
+                                                      const float* __restrict__ x,
+                                                      RowOf row_of, int c0, int nc,
+                                                      int C) {
+  constexpr int ld = ROWS + 4;
+  const int c = threadIdx.x & 7;
+  for (int t = threadIdx.x >> 3; t < ROWS; t += blockDim.x >> 3) {
+    const int r = row_of(t);
+    const float* src = x + (r >= 0 ? (size_t)r * C + c0 : 0);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int n = n0 + t0 + i;
-    ctr_sq[i] = n < N ? a[n] : 0.f;
-    mn[i] = INFINITY;
-  }
-  int nblk = (N + SEL_TM - 1) / SEL_TM;
-  bool pad = false;  // the window has padding
-  if constexpr (WIN) {
-    bool ok;
-    sv_window_blocks(sv_kb, win, b, n0, N, nblk, ok);
-    pad = ok && nblk * SEL_TM < win.W;
-  }
-  for (int i = 0; i < nblk; ++i) {
-    const int m0 = (WIN ? sv_kb[i] : i) * SEL_TM;
-    float acc[8][4];
-    sv_tile_inner<ROW>(acc, ctr_s, cand_s, x, n0, SvRun{m0, N}, t0, lane, N, C);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 4 * lane + j;
-      if (m >= N) break;
-      const float cand_sq = a[m];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        mn[i] = fminf(mn[i], sv_neg_dist(acc[i][j], ctr_sq[i], cand_sq));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mn[i] = fminf(mn[i], __shfl_xor_sync(0xffffffffu, mn[i], off));
-    if (pad) mn[i] = fminf(mn[i], 0.f);
-    const int n = n0 + t0 + i;
-    if (lane == 0 && n < N) neg_min[(size_t)b * N + n] = mn[i];
+    for (int v = 0; v < SV_PI_KC / 8; ++v)
+      if (c + 8 * v < nc) sv_cp4(dst + (c + 8 * v) * ld + t, src + c + 8 * v, r >= 0);
   }
 }
 
-// Squared norms + the pre-pass over a channel-major (B, C, N) source, or a
-// row-major (B, N, C) one when row_major; aa is (B, N) scratch. win: the
-// candidate window (SvWindow, row-major sources only), W = 0 for none.
-static cudaError_t sv_neg_min(const float* src, float* aa, float* neg_min,
-                              int B, int N, int C, cudaStream_t stream,
-                              bool row_major, SvWindow win = SvWindow{}) {
-  if (N < 1 || C < 1 || !sv_window_ok(win, N, 1, 0) || (win.W && !row_major))
-    return cudaErrorInvalidValue;
-  cudaError_t err = row_major ? sv_sqnorm<true>(src, aa, B, N, C, stream)
-                              : sv_sqnorm<false>(src, aa, B, N, C, stream);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + SEL_TC - 1) / SEL_TC, B);
-  if (win.W)
-    sv_neg_min_kernel<true, true><<<grid, SEL_WARPS * 32, sv_window_smem(N), stream>>>(
-        src, aa, neg_min, N, C, win);
-  else if (row_major)
-    sv_neg_min_kernel<true, false><<<grid, SEL_WARPS * 32, 0, stream>>>(
-        src, aa, neg_min, N, C, win);
-  else
-    sv_neg_min_kernel<false, false><<<grid, SEL_WARPS * 32, 0, stream>>>(
-        src, aa, neg_min, N, C, win);
-  return cudaGetLastError();
+// The row of value i of thread t in a tile of R rows whose threads hold TI
+// values each: TI / 4 float4 groups, group g at g * R / (TI / 4) + 4 t, so
+// a warp's float4 reads of a staged channel are contiguous.
+template <int R, int TI>
+static __device__ __forceinline__ int sv_tile_row(int t, int i) {
+  return (i >> 2) * (R / (TI / 4)) + 4 * t + (i & 3);
+}
+
+// Floats of sv_pair_inner's two stages.
+#define SV_PI_FLOATS(RA, RB) (2 * SV_PI_KC * ((RA) + (RB) + 8))
+
+// acc[i][j] = <row rowa(sv_tile_row<RA, TA>(ty, i)), row rowb(sv_tile_row<RB,
+// TB>(tx, j))> of a row-major (N, C) source, ty = thread / (RB / TB), tx =
+// thread % (RB / TB), over a block of (RA / TA) (RB / TB) threads; a row
+// -1 reads as 0. Every inner product is summed from 0.f channel by
+// channel with __fmul_rn / __fadd_rn, as the plain versions and the
+// selection (sv_tile_inner) sum it, so it is bitwise the same whichever of
+// the two rows is the centre (an IEEE product commutes). Chunks of
+// SV_PI_KC channels of both operands stream through two stages of sm
+// (SV_PI_FLOATS, 16-byte aligned) by cp.async: chunk c + 1 loads while
+// chunk c's products run, one barrier a chunk. A thread reads TA / 4 +
+// TB / 4 float4 of shared memory a channel for 2 TA TB operations. Every
+// thread of the block calls it, once.
+template <int RA, int RB, int TA, int TB, class RowA, class RowB>
+static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float* sm,
+                                                     const float* __restrict__ x,
+                                                     RowA rowa, RowB rowb, int C) {
+  constexpr int LA = RA + 4, LB = RB + 4, STAGE = SV_PI_KC * (LA + LB);
+  const int tx = threadIdx.x % (RB / TB), ty = threadIdx.x / (RB / TB);
+#pragma unroll
+  for (int i = 0; i < TA; ++i)
+#pragma unroll
+    for (int j = 0; j < TB; ++j) acc[i][j] = 0.f;
+  auto stage = [&](int ch) {
+    float* s = sm + (ch & 1) * STAGE;
+    const int c0 = ch * SV_PI_KC, nc = min(SV_PI_KC, C - c0);
+    sv_stage_async<RA>(s, x, rowa, c0, nc, C);
+    sv_stage_async<RB>(s + SV_PI_KC * LA, x, rowb, c0, nc, C);
+    sv_cp_commit();
+  };
+  auto step = [&](const float* as, const float* bs) {
+    float a[TA], b[TB];
+#pragma unroll
+    for (int g = 0; g < TA / 4; ++g) {
+      const float4 v = *(const float4*)(as + sv_tile_row<RA, TA>(ty, 4 * g));
+      a[4 * g] = v.x, a[4 * g + 1] = v.y, a[4 * g + 2] = v.z, a[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < TB / 4; ++g) {
+      const float4 v = *(const float4*)(bs + sv_tile_row<RB, TB>(tx, 4 * g));
+      b[4 * g] = v.x, b[4 * g + 1] = v.y, b[4 * g + 2] = v.z, b[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TA; ++i)
+#pragma unroll
+      for (int j = 0; j < TB; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], b[j]));
+  };
+  const int nch = (C + SV_PI_KC - 1) / SV_PI_KC;
+  stage(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    sv_cp_wait<0>();
+    __syncthreads();  // chunk ch is in; chunk ch - 1's stage is consumed
+    if (ch + 1 < nch) stage(ch + 1);
+    const float* as = sm + (ch & 1) * STAGE;
+    const float* bs = as + SV_PI_KC * LA;
+    const int nc = min(SV_PI_KC, C - ch * SV_PI_KC);
+    if (nc == SV_PI_KC) {
+#pragma unroll
+      for (int cc = 0; cc < SV_PI_KC; ++cc) step(as + cc * LA, bs + cc * LB);
+    } else {
+      for (int cc = 0; cc < nc; ++cc) step(as + cc * LA, bs + cc * LB);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

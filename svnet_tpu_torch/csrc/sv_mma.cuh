@@ -34,10 +34,6 @@ typedef __nv_bfloat16 sv_bf16;
 static __host__ __device__ inline int sv_pad16(int n) { return (n + 15) & ~15; }
 static __host__ __device__ inline int sv_mma_ld(int K) { return sv_pad16(K) + 8; }
 
-static __device__ __forceinline__ unsigned sv_smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
 // Four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8.
 static __device__ __forceinline__ void sv_ldsm4(unsigned (&r)[4], const sv_bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

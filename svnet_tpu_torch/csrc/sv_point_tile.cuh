@@ -114,24 +114,9 @@ static bool pt_pick(PtLayout& L, int S, int V, int S_out, int V_out, bool fuse) 
          pt_layout(L, 2, S, V, S_out, V_out, fuse);
 }
 
-static __device__ __forceinline__ void pt_cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sv_smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 static __device__ __forceinline__ void pt_cp16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sv_smem_u32(dst)), "l"(src)
                : "memory");
-}
-
-static __device__ __forceinline__ void pt_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-static __device__ __forceinline__ void pt_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 static __device__ __forceinline__ int8_t pt_sign8(float x) {
@@ -205,18 +190,18 @@ sv_point_tile_kernel(
       for (int e = tid; e < 3 * P * ncp; e += nth) {
         const int cc = (e / (24 * P)) * 8 + (e & 7), t = (e >> 3) % (3 * P);
         const int i = t / P, p = t % P;
-        if (cc < nc) pt_cp4(vs + cc * ldv + t, v_ptr(p < np ? p : 0, i, c0 + cc), p < np);
+        if (cc < nc) sv_cp4(vs + cc * ldv + t, v_ptr(p < np ? p : 0, i, c0 + cc), p < np);
       }
     } else {  // consecutive threads on consecutive points
       for (int e = tid; e < 3 * P * nc; e += nth) {
         const int cc = e / (3 * P), t = e % (3 * P), i = t / P, p = t % P;
-        pt_cp4(vs + cc * ldv + t, v_ptr(p < np ? p : 0, i, c0 + cc), p < np);
+        sv_cp4(vs + cc * ldv + t, v_ptr(p < np ? p : 0, i, c0 + cc), p < np);
       }
     }
     float* ws = W2S + (size_t)buf * PT_VC * ldw2;
     for (int e = tid; e < nc * ldw2; e += nth) {
       const int cc = e / ldw2, o = e % ldw2;
-      pt_cp4(ws + e, w2 + (size_t)(c0 + cc) * V_out + (o < V_out ? o : 0), o < V_out);
+      sv_cp4(ws + e, w2 + (size_t)(c0 + cc) * V_out + (o < V_out ? o : 0), o < V_out);
     }
   };
   // frames: thread nth-1-f owns (p, i) = (f % P, f / P) for f < 3P
@@ -232,11 +217,11 @@ sv_point_tile_kernel(
       for (int jj = 0; jj < PT_OG; ++jj) vacc[pp][i][jj] = 0.f;
   float z0 = 0.f, z1 = 0.f, z2 = 0.f;
   stage(0, 0);
-  pt_commit();
+  sv_cp_commit();
   for (int ch = 0; ch < nch; ++ch) {
     if (ch + 1 < nch) stage(ch + 1, (ch + 1) & 1);
-    pt_commit();
-    pt_wait<1>();
+    sv_cp_commit();
+    sv_cp_wait<1>();
     __syncthreads();
     const int c0 = ch * PT_VC, nc = min(PT_VC, V - c0);
     const float* vs = VS + (size_t)(ch & 1) * PT_VC * ldv;
@@ -354,7 +339,7 @@ sv_point_tile_kernel(
   };
   for (int s = 0; s < PT_NST - 1; ++s) {
     if (s < nk) load_w(s, s);
-    pt_commit();
+    sv_cp_commit();
   }
   // the operand: sign(s + beta) and sign(sv_j + beta), j-major; zero past
   // the tile's points and past Cin. A thread loads PT_U items before it
@@ -409,10 +394,10 @@ sv_point_tile_kernel(
   const bool busy = col0 < S_out;                // warp-uniform
   const sv_bf16* pa = sv_frag_a((const sv_bf16*)A, L.lda / 2, 0);
   for (int kc = 0; kc < nk; ++kc) {
-    pt_wait<PT_NST - 2>();
+    sv_cp_wait<PT_NST - 2>();
     __syncthreads();  // stage kc landed; the stage read at kc - 1 is free
     if (kc + PT_NST - 1 < nk) load_w(kc + PT_NST - 1, (kc + PT_NST - 1) % PT_NST);
-    pt_commit();
+    sv_cp_commit();
     if (busy) {
       const sv_bf16* st = (const sv_bf16*)(ring + (size_t)(kc % PT_NST) * L.spad * (PT_KC + 16));
       unsigned bw[NTW / 2][4];  // this warp's columns, then one m-tile at a time

@@ -6,17 +6,29 @@
 // sv_window_tau_kernel: tau[b, n], the k-th smallest squared distance
 // (|x_n|^2 + |x_m|^2) - 2<x_n, x_m> from n to the 384 rows m of its own
 // 128-row block and the two beside it (the ends wrap; at N = 256 the other
-// block counts twice, as JAX's rolled copies do). In PyTorch (the plain
-// version) it is a (B, N, 384) slab of distances and a kthvalue over it:
-// 3.5 / 27.8 / 54.1 ms at B = 16, N = 8192, C = 3 / 62 / 127 on an NVIDIA
-// H100 80GB HBM3 at 700 W (chip_smoke.py, phase 2). Bound: B*N*384*(2C +
-// 3) operations, 0.007 ms at C = 3. Here a block of 8 warps owns 64
-// centres and runs the selection's distance stage (sv_common.cuh,
-// sv_tile_inner: chunks of 32 channels in shared memory, 8 centres x 4
-// candidates a lane) over the three band blocks into a (64, 384) slab in
-// shared memory; each warp then finds its centres' k-th value by a radix
-// select over the slab's order-preserving integer keys (32 rounds of a
-// warp sum), with multiplicity.
+// block counts twice, as JAX's rolled copies do), counted with
+// multiplicity (:946-955). In PyTorch (the plain version) it is a
+// (B, N, 384) slab of distances and a kthvalue over it. What bounds it on
+// the H100: B N 384 C multiplies and as many adds, rounded one by one on
+// the CUDA cores (-fmad=false, so tau is bitwise the plain version's):
+// 0.38 ms at (16, 8192) and C = 127, twice the FMA-counted bound; at C = 3
+// the distances cost nothing and the selection of 131,072 k-th values is
+// the work. A block of 16 warps owns 64 centres of one Morton block and
+// runs sv_pair_inner (sv_common.cuh: the band's rows and the centres'
+// streamed through two cp.async stages of 16 channels) with a thread tile
+// of 4 centres x 12 band rows: warp w ends up holding the distances of its
+// 4 centres to all 384 rows, 12 a lane, in registers, so no slab of
+// distances is kept anywhere. Per centre each lane sorts its 12
+// order-preserving keys (a 42-comparator network), and the warp takes the
+// least head key (one __reduce_min_sync) and pops it from every lane that
+// holds it, until k keys are taken: at most k rounds, or 385 - k from the
+// top for k above 192. The band's 384 rows are staged once for 64
+// centres: at 32 centres (8 warps, 3 blocks an SM at 80 registers) the
+// staging cost 12% more at C = 127 (utils/bench_prepass.py, NVIDIA H100
+// 80GB HBM3, 700 W). 57 KB of shared memory and 96 registers a thread:
+// one block (16 warps) an SM. It takes 0.25 / 0.54 / 0.89 ms at C = 3 /
+// 62 / 127 and k = 20 (same script and card): at C = 127, 43% of the
+// no-FMA floor.
 //
 // sv_window_keep_kernel: keep[b, t, bk] is 1 unless every centre n of key
 // tile t has lb2(n, bk) > tau[b, n], lb2 the squared distance from x_n to
@@ -25,11 +37,11 @@
 // 1.1 G at a long cloud's conv4 (B = 16, N = 8192, C = 127), six f32
 // operations each, about 0.1 ms; in PyTorch the test runs channel by
 // channel over (B, N, blocks) temporaries (the plain version: 23.2 ms
-// there, same card and script). A thread owns a centre and a chunk of
-// WK_BLK blocks: it reads its row once per chunk, the chunk's boxes come
-// from shared memory (a broadcast) and the chunk's sums stay in
-// registers; a warp OR and a shared-memory atomicOr (integer, so
-// order-free) fold the tile's centres.
+// there, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 2). A thread
+// owns a centre and a chunk of WK_BLK blocks: it reads its row once per
+// chunk, the chunk's boxes come from shared memory (a broadcast) and the
+// chunk's sums stay in registers; a warp OR and a shared-memory atomicOr
+// (integer, so order-free) fold the tile's centres.
 //
 // Both sum channel by channel, each product and sum rounded on its own
 // (built with -fmad=false), as their plain versions do: tau and the flags
@@ -45,62 +57,101 @@ static __device__ __forceinline__ float wt_value(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
 }
 
+#define WT_C 64               // centres a block, 4 a warp
+#define WT_THREADS (WT_C / 4 * 32)
 #define WT_BAND (3 * SEL_TM)  // a centre's band rows
-#define WT_SMEM (SEL_KC * (SEL_CS + SEL_MS) * 4 + SEL_TC * WT_BAND * 4)
+#define WT_Q (WT_BAND / 32)   // band rows a lane
+#define WT_SMEM (SV_PI_FLOATS(WT_C, WT_BAND) * 4)
 
-__global__ void __launch_bounds__(SEL_WARPS * 32, 1)
+// Row t < 384 of the band of Morton block bk: blocks bk - 1, bk, bk + 1 of
+// nb, the ends wrapping.
+struct WtBand {
+  int bk, nb;
+  __device__ __forceinline__ int operator()(int t) const {
+    int blk = bk + t / SEL_TM - 1;
+    blk = blk < 0 ? blk + nb : (blk >= nb ? blk - nb : blk);
+    return blk * SEL_TM + t % SEL_TM;
+  }
+};
+
+#define WT_CAS(a, b)                                 \
+  {                                                  \
+    const unsigned lo_ = min(v[a], v[b]);            \
+    v[b] = max(v[a], v[b]);                          \
+    v[a] = lo_;                                      \
+  }
+
+// Sorts a lane's 12 keys ascending: Batcher's odd-even merge sort on 16
+// slots without the comparators of the 4 slots past 12 (42 in 10 layers).
+static __device__ __forceinline__ void wt_sort(unsigned (&v)[WT_Q]) {
+  static_assert(WT_Q == 12, "the network sorts 12 keys");
+  WT_CAS(0, 1) WT_CAS(2, 3) WT_CAS(4, 5) WT_CAS(6, 7) WT_CAS(8, 9) WT_CAS(10, 11)
+  WT_CAS(0, 2) WT_CAS(1, 3) WT_CAS(4, 6) WT_CAS(5, 7) WT_CAS(8, 10) WT_CAS(9, 11)
+  WT_CAS(1, 2) WT_CAS(5, 6) WT_CAS(9, 10)
+  WT_CAS(0, 4) WT_CAS(1, 5) WT_CAS(2, 6) WT_CAS(3, 7)
+  WT_CAS(2, 4) WT_CAS(3, 5)
+  WT_CAS(1, 2) WT_CAS(3, 4) WT_CAS(5, 6) WT_CAS(9, 10)
+  WT_CAS(0, 8) WT_CAS(1, 9) WT_CAS(2, 10) WT_CAS(3, 11)
+  WT_CAS(4, 8) WT_CAS(5, 9) WT_CAS(6, 10) WT_CAS(7, 11)
+  WT_CAS(2, 4) WT_CAS(3, 5) WT_CAS(6, 8) WT_CAS(7, 9)
+  WT_CAS(1, 2) WT_CAS(3, 4) WT_CAS(5, 6) WT_CAS(7, 8) WT_CAS(9, 10)
+}
+
+// The rank-th smallest (1-based) of the warp's 32 x WT_Q keys, each lane's
+// sorted ascending, with multiplicity: the warp takes the least head key,
+// which every lane holding it there pops, until rank keys are taken.
+static __device__ __forceinline__ unsigned wt_select(unsigned (&key)[WT_Q], int rank) {
+  for (;;) {
+    const unsigned m = __reduce_min_sync(0xffffffffu, key[0]);
+    const bool hit = key[0] == m;
+    rank -= __popc(__ballot_sync(0xffffffffu, hit));
+    if (rank <= 0) return m;
+    if (hit) {
+#pragma unroll
+      for (int q = 0; q + 1 < WT_Q; ++q) key[q] = key[q + 1];
+      key[WT_Q - 1] = 0xffffffffu;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WT_THREADS, 1)
 sv_window_tau_kernel(const float* __restrict__ x, const float* __restrict__ aa,
                      float* __restrict__ tau, int N, int C, int k) {
-  extern __shared__ __align__(16) unsigned char wt_smem[];
-  float* ctr_s = (float*)wt_smem;           // (SEL_KC, SEL_CS) centres
-  float* cand_s = ctr_s + SEL_KC * SEL_CS;  // (SEL_KC, SEL_MS) band rows
-  float* d2s = cand_s + SEL_KC * SEL_MS;    // (SEL_TC, WT_BAND) distances
-  const int b = blockIdx.y, n0 = blockIdx.x * SEL_TC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t0 = warp * 8;
-  const int nb = N / SEL_TM, bk = n0 / SEL_TM;
-  const float* xb = x + (size_t)b * C * N;
+  extern __shared__ __align__(16) float wt_sm[];
+  const int b = blockIdx.y, n0 = blockIdx.x * WT_C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const WtBand band{n0 / SEL_TM, N / SEL_TM};
+  float acc[4][WT_Q];  // centre n0 + 4 warp + i, band row sv_tile_row<WT_BAND, WT_Q>(lane, q)
+  sv_pair_inner<WT_C, WT_BAND, 4, WT_Q>(acc, wt_sm, x + (size_t)b * N * C,
+                                        SvRun{n0, N}, band, C);
   const float* a = aa + (size_t)b * N;
-  float ctr_sq[8];
+  // above 192, the k-th smallest is the (385 - k)-th largest: the
+  // (385 - k)-th smallest of the complemented keys
+  const bool top = k > WT_BAND / 2;
+  const int rank = top ? WT_BAND + 1 - k : k;
+  float ctr_sq[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) ctr_sq[i] = a[n0 + t0 + i];
-  for (int s = 0; s < 3; ++s) {  // the blocks before, at and after n's
-    const int r0 = ((bk + s - 1 + nb) % nb) * SEL_TM;
-    float acc[8][4];
-    sv_tile_inner<true>(acc, ctr_s, cand_s, xb, n0, SvRun{r0, N}, t0, lane, N,
-                        C);
+  for (int i = 0; i < 4; ++i) ctr_sq[i] = a[n0 + 4 * warp + i];
+  unsigned key[4][WT_Q];  // the distances' keys, in place of acc
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float cand_sq = a[r0 + 4 * lane + j];
+  for (int q = 0; q < WT_Q; ++q) {
+    const float cand_sq = a[band(sv_tile_row<WT_BAND, WT_Q>(lane, q))];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d2s[(t0 + i) * WT_BAND + s * SEL_TM + 4 * lane + j] = __fsub_rn(
-            __fadd_rn(ctr_sq[i], cand_sq), __fmul_rn(2.f, acc[i][j]));
+    for (int i = 0; i < 4; ++i) {
+      const unsigned u = wt_key(
+          __fsub_rn(__fadd_rn(ctr_sq[i], cand_sq), __fmul_rn(2.f, acc[i][q])));
+      key[i][q] = top ? ~u : u;
     }
   }
-  __syncwarp();  // a warp reads back only its own centres' rows
-  for (int i = 0; i < 8; ++i) {
-    unsigned key[WT_BAND / 32];
-#pragma unroll
-    for (int q = 0; q < WT_BAND / 32; ++q)
-      key[q] = wt_key(d2s[(t0 + i) * WT_BAND + 32 * q + lane]);
-    // the k-th smallest key, bit by bit from the top: keep the bit 0 while
-    // at least `need` keys under the prefix have it 0
-    unsigned prefix = 0u;
-    int need = k;
-    for (int bit = 31; bit >= 0; --bit) {
-      const unsigned hi = bit == 31 ? 0u : ~0u << (bit + 1);
-      int cnt = 0;
-#pragma unroll
-      for (int q = 0; q < WT_BAND / 32; ++q)
-        cnt += (key[q] & hi) == prefix && !((key[q] >> bit) & 1u);
-      cnt = __reduce_add_sync(0xffffffffu, cnt);
-      if (cnt < need) {
-        need -= cnt;
-        prefix |= 1u << bit;
-      }
-    }
-    if (lane == 0) tau[(size_t)b * N + n0 + t0 + i] = wt_value(prefix);
-  }
+  auto finish = [&](unsigned (&kc)[WT_Q], int i) {
+    wt_sort(kc);
+    const unsigned kth = wt_select(kc, rank);
+    if (lane == 0) tau[(size_t)b * N + n0 + 4 * warp + i] = wt_value(top ? ~kth : kth);
+  };
+  finish(key[0], 0);  // one call a centre: key's indices stay constants
+  finish(key[1], 1);
+  finish(key[2], 2);
+  finish(key[3], 3);
 }
 
 // x (B, N, C) row-major, N a multiple of 128; aa (B, N) scratch (the
@@ -115,7 +166,7 @@ extern "C" int sv_window_tau_launch(const float* x, float* aa, float* tau,
   err = cudaFuncSetAttribute(sv_window_tau_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, WT_SMEM);
   if (err != cudaSuccess) return (int)err;
-  sv_window_tau_kernel<<<dim3(N / SEL_TC, B), SEL_WARPS * 32, WT_SMEM,
+  sv_window_tau_kernel<<<dim3(N / WT_C, B), WT_THREADS, WT_SMEM,
                          (cudaStream_t)stream>>>(x, aa, tau, N, C, k);
   return (int)cudaGetLastError();
 }

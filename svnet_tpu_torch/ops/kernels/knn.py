@@ -22,10 +22,11 @@ counts those, beside ``neg_min.launches``). No JAX engine passes a mode
 to B4; the wrapper takes one, as ``knn_pallas`` does.
 
 ``neg_min(x)`` is fast mode's pre-pass (csrc/knn.cu, sv_neg_min_launch):
-each centre's least negative squared distance, by the same distance
-stage, whence the key tiles' scales (quant.tile_scales). Its plain
-version takes the min of ``pairwise_neg_sqdist``; a min has no order, so
-the two are equal. ``neg_min.launches`` counts its launches. Over a
+each centre's least negative squared distance, whence the key tiles'
+scales (quant.tile_scales). The kernel sums each pair's inner product
+once, as the selection sums it, and takes both centres' distances from
+it (the product is bitwise symmetric). Its plain version takes the min of
+``pairwise_neg_sqdist``; a min has no order, so the two are equal. ``neg_min.launches`` counts its launches. Over a
 candidate window (ops/window.py) it takes the key tile's kept rows only
 (csrc/knn.cu, sv_neg_min_window_launch).
 """

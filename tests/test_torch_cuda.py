@@ -1134,6 +1134,65 @@ def test_window_rounds_match_plain_on_card(shape, bits):
         config.set_approx_fold(was[2])
 
 
+# fast mode's pre-pass (csrc/knn.cu, the symmetric 128 x 128 tiles): (B, N,
+# C, input): N off the tile (1000, 1001, 130, 50), C off the 16-channel
+# stage and below it, duplicated points, one point repeated
+PREPASS_FORCED = [(2, 1000, 5, None), (2, 1001, 33, None), (3, 130, 1, None),
+                  (1, 50, 127, None), (2, 1024, 62, "dup"), (1, 256, 3, "same")]
+
+
+def _prepass_input(b, n, c, kind, seed):
+    x = torch.randn(b, n, c, generator=torch.Generator().manual_seed(seed))
+    if kind == "dup":
+        x[:, 1::2] = x[:, 0::2][:, : x[:, 1::2].shape[1]]
+    elif kind == "same":
+        x[:] = x[:, :1]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PREPASS_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-C{s[2]}" + (f"-{s[3]}" if s[3] else "")
+                              for s in PREPASS_FORCED])
+def test_prepass_shape_forced_on_card(shape):
+    """The pre-pass bitwise neg_min_plain, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import knn as kk
+
+    b, n, c, kind = shape
+    x = _prepass_input(b, n, c, kind, 45).to(torch.device("cuda"))
+    before = kk.neg_min.launches
+    got = kk.neg_min(x)
+    assert kk.neg_min.launches == before + 1
+    assert torch.equal(got, kk.neg_min_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WINDOW_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-k{s[2]}-W{s[3]}-T{s[6]}"
+                              + (f"-{s[5]}" if s[5] else "") for s in WINDOW_FORCED])
+def test_window_prepasses_forced_on_card(shape):
+    """window_tau bitwise window_tau_plain at k = 1, 20, 40, 100, 384 on
+    duplicated rows; the windowed pre-pass bitwise its plain version with
+    the batch's certificate and with ok forced to 0 (all rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import knn as kk
+    from svnet_tpu_torch.ops.window import prune_prepass, window_tau, window_tau_plain
+
+    b, n, k, W, _, kind, T = shape
+    dev = torch.device("cuda")
+    rows = _window_input(b, n, 14, kind, 46).to(dev)
+    dup = _window_input(b, n, 5, "dup", 47).to(dev)
+    for kk_ in (1, 20, 40, 100, 384):
+        assert torch.equal(window_tau(dup, kk_), window_tau_plain(dup, kk_))
+    keep, ok = prune_prepass(rows, k, T, W)
+    for okv in {int(ok), 0}:
+        win = (T, W, keep, torch.tensor(okv, dtype=torch.int32, device=dev))
+        assert torch.equal(kk.neg_min(rows, win), kk.neg_min_window_plain(rows, win))
+
+
 # the legacy trunks' fast and approx mode: (B, N, k, key tile T, duplicated
 # points): T = 8 at N = 1000 (approx L = 250, no multiple of the
 # selection's 128-lane tile), k = 33 above a 32-entry list at one key tile
