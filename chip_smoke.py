@@ -1810,66 +1810,140 @@ def phase5(dev, gen, counters, log_card):
     return launches, median, peak, loader
 
 
-def phase2_gather(rep, gen, dev):
+def compare_edge_gather(rep, b, n, k, c, gen, dev, time_it=True):
     """B7 forward and backward against their plain versions on the same
-    seeded inputs, ids from kNN (B4) of seeded clouds: the slice's shape
-    (C=3, the points), the joint widths of get_graph_feature_sv (C=62,
-    127) and a ragged (8, 1000, 7, 5). Both bitwise, and two backward
-    launches identical. torch.gather and index_add_ (float atomics) are
-    the library yardsticks."""
+    seeded inputs, ids from kNN (B4) of seeded clouds: both bitwise, and
+    two backward launches identical; timed beside torch.gather and
+    index_add_ (float atomics), the library yardsticks, where
+    ``time_it``. Returns the cotangent and the ids."""
     import torch
 
     from svnet_tpu_torch.ops.kernels import edge_gather as eg
     from svnet_tpu_torch.ops.kernels.knn import knn
 
-    for b, n, k, c in ((B_TRAIN, N, K, 3), (B_TRAIN, N, K, 62),
-                       (B_TRAIN, N, K, 127), (8, N - 24, 7, 5),
-                       (8, N - 24, 7, 1), (8, N - 24, 7, 64)):
-        tag = f"edge_gather B={b} N={n} k={k} C={c}"
-        pts = cloud(b, n, gen, dev)
-        idx = knn(pts, k)
-        src = pts if c == 3 else torch.randn(b, n, c, generator=gen).to(dev)
-        g = torch.randn(b, n, k, c, generator=gen).to(dev)
-        fk, fp = eg.edge_gather_fwd(src, idx), eg.edge_gather_fwd_plain(src, idx)
-        bk, bk2 = eg.edge_gather_bwd(g, idx, n), eg.edge_gather_bwd(g, idx, n)
-        bp = eg.edge_gather_bwd_plain(g, idx, n)
-        sync(dev)
-        check_equal(tag + " forward", (fk,), (fp,))
-        check_equal(tag + " backward", (bk,), (bp,))
-        check_equal(tag + " backward, two launches", (bk,), (bk2,))
-        flat = (idx.long() + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
-        hub = int(torch.bincount(flat, minlength=b * n).max())
-
-        def lib_fwd():
-            return torch.gather(src, 1, idx.long().reshape(b, -1, 1)
-                                .expand(-1, -1, c)).reshape(b, n, k, c)
-
-        def lib_bwd():
-            return torch.zeros(b * n, c, device=dev).index_add_(
-                0, flat, g.reshape(-1, c))
-
-        t = [cuda_ms(fn, reps=20) for fn in (
-            lambda: eg.edge_gather_fwd(src, idx),
-            lambda: eg.edge_gather_fwd_plain(src, idx), lib_fwd,
-            lambda: eg.edge_gather_bwd(g, idx, n),
-            lambda: eg.edge_gather_bwd_plain(g, idx, n), lib_bwd)]
-        e = b * n * k
-        fwd_cost = bound(0.0, 4.0 * (b * n * c + e + e * c))
-        bwd_cost = bound(float(e * c), 4.0 * (e * c + e + b * n * c))
+    tag = f"edge_gather B={b} N={n} k={k} C={c}"
+    pts = cloud(b, n, gen, dev)
+    idx = knn(pts, k)
+    src = pts if c == 3 else torch.randn(b, n, c, generator=gen).to(dev)
+    g = torch.randn(b, n, k, c, generator=gen).to(dev)
+    fk, fp = eg.edge_gather_fwd(src, idx), eg.edge_gather_fwd_plain(src, idx)
+    bk, bk2 = eg.edge_gather_bwd(g, idx, n), eg.edge_gather_bwd(g, idx, n)
+    bp = eg.edge_gather_bwd_plain(g, idx, n)
+    sync(dev)
+    check_equal(tag + " forward", (fk,), (fp,))
+    check_equal(tag + " backward", (bk,), (bp,))
+    check_equal(tag + " backward, two launches", (bk,), (bk2,))
+    flat = (idx.long() + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+    hub = int(torch.bincount(flat, minlength=b * n).max())
+    if not time_it:
         log(f"  {tag}: forward and backward bitwise, two backward launches "
-            f"identical (largest in-degree {hub}); forward kernel {t[0]} ms, "
-            f"plain {t[1]} ms, torch.gather {t[2]} ms, bound {fwd_cost}; "
-            f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
-            f"bound {bwd_cost}")
-        # the kernels line times each pass at its main path's shapes: the
-        # forward at C=3 (phase 9 gathers the points) and at the joint widths
-        # (phase 11: conv2 and conv3 at C=62, conv4 at C=127), the backward
-        # at the joint widths
-        main = (b, n, k) == (B_TRAIN, N, K)
-        rep.add("edge_gather_fwd", 0.0, *((t[0], t[1], fwd_cost, t[2])
-                                          if main else ()))
-        rep.add("edge_gather_bwd", 0.0, *((t[3], t[4], bwd_cost, t[5])
-                                          if main and c != 3 else ()))
+            f"identical (largest in-degree {hub})")
+        return g, idx
+
+    def lib_fwd():
+        return torch.gather(src, 1, idx.long().reshape(b, -1, 1)
+                            .expand(-1, -1, c)).reshape(b, n, k, c)
+
+    def lib_bwd():
+        return torch.zeros(b * n, c, device=dev).index_add_(
+            0, flat, g.reshape(-1, c))
+
+    t = [cuda_ms(fn, reps=20) for fn in (
+        lambda: eg.edge_gather_fwd(src, idx),
+        lambda: eg.edge_gather_fwd_plain(src, idx), lib_fwd,
+        lambda: eg.edge_gather_bwd(g, idx, n),
+        lambda: eg.edge_gather_bwd_plain(g, idx, n), lib_bwd)]
+    e = b * n * k
+    fwd_cost = bound(0.0, 4.0 * (b * n * c + e + e * c))
+    bwd_cost = bound(float(e * c), 4.0 * (e * c + e + b * n * c))
+    log(f"  {tag}: forward and backward bitwise, two backward launches "
+        f"identical (largest in-degree {hub}); forward kernel {t[0]} ms, "
+        f"plain {t[1]} ms, torch.gather {t[2]} ms, bound {fwd_cost}; "
+        f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
+        f"bound {bwd_cost}")
+    # the kernels line times each pass at its main path's shapes: the
+    # forward at C=3 (phase 9 gathers the points) and at the joint widths
+    # (phase 11: conv2 and conv3 at C=62, conv4 at C=127), the backward
+    # at the joint widths
+    rep.add("edge_gather_fwd", 0.0, t[0], t[1], fwd_cost, t[2])
+    rep.add("edge_gather_bwd", 0.0, *((t[3], t[4], bwd_cost, t[5])
+                                      if c != 3 else ()))
+    rep.add(f"edge_gather_bwd C={c}", 0.0, t[3], t[4], bwd_cost, t[5])
+    return g, idx
+
+
+# (B, N, k, C, ids) of B7's backward: a hub every centre names (in-degree
+# M); a cloud at partseg's (2048, 40); all of a cloud's ids on one target
+# range of the adjacency kernel (several windows of it) and on one target
+# (a segment above the shared-memory list: the device-memory spill); ids
+# outside [0, n_src), which the backward ignores, on M k = 7007 ids (no
+# int4 loads); M != n_src
+GATHER_FORCED = ((2, 1024, 20, 62, "hub"), (2, 2048, 40, 8, None),
+                 (1, 2048, 40, 1, "narrow"), (1, 1024, 20, 127, "one"),
+                 (2, 1001, 7, 5, "out"), (3, 500, 9, 3, "wide"))
+
+
+def gather_forced_ids(b, n, k, kind, gen):
+    """Seeded ids (B, M, k) int32 for GATHER_FORCED, and n_src."""
+    import torch
+
+    n_src = 2 * n if kind == "wide" else n
+    idx = torch.randint(0, n_src, (b, n, k), generator=gen, dtype=torch.int32)
+    if kind == "hub":
+        idx[:, :, 0] = 7
+    elif kind == "narrow":
+        idx = torch.randint(0, 64, (b, n, k), generator=gen, dtype=torch.int32)
+    elif kind == "one":
+        idx[:] = 5
+    elif kind == "out":
+        idx[:, ::3, 1] = n_src
+        idx[:, 1::5, 2] = -1
+        idx[0, 0, 0] = -(2 ** 31)
+    return idx, n_src
+
+
+def in_range(g, idx, n_src):
+    """(g, idx) for the plain backward with every edge whose id lies
+    outside [0, n_src) sent to target 0 with a row of +0.0: a sum that
+    starts at +0.0 is unchanged, bit for bit, by adding +0.0 anywhere in
+    it, so the plain version's result is the kernel's, which ignores
+    such edges."""
+    import torch
+
+    bad = (idx < 0) | (idx >= n_src)
+    return (torch.where(bad[..., None], torch.zeros_like(g), g),
+            torch.where(bad, torch.zeros_like(idx), idx))
+
+
+def phase2_gather(rep, gen, dev):
+    """B7 forward and backward (``compare_edge_gather``) at the slice's
+    shape (C=3, the points), the joint widths of get_graph_feature_sv
+    (C=62, 127), timed, and a ragged (8, 1000, 7, C) at C = 5, 1, 64; the
+    backward bitwise its plain version, one launch a call, two launches
+    identical, at GATHER_FORCED."""
+    import torch
+
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
+
+    for c in (3, 62, 127):
+        compare_edge_gather(rep, B_TRAIN, N, K, c, gen, dev)
+    for c in (5, 1, 64):
+        compare_edge_gather(rep, 8, N - 24, 7, c, gen, dev, time_it=False)
+    for b, n, k, c, kind in GATHER_FORCED:
+        idx, n_src = gather_forced_ids(b, n, k, kind, gen)
+        idx = idx.to(dev)
+        g = torch.randn(b, n, k, c, generator=gen).to(dev)
+        before = eg.edge_gather_bwd.launches
+        got = eg.edge_gather_bwd(g, idx, n_src)
+        if eg.edge_gather_bwd.launches != before + 1:
+            raise AssertionError(f"edge_gather_bwd forced {(b, n, k, c, kind)}: "
+                                 f"launches {eg.edge_gather_bwd.launches - before}")
+        tag = f"edge_gather_bwd forced B={b} M={n} k={k} C={c} n_src={n_src} {kind}"
+        check_equal(tag, (got,), (eg.edge_gather_bwd_plain(*in_range(g, idx, n_src),
+                                                            n_src),))
+        check_equal(tag + ", two launches", (got,),
+                    (eg.edge_gather_bwd(g, idx, n_src),))
+    log(f"  edge_gather_bwd at GATHER_FORCED: bitwise, two launches identical")
 
 
 def phase9(dev, gen, counters, loader, log_card):
@@ -1977,7 +2051,8 @@ def phase2_prepass_forced(dev):
     """The pre-pass (neg_min) bitwise its plain version at PREPASS_FORCED,
     one launch a call; the window's tau (window_tau) bitwise its plain
     version at k = 1, 20, 40, 384 on duplicated rows (every band distance
-    at least twice), (2, 1024, 14) and (3, 256, 5)."""
+    at least twice), (2, 1024, 14) and (3, 256, 5); its block test
+    (window_keep) at KEEP_FORCED (``compare_keep_forced``)."""
     import torch
 
     from svnet_tpu_torch.ops.kernels.knn import neg_min, neg_min_plain
@@ -2009,6 +2084,73 @@ def phase2_prepass_forced(dev):
                         (window_tau(x, k),), (window_tau_plain(x, k),))
     log(f"  pre-passes at PREPASS_FORCED and window_tau at k = 1, 20, 40, 384 "
         "on duplicated rows: bitwise")
+    for b, n, c, T, kind in KEEP_FORCED:
+        compare_keep_forced(b, n, c, T, kind, dev)
+    log("  window_keep at KEEP_FORCED: bitwise, flags mixed, a tie kept, the "
+        "float below it pruned, a NaN tau keeping its tile's blocks")
+
+
+# (B, N, C, key tile T, input) of the window's block test (window_keep), as
+# tests/test_torch_cuda.py's: C = 1, 3, 5 below and off the 16-channel
+# stage, 127 off it; T = 128 and T = N; N = 384 (3 blocks, under the 8 of
+# a warp); strand clouds and Morton-sorted surface clouds
+KEEP_FORCED = ((2, 1024, 1, 128, "strand"), (2, 1024, 3, 1024, "strand"),
+               (3, 384, 5, 128, "strand"), (1, 2048, 127, 256, "strand"),
+               (2, 1024, 127, 1024, "strand"), (2, 2048, 3, 128, "surface"),
+               (1, 384, 127, 384, "strand"))
+
+
+def compare_keep_forced(b, n, c, T, kind, dev):
+    """window_keep bitwise window_keep_plain on x (B, N, C), its boxes and
+    tau as prune_prepass raises it (k = 20), one launch a call, 5-95% of
+    the flags kept (at T = N, where every block holds centres that keep
+    it, only the first 100 centres of a cloud keep anything, with tau at
+    most 0.5); a tie (a centre's tau on its lb2 to the last block, in the
+    plain version's rounding, the tile's other centres at -1) keeps that
+    block and the float below prunes it; a NaN tau keeps every block of
+    its tile."""
+    import torch
+
+    from svnet_tpu_torch.ops import window as win
+    from svnet_tpu_torch.utils.synth import strand_clouds
+
+    x = (surface(b, n, SEED + 51, dev) if kind == "surface" else
+         torch.from_numpy(strand_clouds(SEED + 51, b, n, c)).to(dev)).contiguous()
+    tau = win.raise_tau(x, win.window_tau_plain(x, K))
+    if T == n:
+        tau[:, :100] = tau[:, :100].clamp(max=0.5)
+        tau[:, 100:] = -1.0
+    xb = x.reshape(b, n // 128, 128, x.shape[-1])
+    lo, hi = xb.amin(dim=2).contiguous(), xb.amax(dim=2).contiguous()
+    tag = f"window_keep forced B={b} N={n} C={x.shape[-1]} T={T} {kind}"
+    before = win.window_keep.launches
+    got = win.window_keep(x, lo, hi, tau, T)
+    if win.window_keep.launches != before + 1:
+        raise AssertionError(f"{tag}: launches {win.window_keep.launches - before}")
+    want = win.window_keep_plain(x, lo, hi, tau, T)
+    check_equal(tag, (got,), (want,))
+    share = float(want.float().mean())
+    if not 0.05 <= share <= 0.95:
+        raise AssertionError(f"{tag}: kept share {share} outside 0.05-0.95")
+    bk = n // 128 - 1
+    d = torch.clamp(torch.maximum(lo[0, bk] - x[0, 0], x[0, 0] - hi[0, bk]), min=0.0)
+    lb2 = d[0] * d[0]
+    for ch in range(1, d.shape[0]):
+        lb2 = lb2 + d[ch] * d[ch]
+    for t, flag in ((lb2, 1), (torch.nextafter(lb2, lb2.new_tensor(-1.0)), 0)):
+        tie = tau.clone()
+        tie[0, :T] = -1.0
+        tie[0, 0] = t
+        got = win.window_keep(x, lo, hi, tie, T)
+        check_equal(f"{tag} tie", (got,), (win.window_keep_plain(x, lo, hi, tie, T),))
+        if int(got[0, 0, bk]) != flag:
+            raise AssertionError(f"{tag}: tie flag {int(got[0, 0, bk])} != {flag}")
+    nan = tau.clone()
+    nan[-1, 5] = float("nan")
+    got = win.window_keep(x, lo, hi, nan, T)
+    check_equal(f"{tag} NaN tau", (got,), (win.window_keep_plain(x, lo, hi, nan, T),))
+    if not bool((got[-1, 0] == 1).all()):
+        raise AssertionError(f"{tag}: a NaN tau does not keep its tile's blocks")
 
 
 # (B, N, k, key tile T or None) of B1 and B2 in fast mode: N and k that no
@@ -3358,23 +3500,27 @@ def timed_window(rep, label, name, kern, plain, full, cost, time_plain):
     return po
 
 
-def compare_prepass(rep, x, k, T, W):
+def compare_prepass(rep, x, k, T, W, tag=""):
     """The pre-pass's kernels (ops/window.py: window_tau, each centre's
     k-th band distance; window_keep, the block test) bitwise their plain
-    versions on x (B, N, C), each timed beside its plain version; the whole
-    pre-pass (prune_prepass, kernels and PyTorch) timed."""
+    versions on x (B, N, C), each timed beside its plain version, the
+    block test on tau raised by prune_prepass's margin; the whole
+    pre-pass (prune_prepass, kernels and PyTorch) timed. ``tag`` follows
+    the names in ``rep``. Returns the block test's lo, hi and tau."""
     from svnet_tpu_torch.ops import window as win
 
     b, n, C = x.shape
     nb = n // 128
     tau = win.window_tau(x, k)
     check_equal(f"window_tau C={C}", (tau,), (win.window_tau_plain(x, k),))
+    tau = win.raise_tau(x, tau)
     xb = x.reshape(b, nb, 128, C)
     lo, hi = xb.amin(dim=2).contiguous(), xb.amax(dim=2).contiguous()
-    check_equal(f"window_keep C={C}", (win.window_keep(x, lo, hi, tau, T),),
+    keep = win.window_keep(x, lo, hi, tau, T)
+    check_equal(f"window_keep C={C}", (keep,),
                 (win.window_keep_plain(x, lo, hi, tau, T),))
     costs = {"window_tau": bound(b * n * 384.0 * (2 * C + 3), 4.0 * b * n * (C + 1)),
-             "window_keep": bound(b * n * nb * C * 6.0,
+             "window_keep": bound(b * n * nb * C * 5.0,
                                   4.0 * (b * n * (C + 1) + 2 * b * nb * C
                                          + b * (n // T) * nb))}
     calls = {"window_tau": (lambda: win.window_tau(x, k),
@@ -3383,12 +3529,15 @@ def compare_prepass(rep, x, k, T, W):
                              lambda: win.window_keep_plain(x, lo, hi, tau, T))}
     for name, (kern, plain) in calls.items():
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=1)
-        rep.add(name, 0.0, ms, plain_ms, costs[name])
-        log(f"  {name} B={b} N={n} C={C} k={k} T={T}: bitwise; kernel {ms} ms, "
-            f"plain {plain_ms} ms, bound {costs[name]}")
+        rep.add(name + tag, 0.0, ms, plain_ms, costs[name])
+        log(f"  {name}{tag} B={b} N={n} C={C} k={k} T={T}: bitwise; kernel "
+            f"{ms} ms, plain {plain_ms} ms, bound {costs[name]}"
+            + (f"; kept {float(keep.float().mean()):.4f}" if name == "window_keep"
+               else ""))
     pre_ms = cuda_ms(lambda: win.prune_prepass(x, k, T, W))
-    log(f"  prune_prepass C={C}: {pre_ms} ms (both kernels, the boxes, the "
-        "margin and ok)")
+    log(f"  prune_prepass{tag} C={C}: {pre_ms} ms (both kernels, the boxes, "
+        "the margin and ok)")
+    return lo, hi, tau
 
 
 def compare_neg_min_window(rep, name, x, k, T, W):
@@ -3639,15 +3788,18 @@ class WindowCount:
 
 
 @contextlib.contextmanager
-def window_stats(record):
+def window_stats(record, inputs=None):
     """Appends (channels, kept share of the blocks, certified) of each
-    windowed round to ``record``. It reads the certificate on the host, so
-    it runs on a pass of its own, never a timed one."""
+    windowed round to ``record``, and a copy of the round's input to
+    ``inputs`` where it is a list. It reads the certificate on the host,
+    so it runs on a pass of its own, never a timed one."""
     from svnet_tpu_torch.ops.kernels import sv_round3 as kr
 
     was = kr.round_window
 
     def spy(x, k, T, window, mode, plain=False):
+        if inputs is not None:
+            inputs.append(x.clone())
         win = was(x, k, T, window, mode, plain)
         if win is not None:
             record.append((x.shape[-1], round(float(win[2].float().mean()), 4),

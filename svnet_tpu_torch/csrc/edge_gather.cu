@@ -22,16 +22,36 @@
 // copies the row with coalesced vector loads and stores.
 //
 // The backward uses no float atomics, so its result does not depend on
-// the order in which blocks run: it builds the inverse adjacency of idx
-// per cloud (integer in-degree counts, an exclusive scan, a fill, then a
-// sort of each target's segment into ascending edge order n*k + j) and
-// sums each target's incoming cotangent rows in that order, one thread per
-// (b, m, c), every addition rounded on its own (-fmad=false has nothing to
-// contract here). The plain version (ops/kernels/edge_gather.py) sums in
-// the same order, so the two agree bitwise and two launches give identical
-// results. A segment's length is its in-degree, which a hub point makes
-// far larger than k: no buffer is sized by k, the sort and the sum loop
-// over the segment in device memory.
+// the order in which blocks run: each target's incoming cotangent rows are
+// summed in ascending edge order n*k + j, from 0, every addition rounded
+// on its own (-fmad=false has nothing to contract here), as the plain
+// version (ops/kernels/edge_gather.py) sums them: the two agree bitwise
+// and two launches give identical results. Two kernels, no memset:
+//   eg_adj_kernel   the inverse adjacency, a block per (range of targets,
+//                   cloud): the range's in-degrees by shared-memory
+//                   integer atomics, their exclusive scan, the fill of
+//                   each target's segment with its edge ids, and each
+//                   segment put in ascending order by rank (an element's
+//                   place is the number of smaller ids in its segment),
+//                   all in shared memory; out go each target's segment
+//                   start and in-degree and the cloud's sorted edge list.
+//   eg_sum_kernel   a thread per (target, float4 / float2 / float of its
+//                   row), a target's threads on one id at a time and on
+//                   consecutive addresses of its row.
+// What bounds it on the H100: the cotangent's bytes, read once (7.9 / 163
+// / 333 MB at (32, 1024, 20) and C = 3 / 62 / 127: 0.003 / 0.052 / 0.105
+// ms at 3.35 TB/s). The adjacency is the same for every C, so it has to
+// cost little beside the C = 3 sum: one kernel, no memset, over ranges of
+// targets, so that 32 clouds still fill the card. A block reads all of its
+// cloud's ids (from L2, int4 loads where aligned) and keeps the edges of
+// its range. A range's edges go through shared memory in windows of whole
+// segments of at most `cap` ids; a segment longer than that (a hub point
+// named by more edges than fit; no buffer is sized by k) is ranked in a
+// device-memory spill buffer instead. How many ranges and the cap:
+// ops/kernels/edge_gather.py::adjacency_plan. At (32, 1024, 20) the
+// adjacency takes 0.021 ms and the sums 0.009 / 0.065 / 0.139 at C = 3 /
+// 62 / 127, 0.37 / 0.80 / 0.75 of the bytes' rate (device time,
+// utils/bench_prepass.py, NVIDIA H100 80GB HBM3, 700 W).
 //
 // An id outside [0, n_src) never reads outside src: its forward row is NaN
 // and the backward ignores the edge.
@@ -42,21 +62,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
 constexpr long long kMaxBlocks = 1 << 20;  // grid-stride loops beyond this
-
-int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-__device__ __forceinline__ long long grid_start() {
-  return (long long)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ long long grid_step() {
-  return (long long)gridDim.x * blockDim.x;
-}
+constexpr int kAdjThreads = 512;
 
 template <int V> struct Vec;
 template <> struct Vec<1> { typedef float T; };
@@ -118,16 +125,6 @@ __global__ void eg_fwd_kernel(const float* __restrict__ src,
   }
 }
 
-// deg[b, m] = number of edges of cloud b whose id is m (integer atomics:
-// the counts do not depend on the order).
-__global__ void eg_count_kernel(const int* __restrict__ idx, int* deg,
-                                long long edges, int n_src, int ek) {
-  for (long long e = grid_start(); e < edges; e += grid_step()) {
-    int m = idx[e];
-    if (m >= 0 && m < n_src) atomicAdd(&deg[(e / ek) * n_src + m], 1);
-  }
-}
-
 // Inclusive scan of x over the block (blockDim.x a multiple of 32, at most
 // 1024); warp_sums holds 32 ints of shared memory. Returns the block total.
 __device__ int block_inclusive_scan(int& x, int* warp_sums) {
@@ -154,80 +151,173 @@ __device__ int block_inclusive_scan(int& x, int* warp_sums) {
   return total;
 }
 
-// off[b, m] = exclusive prefix sum of deg[b, :] within cloud b: where the
-// segment of target m starts among the cloud's edges. One block per cloud.
-__global__ void eg_scan_kernel(const int* __restrict__ deg,
-                               int* __restrict__ off, int n_src) {
+// f(e, idx[e]) for the block's share of the cloud's ids e < ek, 8 loads of
+// a thread in flight before their calls: int4 loads (32 ids) where the
+// cloud's ids start on a 16-byte boundary and ek is a multiple of 4.
+template <class F>
+__device__ __forceinline__ void eg_for_ids(const int* __restrict__ id, int ek, F f) {
+  if ((ek & 3) == 0 && ((uintptr_t)id & 15) == 0) {
+    const int4* id4 = reinterpret_cast<const int4*>(id);
+    const int n4 = ek >> 2;
+    for (int e0 = threadIdx.x; e0 < n4; e0 += 8 * blockDim.x) {
+      int4 m[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * blockDim.x;
+        m[u] = e < n4 ? id4[e] : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = 4 * (e0 + u * blockDim.x);
+        if (e < ek) f(e, m[u].x), f(e + 1, m[u].y), f(e + 2, m[u].z), f(e + 3, m[u].w);
+      }
+    }
+    return;
+  }
+  for (int e0 = threadIdx.x; e0 < ek; e0 += 8 * blockDim.x) {
+    int m[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * blockDim.x;
+      m[u] = e < ek ? id[e] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (e0 + u * blockDim.x < ek) f(e0 + u * blockDim.x, m[u]);
+  }
+}
+
+// Block (r, b) builds the adjacency of targets [m0, m1) = [r n_src / R,
+// (r + 1) n_src / R) of cloud b (ids idx + b ek): beg[b, m] where target
+// m's segment starts in the cloud's list, deg[b, m] its length, and
+// list[b, beg .. beg + deg) its edge ids n*k + j ascending. Shared memory:
+// loc (the range's exclusive scan, nt + 1), cur (counts, then fill
+// cursors, nt), buf (cap ids).
+__global__ void __launch_bounds__(kAdjThreads)
+eg_adj_kernel(const int* __restrict__ idx, int* __restrict__ beg,
+              int* __restrict__ deg, int* __restrict__ list,
+              int* __restrict__ spill, int n_src, int ek, int cap) {
+  extern __shared__ int eg_sm[];
   __shared__ int warp_sums[32];
-  const int* d = deg + (long long)blockIdx.x * n_src;
-  int* o = off + (long long)blockIdx.x * n_src;
+  const int R = gridDim.x, r = blockIdx.x, b = blockIdx.y;
+  const int m0 = (int)((long long)r * n_src / R);
+  const int nt = (int)((long long)(r + 1) * n_src / R) - m0;
+  int* loc = eg_sm;
+  int* cur = loc + nt + 1;
+  int* buf = cur + nt;
+  const int* id = idx + (size_t)b * ek;
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) cur[i] = 0;
+  __syncthreads();
+  int before = 0;  // the cloud's edges to targets below m0
+  eg_for_ids(id, ek, [&](int, int m) {
+    if (m >= 0 && m < m0) ++before;
+    else if ((unsigned)(m - m0) < (unsigned)nt) atomicAdd(&cur[m - m0], 1);
+  });
+  const int base = block_inclusive_scan(before, warp_sums);  // syncs: counts done
   int carry = 0;
-  for (int base = 0; base < n_src; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int v = i < n_src ? d[i] : 0;
+  for (int i0 = 0; i0 < nt; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const int v = i < nt ? cur[i] : 0;
     int x = v;
-    int total = block_inclusive_scan(x, warp_sums);
-    if (i < n_src) o[i] = carry + x - v;
+    const int total = block_inclusive_scan(x, warp_sums);
+    if (i < nt) {
+      loc[i] = carry + x - v;
+      beg[(size_t)b * n_src + m0 + i] = base + carry + x - v;
+      deg[(size_t)b * n_src + m0 + i] = v;
+    }
     carry += total;
   }
-}
-
-// list[b, off[m] + r] = the local id n*k + j of an edge of target m; the
-// order within a segment is the atomics' and is fixed by eg_sort_kernel.
-__global__ void eg_fill_kernel(const int* __restrict__ idx,
-                               const int* __restrict__ off, int* cur,
-                               int* __restrict__ list, long long edges,
-                               int n_src, int ek) {
-  for (long long e = grid_start(); e < edges; e += grid_step()) {
-    int m = idx[e];
-    if (m < 0 || m >= n_src) continue;
-    long long b = e / ek;
-    long long t = b * n_src + m;
-    int p = off[t] + atomicAdd(&cur[t], 1);
-    list[b * ek + p] = (int)(e - b * ek);
-  }
-}
-
-// Insertion sort of each target's segment into ascending edge order; one
-// thread per (b, m). Segments hold distinct ids, so the order is unique.
-__global__ void eg_sort_kernel(const int* __restrict__ deg,
-                               const int* __restrict__ off,
-                               int* __restrict__ list, long long targets,
-                               int n_src, int ek) {
-  for (long long t = grid_start(); t < targets; t += grid_step()) {
-    int* seg = list + (t / n_src) * ek + off[t];
-    int len = deg[t];
-    for (int i = 1; i < len; ++i) {
-      int key = seg[i];
-      int j = i - 1;
-      while (j >= 0 && seg[j] > key) {
-        seg[j + 1] = seg[j];
-        --j;
-      }
-      seg[j + 1] = key;
+  if (threadIdx.x == 0) loc[nt] = carry;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) cur[i] = 0;
+  __syncthreads();
+  int* out = list + (size_t)b * ek + base;
+  for (int w0 = 0; w0 < nt;) {
+    // the window: targets [w0, w1), w1 the last whose segments fit in
+    // cap ids together, at least one target
+    int w1 = w0 + 1, hi = nt;
+    while (w1 < hi) {
+      const int mid = (w1 + hi + 1) >> 1;
+      if (loc[mid] - loc[w0] <= cap) w1 = mid;
+      else hi = mid - 1;
     }
+    const int p0 = loc[w0], np = loc[w1] - p0;
+    int* seg = np <= cap ? buf : spill + (size_t)b * ek + base + p0;
+    eg_for_ids(id, ek, [&](int e, int mm) {
+      const unsigned m = (unsigned)mm - (unsigned)m0;
+      if (m - (unsigned)w0 < (unsigned)(w1 - w0))
+        seg[loc[m] - p0 + atomicAdd(&cur[m], 1)] = e;
+    });
+    __syncthreads();
+    for (int q0 = threadIdx.x; q0 < np; q0 += 4 * blockDim.x) {
+      int v[4], m[4];  // 4 ids' targets in flight
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = q0 + u * blockDim.x;
+        v[u] = q < np ? seg[q] : 0;
+        m[u] = q < np ? id[v[u]] - m0 : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (q0 + u * blockDim.x >= np) break;
+        const int* s = seg + loc[m[u]] - p0;
+        const int len = loc[m[u] + 1] - loc[m[u]];
+        int rank = 0;
+        for (int i = 0; i < len; ++i) rank += s[i] < v[u];
+        out[loc[m[u]] + rank] = v[u];
+      }
+    }
+    __syncthreads();  // seg and the cursors' windows are done
+    w0 = w1;
   }
 }
 
-// dsrc[b, m, c] = g rows of target m's edges summed in ascending edge
-// order from 0, each addition rounded on its own; one thread per
-// (b, m, c), c fastest.
+// dsrc (B, n_src, C) from the adjacency: a thread per (target t = b
+// n_src + m, vector v of its C / V vectors of V floats), consecutive
+// threads on consecutive vectors, so a target's threads read its ids at
+// one address and its rows coalesced. It adds the rows g[b, id] in the
+// segment's order from 0.f, 8 rows' loads in flight before their
+// additions. total = B n_src C / V < 2^31; o is unsigned, so o plus the
+// grid's stride (at most 2^28) stays below 2^32.
+template <int V>
 __global__ void eg_sum_kernel(const float* __restrict__ g,
+                              const int* __restrict__ beg,
                               const int* __restrict__ deg,
-                              const int* __restrict__ off,
                               const int* __restrict__ list,
-                              float* __restrict__ dsrc, long long total,
-                              int n_src, int ek, int C) {
-  for (long long o = grid_start(); o < total; o += grid_step()) {
-    long long t = o / C;
-    int c = (int)(o - t * C);
-    long long b = t / n_src;
-    const int* seg = list + b * ek + off[t];
-    const float* gb = g + b * ek * C + c;
-    int len = deg[t];
-    float acc = 0.f;
-    for (int r = 0; r < len; ++r) acc = __fadd_rn(acc, gb[(long long)seg[r] * C]);
-    dsrc[o] = acc;
+                              float* __restrict__ dsrc, int total, int n_src,
+                              int ek, int cv) {
+  typedef typename Vec<V>::T T;
+  for (unsigned o = blockIdx.x * blockDim.x + threadIdx.x; o < (unsigned)total;
+       o += gridDim.x * blockDim.x) {
+    const int t = (int)(o / (unsigned)cv), b = t / n_src;
+    const int len = deg[t];
+    const int* seg = list + (size_t)b * ek + beg[t];
+    const T* gb = reinterpret_cast<const T*>(g) + (size_t)b * ek * cv + ((int)o - t * cv);
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    auto add = [&](const T& y) {
+      const float* f = reinterpret_cast<const float*>(&y);
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], f[i]);
+    };
+    int r = 0;
+    for (; r + 8 <= len; r += 8) {
+      int e[8];
+      T y[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) e[q] = seg[r + q];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) y[q] = gb[(size_t)e[q] * cv];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) add(y[q]);
+    }
+    for (; r < len; ++r) add(gb[(size_t)seg[r] * cv]);
+    T y;
+    float* f = reinterpret_cast<float*>(&y);
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = acc[i];
+    reinterpret_cast<T*>(dsrc)[o] = y;
   }
 }
 
@@ -279,43 +369,50 @@ extern "C" int sv_edge_gather_fwd_launch(const float* src, const int* idx,
   return eg_fwd_launch<1>(src, idx, out, edges, n_src, M * k, C, s);
 }
 
+template <int V>
+static int eg_sum_launch(const float* g, const int* beg, const int* deg,
+                         const int* list, float* dsrc, long long targets,
+                         int n_src, int ek, int C, cudaStream_t s) {
+  const int total = (int)(targets * (C / V));
+  const long long blocks = ((long long)total + kThreads - 1) / kThreads;
+  eg_sum_kernel<V><<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks), kThreads, 0,
+                     s>>>(g, beg, deg, list, dsrc, total, n_src, ek, C / V);
+  return (int)cudaGetLastError();
+}
+
 // g (B, M, k, C), idx (B, M, k) int32 -> dsrc (B, n_src, C). scratch holds
-// 3 * B * n_src + B * M * k ints: in-degrees, segment offsets, fill
-// cursors and the edge lists.
+// 2 B n_src + 2 B M k ints: the segments' starts and in-degrees, the edge
+// lists and the spill. ranges (1 <= ranges <= n_src) blocks a cloud build
+// the adjacency, each with windows of at most cap ids in shared memory.
+// Rows move as float4 when C is a multiple of 4 and both g and dsrc are
+// 16-byte aligned, as float2 at 8 bytes, else as floats.
 extern "C" int sv_edge_gather_bwd_launch(const float* g, const int* idx,
                                          float* dsrc, int* scratch, int B,
                                          int n_src, int M, int k, int C,
-                                         void* stream) {
-  long long targets = (long long)B * n_src;
+                                         int ranges, int cap, void* stream) {
+  const long long targets = (long long)B * n_src;
   if (targets == 0 || C == 0) return 0;
-  long long edges = (long long)B * M * k;
-  int ek = M * k;
+  const long long edges = (long long)B * M * k;
+  if (edges > INT_MAX || targets * C > INT_MAX || B > 65535 || ranges < 1 ||
+      ranges > n_src || cap < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ek = M * k, nt = (n_src + ranges - 1) / ranges;
+  const size_t smem = sizeof(int) * (2 * (size_t)nt + 1 + cap);
+  if (smem + sizeof(int) * 32 > 48 * 1024)  // beside the 32 ints of warp sums
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int* deg = scratch;
-  int* off = deg + targets;
-  int* cur = off + targets;
-  int* list = cur + targets;
-  cudaError_t err = cudaMemsetAsync(deg, 0, sizeof(int) * targets, s);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(cur, 0, sizeof(int) * targets, s);
+  int* beg = scratch;
+  int* deg = beg + targets;
+  int* list = deg + targets;
+  int* spill = list + edges;
+  eg_adj_kernel<<<dim3(ranges, B), kAdjThreads, smem, s>>>(idx, beg, deg, list,
+                                                           spill, n_src, ek, cap);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (edges > 0) {
-    eg_count_kernel<<<grid_for(edges), kThreads, 0, s>>>(idx, deg, edges,
-                                                         n_src, ek);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  eg_scan_kernel<<<B, kScanThreads, 0, s>>>(deg, off, n_src);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (edges > 0) {
-    eg_fill_kernel<<<grid_for(edges), kThreads, 0, s>>>(idx, off, cur, list,
-                                                        edges, n_src, ek);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  eg_sort_kernel<<<grid_for(targets), kThreads, 0, s>>>(deg, off, list,
-                                                        targets, n_src, ek);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  long long total = targets * C;
-  eg_sum_kernel<<<grid_for(total), kThreads, 0, s>>>(g, deg, off, list, dsrc,
-                                                     total, n_src, ek, C);
-  return (int)cudaGetLastError();
+  const uintptr_t align = (uintptr_t)g | (uintptr_t)dsrc;
+  if (C % 4 == 0 && align % 16 == 0)
+    return eg_sum_launch<4>(g, beg, deg, list, dsrc, targets, n_src, ek, C, s);
+  if (C % 2 == 0 && align % 8 == 0)
+    return eg_sum_launch<2>(g, beg, deg, list, dsrc, targets, n_src, ek, C, s);
+  return eg_sum_launch<1>(g, beg, deg, list, dsrc, targets, n_src, ek, C, s);
 }

@@ -3,9 +3,10 @@
 // (sv_point.cu): the kNN selection kernel over a channel-major (B, C, N)
 // or a row-major (B, N, C) source, by exact mode's key, fast mode's or
 // approx mode's folded one, over all N rows or a certified candidate
-// window; a staged tile of inner products (sv_pair_inner, for the fast
-// key's pre-pass in knn.cu and the window's tau in window.cu); a
-// shared-memory block GEMM, and small helpers.
+// window; a staged tile of pairs folded channel by channel (sv_pair_tile:
+// inner products, sv_pair_inner, for the fast key's pre-pass in knn.cu and
+// the window's tau in window.cu; box distances for the window's block test
+// in window.cu); a shared-memory block GEMM, and small helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -751,26 +752,29 @@ static __device__ __forceinline__ int sv_tile_row(int t, int i) {
   return (i >> 2) * (R / (TI / 4)) + 4 * t + (i & 3);
 }
 
-// Floats of sv_pair_inner's two stages.
-#define SV_PI_FLOATS(RA, RB) (2 * SV_PI_KC * ((RA) + (RB) + 8))
+// Floats of sv_pair_tile's two stages: NA sources of RA rows, one of RB.
+#define SV_PT_FLOATS(NA, RA, RB) (2 * SV_PI_KC * ((NA) * ((RA) + 4) + (RB) + 4))
+#define SV_PI_FLOATS(RA, RB) SV_PT_FLOATS(1, RA, RB)
 
-// acc[i][j] = <row rowa(sv_tile_row<RA, TA>(ty, i)), row rowb(sv_tile_row<RB,
-// TB>(tx, j))> of a row-major (N, C) source, ty = thread / (RB / TB), tx =
-// thread % (RB / TB), over a block of (RA / TA) (RB / TB) threads; a row
-// -1 reads as 0. Every inner product is summed from 0.f channel by
-// channel with __fmul_rn / __fadd_rn, as the plain versions and the
-// selection (sv_tile_inner) sum it, so it is bitwise the same whichever of
-// the two rows is the centre (an IEEE product commutes). Chunks of
-// SV_PI_KC channels of both operands stream through two stages of sm
-// (SV_PI_FLOATS, 16-byte aligned) by cp.async: chunk c + 1 loads while
-// chunk c's products run, one barrier a chunk. A thread reads TA / 4 +
-// TB / 4 float4 of shared memory a channel for 2 TA TB operations. Every
+// acc[i][j] = 0.f folded over the channels c = 0, 1, ..., C - 1 in order
+// by op(acc[i][j], a_c, a2_c, b_c), a (a2) channel c of row
+// rowa(sv_tile_row<RA, TA>(ty, i)) of the row-major (N, C) source xa
+// (xa2, read where NA = 2), b that of row rowb(sv_tile_row<RB, TB>(tx,
+// j)) of xb, ty = thread / (RB / TB), tx = thread % (RB / TB), over a
+// block of (RA / TA) (RB / TB) threads; a row -1 reads as 0. Chunks of
+// SV_PI_KC channels of every operand stream through two stages of sm
+// (SV_PT_FLOATS, 16-byte aligned) by cp.async: chunk c + 1 loads while
+// chunk c's operations run, one barrier a chunk. A thread reads NA TA / 4
+// + TB / 4 float4 of shared memory a channel for TA TB calls of op. Every
 // thread of the block calls it, once.
-template <int RA, int RB, int TA, int TB, class RowA, class RowB>
-static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float* sm,
-                                                     const float* __restrict__ x,
-                                                     RowA rowa, RowB rowb, int C) {
-  constexpr int LA = RA + 4, LB = RB + 4, STAGE = SV_PI_KC * (LA + LB);
+template <int RA, int RB, int TA, int TB, int NA, class RowA, class RowB, class Op>
+static __device__ __forceinline__ void sv_pair_tile(float (&acc)[TA][TB], float* sm,
+                                                    const float* __restrict__ xa,
+                                                    const float* __restrict__ xa2,
+                                                    const float* __restrict__ xb, RowA rowa,
+                                                    RowB rowb, int C, Op op) {
+  static_assert(NA == 1 || NA == 2, "one or two A sources");
+  constexpr int LA = RA + 4, LB = RB + 4, STAGE = SV_PI_KC * (NA * LA + LB);
   const int tx = threadIdx.x % (RB / TB), ty = threadIdx.x / (RB / TB);
 #pragma unroll
   for (int i = 0; i < TA; ++i)
@@ -779,16 +783,22 @@ static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float
   auto stage = [&](int ch) {
     float* s = sm + (ch & 1) * STAGE;
     const int c0 = ch * SV_PI_KC, nc = min(SV_PI_KC, C - c0);
-    sv_stage_async<RA>(s, x, rowa, c0, nc, C);
-    sv_stage_async<RB>(s + SV_PI_KC * LA, x, rowb, c0, nc, C);
+    sv_stage_async<RA>(s, xa, rowa, c0, nc, C);
+    if constexpr (NA == 2) sv_stage_async<RA>(s + SV_PI_KC * LA, xa2, rowa, c0, nc, C);
+    sv_stage_async<RB>(s + SV_PI_KC * NA * LA, xb, rowb, c0, nc, C);
     sv_cp_commit();
   };
   auto step = [&](const float* as, const float* bs) {
-    float a[TA], b[TB];
+    float a[TA], a2[TA], b[TB];
 #pragma unroll
     for (int g = 0; g < TA / 4; ++g) {
-      const float4 v = *(const float4*)(as + sv_tile_row<RA, TA>(ty, 4 * g));
+      const int r = sv_tile_row<RA, TA>(ty, 4 * g);
+      const float4 v = *(const float4*)(as + r);
       a[4 * g] = v.x, a[4 * g + 1] = v.y, a[4 * g + 2] = v.z, a[4 * g + 3] = v.w;
+      if constexpr (NA == 2) {
+        const float4 w = *(const float4*)(as + SV_PI_KC * LA + r);
+        a2[4 * g] = w.x, a2[4 * g + 1] = w.y, a2[4 * g + 2] = w.z, a2[4 * g + 3] = w.w;
+      }
     }
 #pragma unroll
     for (int g = 0; g < TB / 4; ++g) {
@@ -798,7 +808,7 @@ static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float
 #pragma unroll
     for (int i = 0; i < TA; ++i)
 #pragma unroll
-      for (int j = 0; j < TB; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], b[j]));
+      for (int j = 0; j < TB; ++j) op(acc[i][j], a[i], NA == 2 ? a2[i] : a[i], b[j]);
   };
   const int nch = (C + SV_PI_KC - 1) / SV_PI_KC;
   stage(0);
@@ -807,7 +817,7 @@ static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float
     __syncthreads();  // chunk ch is in; chunk ch - 1's stage is consumed
     if (ch + 1 < nch) stage(ch + 1);
     const float* as = sm + (ch & 1) * STAGE;
-    const float* bs = as + SV_PI_KC * LA;
+    const float* bs = as + SV_PI_KC * NA * LA;
     const int nc = min(SV_PI_KC, C - ch * SV_PI_KC);
     if (nc == SV_PI_KC) {
 #pragma unroll
@@ -816,6 +826,22 @@ static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float
       for (int cc = 0; cc < nc; ++cc) step(as + cc * LA, bs + cc * LB);
     }
   }
+}
+
+// acc[i][j] = <row rowa(sv_tile_row<RA, TA>(ty, i)), row rowb(sv_tile_row<RB,
+// TB>(tx, j))> of a row-major (N, C) source by sv_pair_tile. Every inner
+// product is summed from 0.f channel by channel with __fmul_rn /
+// __fadd_rn, as the plain versions and the selection (sv_tile_inner) sum
+// it, so it is bitwise the same whichever of the two rows is the centre
+// (an IEEE product commutes). A thread reads TA / 4 + TB / 4 float4 of
+// shared memory a channel for 2 TA TB operations.
+template <int RA, int RB, int TA, int TB, class RowA, class RowB>
+static __device__ __forceinline__ void sv_pair_inner(float (&acc)[TA][TB], float* sm,
+                                                     const float* __restrict__ x,
+                                                     RowA rowa, RowB rowb, int C) {
+  sv_pair_tile<RA, RB, TA, TB, 1>(
+      acc, sm, x, x, x, rowa, rowb, C,
+      [](float& s, float a, float, float b) { s = __fadd_rn(s, __fmul_rn(a, b)); });
 }
 
 // ---------------------------------------------------------------------------

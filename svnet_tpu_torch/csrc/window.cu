@@ -33,15 +33,28 @@
 // sv_window_keep_kernel: keep[b, t, bk] is 1 unless every centre n of key
 // tile t has lb2(n, bk) > tau[b, n], lb2 the squared distance from x_n to
 // block bk's bounding box [lo, hi] in the direct form, sum_c max(lo_c -
-// x_c, x_c - hi_c, 0)^2 (:961-985). Bound: B*N*(N/128)*C channel terms,
-// 1.1 G at a long cloud's conv4 (B = 16, N = 8192, C = 127), six f32
-// operations each, about 0.1 ms; in PyTorch the test runs channel by
-// channel over (B, N, blocks) temporaries (the plain version: 23.2 ms
-// there, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 2). A thread
-// owns a centre and a chunk of WK_BLK blocks: it reads its row once per
-// chunk, the chunk's boxes come from shared memory (a broadcast) and the
-// chunk's sums stay in registers; a warp OR and a shared-memory atomicOr
-// (integer, so order-free) fold the tile's centres.
+// x_c, x_c - hi_c, 0)^2 (:961-985); in PyTorch (the plain version) the
+// test runs channel by channel over (B, N, blocks) temporaries, 23.2 ms at
+// (16, 8192) and C = 127. What bounds it on the H100: B N (N / 128) C
+// channel terms, 1.07 G there, each 5 f32 instructions rounded one by one
+// (-fmad=false): x - clamp(x, lo, hi) is, up to its sign, the one of lo -
+// x and x - hi that is positive (or 0), rounded alike, so its square is
+// the plain version's term bit for bit, in 2 FMNMX, a subtraction, a
+// product and a sum. That is 0.16 ms at the card's issue rate (1.98 GHz),
+// against 0.079 ms for those 5 operations over the f32 peak, which counts
+// an FMA as 2. A
+// block of 256 threads owns one Morton block's 128 centres and 64 blocks
+// of the cloud and runs sv_pair_tile (sv_common.cuh): the centres' rows
+// and the blocks' lo and hi stream through two cp.async stages of 16
+// channels, and a thread folds 4 blocks x 8 centres, reading 4 float4 of
+// shared memory a channel for 32 terms: each row is read from device
+// memory once. A warp's 8 blocks x 128 centres meet in a warp OR; a key tile of 128 centres is the block's
+// own, stored as is, and a larger one is an integer atomicOr over zeros
+// (order-free). 0.015 / 0.13 / 0.27 ms device time at C = 3 / 62 / 127
+// and (16, 8192) (utils/bench_prepass.py, NVIDIA H100 80GB HBM3, 700 W):
+// at C = 127, 60% of the 5-instruction floor. A warp that stopped once
+// all its sums passed their tau (a sum only grows) saved nothing on the
+// windowed rounds' inputs, so no warp stops early.
 //
 // Both sum channel by channel, each product and sum rounded on its own
 // (built with -fmad=false), as their plain versions do: tau and the flags
@@ -171,77 +184,68 @@ extern "C" int sv_window_tau_launch(const float* x, float* aa, float* tau,
   return (int)cudaGetLastError();
 }
 
-#define WK_BLK 16       // blocks a chunk
-#define WK_THREADS 128  // centres a pass of the block
+#define WK_B 64   // blocks a block of threads, 8 a warp
+#define WK_C 128  // centres a block of threads: one Morton block
+#define WK_THREADS ((WK_B / 4) * (WK_C / 8))
+#define WK_SMEM (SV_PT_FLOATS(2, WK_B, WK_C) * 4)
 
-__global__ void __launch_bounds__(WK_THREADS)
+__global__ void __launch_bounds__(WK_THREADS, 2)
 sv_window_keep_kernel(const float* __restrict__ x, const float* __restrict__ lo,
-                      const float* __restrict__ hi,
-                      const float* __restrict__ tau, int* __restrict__ keep,
-                      int N, int C, int T, int nb) {
-  extern __shared__ float box[];  // (2, WK_BLK, C): the chunk's lo, then hi
-  __shared__ unsigned kept;        // bit j: the chunk's block j is kept
-  const int b = blockIdx.y, t = blockIdx.x;
-  const float* xb = x + (size_t)b * N * C;
-  const float* bhi = box + WK_BLK * C;
-  for (int bk0 = 0; bk0 < nb; bk0 += WK_BLK) {
-    const int nblk = min(WK_BLK, nb - bk0);
-    __syncthreads();  // the previous chunk's boxes and flags are consumed
-    for (int e = threadIdx.x; e < WK_BLK * C; e += blockDim.x) {
-      const bool in = e < nblk * C;
-      const size_t g = ((size_t)b * nb + bk0) * C + e;
-      box[e] = in ? lo[g] : 0.f;
-      box[WK_BLK * C + e] = in ? hi[g] : 0.f;
-    }
-    if (threadIdx.x == 0) kept = 0u;
-    __syncthreads();
-    unsigned hit = 0u;
-    for (int n = t * T + threadIdx.x; n < (t + 1) * T; n += blockDim.x) {
-      float acc[WK_BLK];
+                      const float* __restrict__ hi, const float* __restrict__ tau,
+                      int* __restrict__ keep, int N, int C, int T, int nb) {
+  extern __shared__ __align__(16) float wk_sm[];
+  const int b = blockIdx.z, n0 = blockIdx.x * WK_C, bk0 = blockIdx.y * WK_B;
+  const int tx = threadIdx.x % (WK_C / 8), ty = threadIdx.x / (WK_C / 8);
+  float tn[8];  // centre n0 + sv_tile_row<WK_C, 8>(tx, j)
 #pragma unroll
-      for (int j = 0; j < WK_BLK; ++j) acc[j] = 0.f;
-      const float* xn = xb + (size_t)n * C;
-      for (int c = 0; c < C; ++c) {
-        const float v = xn[c];
+  for (int j = 0; j < 8; ++j) tn[j] = tau[(size_t)b * N + n0 + sv_tile_row<WK_C, 8>(tx, j)];
+  // acc[i][j]: lb2 of block bk0 + 4 ty + i to centre j. x - clamp(x, lo,
+  // hi) is, up to its sign, the one of lo - x and x - hi that is positive
+  // (or 0), rounded alike: its square is the plain version's term bit for
+  // bit, in 5 operations for 6
+  float acc[4][8];
+  const size_t boxes = (size_t)b * nb * C;
+  sv_pair_tile<WK_B, WK_C, 4, 8, 2>(
+      acc, wk_sm, lo + boxes, hi + boxes, x + (size_t)b * N * C, SvRun{bk0, nb},
+      SvRun{n0, N}, C,
+      [](float& s, float l, float h, float v) {
+        const float d = __fsub_rn(v, fminf(fmaxf(v, l), h));
+        s = __fadd_rn(s, __fmul_rn(d, d));
+      });
+  unsigned hit = 0u;  // bit 4 (ty & 1) + i: the warp's block 8 (ty / 2) + 4 (ty & 1) + i
 #pragma unroll
-        for (int j = 0; j < WK_BLK; ++j) {
-          const float d = fmaxf(fmaxf(__fsub_rn(box[j * C + c], v),
-                                      __fsub_rn(v, bhi[j * C + c])), 0.f);
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(d, d));
-        }
-      }
-      const float tn = tau[(size_t)b * N + n];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < WK_BLK; ++j)
-        if (j < nblk && !(acc[j] > tn)) hit |= 1u << j;
-    }
-    hit = __reduce_or_sync(0xffffffffu, hit);
-    if ((threadIdx.x & 31) == 0 && hit) atomicOr(&kept, hit);
-    __syncthreads();
-    if (threadIdx.x < nblk)
-      keep[((size_t)b * (N / T) + t) * nb + bk0 + threadIdx.x] =
-          (int)((kept >> threadIdx.x) & 1u);
+    for (int j = 0; j < 8; ++j)
+      if (!(acc[i][j] > tn[j])) hit |= 1u << (4 * (ty & 1) + i);
+  hit = __reduce_or_sync(0xffffffffu, hit);
+  const int lane = threadIdx.x & 31, bk = bk0 + 8 * (threadIdx.x >> 5) + lane;
+  if (lane < 8 && bk < nb) {
+    int* flag = &keep[((size_t)b * (N / T) + n0 / T) * nb + bk];
+    if (T == WK_C) *flag = (hit >> lane) & 1u;  // the key tile is this block's
+    else if ((hit >> lane) & 1u) atomicOr(flag, 1);  // the tile's blocks meet, over 0
   }
 }
 
-// x (B, N, C) row-major; lo, hi (B, N / 128, C) the blocks' boxes; tau
-// (B, N) each centre's inflated k-th band distance; keep (B, N / T,
-// N / 128) int32 out. N a multiple of 128, T a multiple of 128 dividing N.
+// x (B, N, C) row-major; lo, hi (B, N / 128, C) the blocks' boxes (lo <=
+// hi); tau (B, N) each centre's inflated k-th band distance; keep (B, N /
+// T, N / 128) int32 out. N a multiple of 128, T a multiple of 128 dividing
+// N.
 extern "C" int sv_window_keep_launch(const float* x, const float* lo,
                                      const float* hi, const float* tau,
                                      int* keep, int B, int N, int C, int T,
                                      void* stream) {
-  if (B < 1 || C < 1 || N % 128 != 0 || T < 128 || T % 128 != 0 || N % T != 0)
+  if (B < 1 || B > 65535 || C < 1 || N < 128 || N % 128 != 0 || T < 128 ||
+      T % 128 != 0 || N % T != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)WK_BLK * C * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sv_window_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const int nb = N / 128;
+  if (T != WK_C) {
+    const cudaError_t err = cudaMemsetAsync(
+        keep, 0, sizeof(int) * (size_t)B * (N / T) * nb, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
-  sv_window_keep_kernel<<<dim3(N / T, B), WK_THREADS, smem,
-                          (cudaStream_t)stream>>>(x, lo, hi, tau, keep, N, C,
-                                                  T, N / 128);
+  sv_window_keep_kernel<<<dim3(N / WK_C, (nb + WK_B - 1) / WK_B, B), WK_THREADS,
+                          WK_SMEM, (cudaStream_t)stream>>>(x, lo, hi, tau, keep, N,
+                                                           C, T, nb);
   return (int)cudaGetLastError();
 }

@@ -87,8 +87,8 @@ SIGNATURES = {
     "sv_window_keep_launch": [_P] * 5 + [_I] * 4 + [_P],
     # src, idx, out; B n_src M k C; stream
     "sv_edge_gather_fwd_launch": [_P] * 3 + [_I] * 5 + [_P],
-    # g, idx, dsrc, scratch; B n_src M k C; stream
-    "sv_edge_gather_bwd_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # g, idx, dsrc, scratch; B n_src M k C ranges cap; stream
+    "sv_edge_gather_bwd_launch": [_P] * 4 + [_I] * 7 + [_P],
     # phase, pointer slots (void**), dims (int*), stream
     "sv_first_train_launch": [_I, _P, _P, _P],
     "sv_round3_train_launch": [_I, _P, _P, _P],

@@ -15,7 +15,9 @@ the on-card reference of the kernels.
 
 The backward sums each target's incoming rows in ascending edge order
 ``n*k + j``, in f32, from 0, in kernel and plain version alike: they agree
-bitwise and every launch gives the same ``dsrc``. The JAX kernel sums
+bitwise and every launch gives the same ``dsrc``. The kernel builds each
+cloud's inverse adjacency (``adjacency_plan``: blocks a cloud, ids a block
+ranks in shared memory at once), then sums. The JAX kernel sums
 bf16 hi and lo planes of the cotangent on the MXU instead (about 2^-16
 relative; ROADMAP C12).
 """
@@ -45,6 +47,27 @@ def _ids(idx: torch.Tensor, dev) -> torch.Tensor:
     if idx.dtype != torch.int32:
         raise TypeError(f"idx: dtype {idx.dtype}, expected torch.int32")
     return idx.contiguous()
+
+
+ADJ_BLOCKS = 264  # blocks of the adjacency kernel that fill the card: 2 an SM
+ADJ_TARGETS = (128, 4096)  # targets a block: at least, at most
+ADJ_SMEM_INTS = 12288 - 32  # a block's shared memory in ints: 48 KB less the warp sums
+
+
+def adjacency_plan(B: int, n_src: int, ek: int) -> tuple[int, int]:
+    """(ranges, cap) of the backward's adjacency kernel for B clouds of
+    n_src targets and ek = M*k edges: each cloud's targets split into
+    ``ranges`` consecutive ranges, a block each, enough for ADJ_BLOCKS
+    blocks where every range keeps ADJ_TARGETS[0] targets, and never more
+    than ADJ_TARGETS[1] targets a range; a block ranks its range's edges
+    in windows of whole segments of at most ``cap`` ids in shared memory
+    (what ADJ_SMEM_INTS leaves beside the range's scan and cursors), and a
+    single segment above ``cap`` in device memory."""
+    lo, hi = ADJ_TARGETS
+    ranges = max(-(-n_src // hi), min(-(-ADJ_BLOCKS // B), -(-n_src // lo)))
+    ranges = max(1, min(ranges, n_src))
+    nt = -(-n_src // ranges)
+    return ranges, max(1, min(ek, ADJ_SMEM_INTS - 2 * nt - 1))
 
 
 def edge_gather_fwd_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -107,11 +130,11 @@ def edge_gather_bwd(g: torch.Tensor, idx: torch.Tensor, n_src: int) -> torch.Ten
     ids = _ids(idx, dev)
     _build.check_arg(g, "g", (B, M, k, C), dev)
     dsrc = torch.empty((B, n_src, C), device=dev)
-    scratch = torch.empty(3 * B * n_src + B * M * k, device=dev,
+    scratch = torch.empty(2 * B * n_src + 2 * B * M * k, device=dev,
                           dtype=torch.int32)
     err = _build.lib().sv_edge_gather_bwd_launch(
         g.data_ptr(), ids.data_ptr(), dsrc.data_ptr(), scratch.data_ptr(), B,
-        n_src, M, k, C, _build.stream_ptr(dev))
+        n_src, M, k, C, *adjacency_plan(B, n_src, M * k), _build.stream_ptr(dev))
     _build.check(err, "edge_gather_bwd")
     edge_gather_bwd.launches += 1
     return dsrc

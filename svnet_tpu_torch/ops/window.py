@@ -86,14 +86,20 @@ def prune_prepass(src: torch.Tensor, k: int, T: int, W: int,
     rows."""
     B, N, C = src.shape
     x = src.float().contiguous()
-    tau = (window_tau_plain if plain else window_tau)(x, k)
-    mx = (x * x).sum(-1).amax(dim=1)  # (B,)
-    tau = (tau + (2e-5 * mx + 1e-30)[:, None]).contiguous()
+    tau = raise_tau(x, (window_tau_plain if plain else window_tau)(x, k))
     xb = x.reshape(B, N // BS, BS, C)
     lo, hi = xb.amin(dim=2).contiguous(), xb.amax(dim=2).contiguous()
     keep = (window_keep_plain if plain else window_keep)(x, lo, hi, tau, T)
     ok = (keep.sum(dim=-1) * BS <= W).all()
     return keep, ok
+
+
+def raise_tau(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """tau (B, N) raised by the pre-pass's margin against both distance
+    forms' rounding, 2e-5 * max_n |x_n|^2 + 1e-30 for each cloud of x
+    (B, N, C); contiguous."""
+    mx = (x * x).sum(-1).amax(dim=1)  # (B,)
+    return (tau + (2e-5 * mx + 1e-30)[:, None]).contiguous()
 
 
 def window_tau_plain(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1419,3 +1419,133 @@ def test_cls_edge_mode_engines_on_card(binary):
                              mode=mode, oracle=True)
         assert torch.equal(outs[mode], oracle(pts))
     assert torch.equal(outs["fast"], outs["approx"])
+
+
+# the window's block test (csrc/window.cu): (B, N, C, key tile T, input):
+# C = 1, 3, 5 below and off the 16-channel stage, 127 off it; T = 128 and
+# T = N; N = 384 (3 blocks, under the 8 of a warp); strand clouds and
+# Morton-sorted surface clouds
+KEEP_FORCED = [(2, 1024, 1, 128, "strand"), (2, 1024, 3, 1024, "strand"),
+               (3, 384, 5, 128, "strand"), (1, 2048, 127, 256, "strand"),
+               (2, 1024, 127, 1024, "strand"), (2, 2048, 3, 128, "surface"),
+               (1, 384, 127, 384, "strand")]
+
+
+def _keep_inputs(b, n, c, kind, seed):
+    """x (B, N, C) on the card, its blocks' boxes, and tau as
+    prune_prepass raises it (k = 20)."""
+    from svnet_tpu_torch.ops import morton
+    from svnet_tpu_torch.ops.window import raise_tau, window_tau_plain
+    from svnet_tpu_torch.utils.synth import strand_clouds, surface_clouds
+
+    dev = torch.device("cuda")
+    if kind == "surface":
+        x = morton.sort_points(torch.from_numpy(surface_clouds(seed, b, n)).to(dev))[0]
+    else:
+        x = torch.from_numpy(strand_clouds(seed, b, n, c)).to(dev)
+    x = x.contiguous()
+    tau = raise_tau(x, window_tau_plain(x, 20))
+    xb = x.reshape(b, n // 128, 128, x.shape[-1])
+    return x, xb.amin(dim=2).contiguous(), xb.amax(dim=2).contiguous(), tau
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KEEP_FORCED,
+                         ids=[f"B{s[0]}-N{s[1]}-C{s[2]}-T{s[3]}-{s[4]}"
+                              for s in KEEP_FORCED])
+def test_window_keep_shape_forced_on_card(shape):
+    """window_keep bitwise window_keep_plain, one launch a call, the
+    flags mixed (5-95% kept: at T = N, where
+    every block holds centres that keep it, the centres past the first
+    100 of each cloud get tau = -1 and the first 100 at most 0.5); a tie
+    (tau set
+    to a centre's lb2 in the plain version's rounding) keeps the block and
+    the next float below prunes it; a NaN tau keeps every block of its
+    tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops import window as win
+
+    b, n, c, T, kind = shape
+    x, lo, hi, tau = _keep_inputs(b, n, c, kind, 48)
+    if T == n:
+        tau[:, :100] = tau[:, :100].clamp(max=0.5)
+        tau[:, 100:] = -1.0
+    tau = tau.contiguous()
+    before = win.window_keep.launches
+    got = win.window_keep(x, lo, hi, tau, T)
+    assert win.window_keep.launches == before + 1
+    want = win.window_keep_plain(x, lo, hi, tau, T)
+    assert torch.equal(got, want)
+    assert 0.05 <= float(want.float().mean()) <= 0.95
+    # a tie: the tile's only live centre n sits exactly on its lb2 to the
+    # last block, in the plain version's rounding
+    n0, bk = 0, n // 128 - 1
+    d = torch.clamp(torch.maximum(lo[0, bk] - x[0, n0], x[0, n0] - hi[0, bk]), min=0.0)
+    lb2 = d[0] * d[0]
+    for ch in range(1, d.shape[0]):
+        lb2 = lb2 + d[ch] * d[ch]
+    assert float(lb2) > 0.0
+    for t, flag in ((lb2, 1), (torch.nextafter(lb2, lb2.new_tensor(-1.0)), 0)):
+        tie = tau.clone()
+        tie[0, :T] = -1.0
+        tie[0, n0] = t
+        got = win.window_keep(x, lo, hi, tie, T)
+        assert torch.equal(got, win.window_keep_plain(x, lo, hi, tie, T))
+        assert int(got[0, 0, bk]) == flag
+    nan = tau.clone()
+    nan[-1, 5] = float("nan")
+    got = win.window_keep(x, lo, hi, nan, T)
+    assert torch.equal(got, win.window_keep_plain(x, lo, hi, nan, T))
+    assert bool((got[-1, 5 // T] == 1).all())
+
+
+# B7's backward (csrc/edge_gather.cu): (B, M, k, C, ids), as chip_smoke.py's
+# GATHER_FORCED: a hub every centre names (in-degree M); partseg's cloud
+# (2048, 40); a cloud's ids on 64 targets (one target range, several
+# shared-memory windows of it); every id one target (a segment above the
+# shared-memory list: the device-memory spill); ids outside [0, n_src),
+# ignored, on M k = 7007 ids (no int4 loads); n_src = 2 M; C = 1, 62, 127
+BWD_FORCED = [(2, 1024, 20, 62, "hub"), (2, 2048, 40, 8, None),
+              (1, 2048, 40, 1, "narrow"), (1, 1024, 20, 127, "one"),
+              (2, 1001, 7, 5, "out"), (3, 500, 9, 3, "wide"),
+              (2, 1000, 7, 127, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_FORCED,
+                         ids=[f"B{s[0]}-M{s[1]}-k{s[2]}-C{s[3]}" + (f"-{s[4]}" if s[4] else "")
+                              for s in BWD_FORCED])
+def test_edge_gather_bwd_forced_on_card(shape):
+    """B7's backward bitwise its plain version (ids outside [0, n_src)
+    sent to target 0 with rows of +0.0, which leave every sum as it is),
+    one launch a call, two launches identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
+
+    b, n, k, c, kind = shape
+    gen = torch.Generator().manual_seed(49)
+    n_src = 2 * n if kind == "wide" else n
+    idx = torch.randint(0, n_src, (b, n, k), generator=gen, dtype=torch.int32)
+    if kind == "hub":
+        idx[:, :, 0] = 7
+    elif kind == "narrow":
+        idx = torch.randint(0, 64, (b, n, k), generator=gen, dtype=torch.int32)
+    elif kind == "one":
+        idx[:] = 5
+    elif kind == "out":
+        idx[:, ::3, 1] = n_src
+        idx[:, 1::5, 2] = -1
+        idx[0, 0, 0] = -(2 ** 31)
+    dev = torch.device("cuda")
+    g = torch.randn(b, n, k, c, generator=gen).to(dev)
+    idx = idx.to(dev)
+    before = eg.edge_gather_bwd.launches
+    got = eg.edge_gather_bwd(g, idx, n_src)
+    assert eg.edge_gather_bwd.launches == before + 1
+    bad = (idx < 0) | (idx >= n_src)
+    want = eg.edge_gather_bwd_plain(torch.where(bad[..., None], torch.zeros_like(g), g),
+                                    torch.where(bad, torch.zeros_like(idx), idx), n_src)
+    assert torch.equal(got, want)
+    assert torch.equal(got, eg.edge_gather_bwd(g, idx, n_src))

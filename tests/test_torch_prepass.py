@@ -12,7 +12,11 @@ through ``quant.tile_scales``, to the keys of the JAX package's
 tau (``ops.window.window_tau``, csrc/window.cu) sorts each lane's 12 band
 keys and takes the least head key until k are taken; that selection is
 emulated on duplicated rows and held to ``window_tau_plain``'s kthvalue.
-No JAX kernel runs here.
+The window's block test (``ops.window.window_keep``) takes each term as
+(x - clamp(x, lo, hi))^2 and folds a block for a key tile over blocks of
+threads of 128 centres; the term is held bitwise to the plain version's
+on adversarial values, and the schedule to ``window_keep_plain``. No JAX
+kernel runs here.
 """
 
 import jax.numpy as jnp
@@ -236,3 +240,87 @@ def test_tau_selection_matches_plain(k):
     inner = channel_sum(xb[:, :, :, None], nbhd[:, :, None])
     d2 = ((sq[..., None] + sqn[:, :, None, :]) - 2.0 * inner).reshape(b, n, 3 * TILE)
     assert torch.equal(_tau_select(d2, k), window.window_tau_plain(x, k))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def test_box_term_matches_plain():
+    """(x - clamp(x, lo, hi))^2, the kernel's term, bitwise the plain
+    version's clamp(max(lo - x, x - hi), 0)^2 for every lo <= hi: x
+    inside, on a face or outside, boxes of one point, +-0.0, subnormals,
+    values near the float's range."""
+    vals = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-39, -3e-39, 1.17549435e-38,
+                         0.1, -0.1, 0.30000001, 1.0, -1.0, 1.0000001, 3.4e38,
+                         -3.4e38, 1e20, -7.5e-20, 2.5])
+    x, a, b = torch.meshgrid(vals, vals, vals, indexing="ij")
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    e = x - torch.minimum(torch.maximum(x, lo), hi)
+    d = torch.clamp(torch.maximum(lo - x, x - hi), min=0.0)
+    assert torch.equal(_bits(e * e), _bits(d * d))
+
+
+def _keep_schedule(x, lo, hi, tau, T):
+    """window.cu's block test on (B, N, C) x: blocks of threads of 128
+    centres (one Morton block) x 64 blocks, each sum in channel order from
+    0.0 by the clamp term; a block is kept for the key tile where any
+    centre's sum is not above its tau (an integer OR over the tile's
+    blocks of threads)."""
+    B, N, C = x.shape
+    nb = N // TILE
+    xs = x.reshape(B, N // TILE, 1, TILE, C)
+    ts = tau.reshape(B, N // TILE, 1, TILE)
+    acc = torch.zeros(B, N // TILE, nb, TILE)
+    for c in range(C):
+        lc, hc = lo[:, None, :, None, c], hi[:, None, :, None, c]
+        xc = xs[..., c]
+        e = xc - torch.minimum(torch.maximum(xc, lc), hc)
+        acc = acc + e * e
+    hit = (~(acc > ts)).any(dim=-1)  # (B, N / 128, nb)
+    return hit.reshape(B, N // T, T // TILE, nb).any(dim=2).to(torch.int32)
+
+
+def _keep_inputs(x, k=20):
+    """lo, hi and tau of prune_prepass on (B, N, C) x."""
+    B, N, C = x.shape
+    tau = window.raise_tau(x, window.window_tau_plain(x, k))
+    xb = x.reshape(B, N // TILE, TILE, C)
+    return xb.amin(dim=2), xb.amax(dim=2), tau
+
+
+KEEP_SHAPES = [(2, 1024, 3, 128), (1, 2048, 40, 256), (3, 384, 5, 128), (1, 1024, 33, 1024)]
+
+
+@pytest.mark.parametrize("shape", KEEP_SHAPES,
+                         ids=[f"B{s[0]}-N{s[1]}-C{s[2]}-T{s[3]}" for s in KEEP_SHAPES])
+def test_keep_schedule_matches_plain(shape):
+    """The block test's schedule bitwise ``window_keep_plain`` on strand
+    clouds (flags mixed), a tie
+    (tau on a centre's lb2 keeps the block, the next float below prunes
+    it) and a NaN tau (its tile keeps every block)."""
+    b, n, c, t = shape
+    x = torch.from_numpy(strand_clouds(11, b, n, c))
+    lo, hi, tau = _keep_inputs(x)
+    if t == n:
+        tau[:, 100:] = -1.0
+    want = window.window_keep_plain(x, lo, hi, tau, t)
+    assert 0.05 <= float(want.float().mean()) <= 0.95
+    assert torch.equal(_keep_schedule(x, lo, hi, tau, t), want)
+    bk = n // TILE - 1
+    d = torch.clamp(torch.maximum(lo[0, bk] - x[0, 0], x[0, 0] - hi[0, bk]), min=0.0)
+    lb2 = d[0] * d[0]
+    for ch in range(1, c):
+        lb2 = lb2 + d[ch] * d[ch]
+    for v, flag in ((lb2, 1), (torch.nextafter(lb2, torch.tensor(-1.0)), 0)):
+        tie = tau.clone()
+        tie[0, :t] = -1.0
+        tie[0, 0] = v
+        got = _keep_schedule(x, lo, hi, tie, t)
+        assert torch.equal(got, window.window_keep_plain(x, lo, hi, tie, t))
+        assert int(got[0, 0, bk]) == flag
+    nan = tau.clone()
+    nan[-1, 5] = float("nan")
+    got = _keep_schedule(x, lo, hi, nan, t)
+    assert torch.equal(got, window.window_keep_plain(x, lo, hi, nan, t))
+    assert bool((got[-1, 0] == 1).all())
