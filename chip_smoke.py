@@ -22,8 +22,10 @@ to approx_fold lanes, the Morton entry sort) through B1 and B2 of both
 SV-DGCNN engines and the SV-PointNet classifier, graph reuse, the
 certified Morton candidate window at N = 8192, fast and approx mode
 on the legacy row-major trunks (round2 in both SV-DGCNN engines, round in
-the classifier) and on the classifier's edge trunk, and B4's fast and
-approx mode through its own entry point. Phases; any failure raises and
+the classifier) and on the classifier's edge trunk, B4's fast and
+approx mode through its own entry point, and binary part-segmentation
+training of both families (B=32, N=2048, k=40, 50 parts) through the
+trainer. Phases; any failure raises and
 the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
@@ -222,6 +224,32 @@ the script exits non-zero:
      modes through their entry point, knn(x, 20, mode, tile=128), on the
      edge trunk's four round inputs (phase 2), counts zeroed first: knn
      and its pre-pass neg_min four times each a mode, ids bitwise
+ 22  SV-DGCNN part segmentation, binary training through the fused train
+     forward (make_fused_train_apply_pseg) at (32, 2048, 40), 50 parts:
+     1 warm-up + 10 timed steps (Adam, --rot z, no label smoothing) on
+     seeded surface clouds with random categories and random part ids
+     inside each category's range, through train_epoch; each step
+     launches knn 4 times, the first-round passes once each way and the
+     conv-round passes three times each way; the median step and the
+     peak device memory printed; one BN re-estimation batch (knn x4, B5
+     forward x1, B6 forward x3) and one eval batch through the eager
+     SVDGCNNPseg (knn x4, edge_gather_fwd x4), its mean shape IoU
+     printed; one step through the kernels against its oracle twin with
+     the bars of phase 6
+ 23  SV-PointNet part segmentation, binary training (make_train_apply_pseg,
+     the pointnet_partseg recipe) on phase 22's clouds: each step, the BN
+     re-estimation batch and the eval batch (eager SVPointNetPseg) launch
+     knn and edge_gather_fwd once; the rest as phase 22
+
+Phase 2 also holds the part segmenters' training kernels
+(phase2_pseg_train) at (32, 2048, 40): B4 on the xyz and on the joint
+widths 80, 80, 136, B5 at V_out = 16, B6 binary and FP at SV_DGCNN_PSEG's
+widths (32, 16) -> (32, 16), (32, 16) -> (64, 24), (64, 24) -> (128, 40),
+inputs chained through the plain versions, to the bars above, the centre
+points per tile of each pass printed; B7's forward on the points (C = 3)
+bitwise; binary calls timed beside their plain versions (B4 also beside
+cdist + topk, B7 beside torch.gather): the kernels line's "pseg train"
+entries.
 
 Phase 2 also holds the edge trunk's modes (phase2_edge_modes): B10d and
 B10c with exact=False against their plain versions, outputs bitwise, at
@@ -1268,10 +1296,10 @@ def check_grads(tag, got: dict, want: dict, total: float, dsrc=None):
     return err, rel
 
 
-def compare_knn(rep, tag, x, kk, time_it):
+def compare_knn(rep, tag, x, kk, time_it, name="knn"):
     """Kernel B4 against its plain version, ids bitwise (and, timed,
     torch.cdist + torch.topk as the library yardstick) on channels-last
-    x (B, N, C)."""
+    x (B, N, C); the kernels line's entry is ``name``."""
     import torch
 
     from svnet_tpu_torch.ops.kernels.knn import knn
@@ -1284,7 +1312,7 @@ def compare_knn(rep, tag, x, kk, time_it):
         raise AssertionError(f"{tag}: ids not bitwise the plain version's")
     if not time_it:
         log(f"  {tag}: ids bitwise the plain version's")
-        rep.add("knn", 0.0)
+        rep.add(name, 0.0)
         return po
     bb, nn, C = x.shape
 
@@ -1296,7 +1324,7 @@ def compare_knn(rep, tag, x, kk, time_it):
     cost = bound(knn_flops(bb, nn, C), 4.0 * bb * nn * (C + kk))
     log(f"  {tag}: ids bitwise the plain version's; kernel {ms} ms, plain "
         f"{plain_ms} ms, cdist+topk {lib_ms} ms, bound {cost}")
-    rep.add("knn", 0.0, ms, plain_ms, cost, lib_ms)
+    rep.add(name, 0.0, ms, plain_ms, cost, lib_ms)
     return po
 
 
@@ -1612,9 +1640,12 @@ def phase2_point_forced(rep, dev):
 
 
 def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
-                 rounds=("conv2", "conv3", "conv4")):
-    """B4, B5 and B6 at the training shapes, inputs chained through the
-    plain versions (binary model; FP rounds on the same inputs)."""
+                 rounds=None, suffix=""):
+    """B4, B5 and B6 at the training shapes of ``rounds`` (name -> (S, V,
+    S_out, V_out); the classifier's by default, the first round's output
+    widths those of conv2's input), inputs chained through the plain
+    versions (binary model; FP rounds on the same inputs). The kernels
+    line's entries are the kernels' names plus ``suffix``."""
     import torch
 
     from svnet_tpu_torch.ops.kernels import sv_first_train as kf
@@ -1623,28 +1654,32 @@ def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
     from svnet_tpu_torch.nn.sv_train import gate
     from svnet_tpu_torch.train.fused import ROUNDS, SUB
 
-    first_names = ("sv_first_train_fwd", "sv_first_train_bwd")
-    round_names = ("sv_round3_train_fwd", "sv_round3_train_bwd")
+    rounds = ROUNDS if rounds is None else rounds
+    first_names = ("sv_first_train_fwd" + suffix, "sv_first_train_bwd" + suffix)
+    round_names = ("sv_round3_train_fwd" + suffix, "sv_round3_train_bwd" + suffix)
+    knn_name = "knn" + suffix
     pts = cloud(b, n, gen, dev)
-    idx = compare_knn(rep, f"knn B={b} N={n} C=3 k={k}", pts, k, time_it)
-    d = kf.first_dims(32, 10, k)
+    idx = compare_knn(rep, f"knn B={b} N={n} C=3 k={k}", pts, k, time_it, knn_name)
+    S1, V1 = next(iter(rounds.values()))[:2]
+    d = kf.first_dims(S1, V1, k)
     sub = {"init_scalar": p_bin["init_scalar"], **{m: p_bin["conv1"][m] for m in SUB}}
-    po = compare_train(rep, f"sv_first_train B={b} N={n} k={k}", first_names,
-                       (kf.sv_first_train_fwd, kf.sv_first_train_bwd), pts, idx,
-                       kr.kernel_params(sub, d), d, gen, time_it, 1e-3)
+    po = compare_train(rep, f"sv_first_train V_out={V1} B={b} N={n} k={k}",
+                       first_names, (kf.sv_first_train_fwd, kf.sv_first_train_bwd),
+                       pts, idx, kr.kernel_params(sub, d), d, gen, time_it, 1e-3)
     s_mean = (po[2] / (n * k)).float()[:, first_perm()]
-    x = (po[0], po[1].reshape(b, n, 3, 10) * gate(p_bin["conv1"], s_mean)[:, None, None, :])
-    for name in rounds:
-        S, V, So, Vo = ROUNDS[name]
+    x = (po[0], po[1].reshape(b, n, 3, V1) * gate(p_bin["conv1"], s_mean)[:, None, None, :])
+    for name, (S, V, So, Vo) in rounds.items():
         joint = torch.cat([x[0], x[1].reshape(b, n, -1)], dim=-1).contiguous()
         idx = compare_knn(rep, f"knn B={b} N={n} C={S + 3 * V} k={k} ({name})",
-                          joint, k, time_it)
+                          joint, k, time_it, knn_name)
         ops = (kr.sv_round3_train_fwd, kr.sv_round3_train_bwd)
         for binary, p in ((True, p_bin), (False, p_fp)):
             d = kr.RoundDims(S, V, So, Vo, k, binary)
+            tiles = {ph: kr.tile(d, ph) for ph in ("f1", "f2", "b1", "b2")}
             out = compare_train(
-                rep, f"sv_round3_train {name} {'binary' if binary else 'fp'} "
-                f"B={b} N={n} k={k}", round_names, ops, joint, idx,
+                rep, f"sv_round3_train {name} ({S}, {V}) -> ({So}, {Vo}) "
+                f"{'binary' if binary else 'fp'} B={b} N={n} k={k}, centre "
+                f"points per tile {tiles}", round_names, ops, joint, idx,
                 kr.kernel_params({m: p[name][m] for m in SUB}, d), d, gen,
                 time_it and binary, 1e-3)
             if binary:
@@ -1653,23 +1688,65 @@ def phase2_train(rep, p_bin, p_fp, gen, dev, b=B_TRAIN, n=N, k=K, time_it=True,
         x = (po[0], po[1].reshape(b, n, 3, Vo) * gate(p_bin[name], s_mean)[:, None, None, :])
 
 
+def phase2_pseg_train(rep, gen, dev):
+    """The part segmenters' training kernels at (B_TRAIN, N_PSEG, K_PSEG):
+    B4 on the xyz and the joint widths 80, 80, 136, B5 at V_out = 16 and
+    B6 binary and FP at SV_DGCNN_PSEG's widths (phase2_train), then B7's
+    forward on the points (the SV-PointNet part segmenter's gather, C = 3)
+    bitwise, timed beside torch.gather."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+    from svnet_tpu_torch.ops.kernels import edge_gather as eg
+    from svnet_tpu_torch.ops.kernels.knn import knn
+    from svnet_tpu_torch.train.fused import PSEG_ROUNDS
+    from svnet_tpu_torch.train.steps import tree_map
+
+    p_bin, p_fp = (tree_map(lambda t: t.to(dev), init_params_pseg(
+        PARTS, K_PSEG, binary, torch.Generator().manual_seed(SEED + s))["params"])
+        for binary, s in ((True, 20), (False, 21)))
+    b, n, k = B_TRAIN, N_PSEG, K_PSEG
+    phase2_train(rep, p_bin, p_fp, gen, dev, b, n, k, rounds=PSEG_ROUNDS,
+                 suffix=" pseg train")
+    pts = cloud(b, n, gen, dev)
+    idx = knn(pts, k)
+    fk, fp = eg.edge_gather_fwd(pts, idx), eg.edge_gather_fwd_plain(pts, idx)
+    sync(dev)
+    check_equal(f"edge_gather B={b} N={n} k={k} C=3 forward", (fk,), (fp,))
+
+    def lib_fwd():
+        return torch.gather(pts, 1, idx.long().reshape(b, -1, 1)
+                            .expand(-1, -1, 3)).reshape(b, n, k, 3)
+
+    t = [cuda_ms(fn, reps=20) for fn in (
+        lambda: eg.edge_gather_fwd(pts, idx),
+        lambda: eg.edge_gather_fwd_plain(pts, idx), lib_fwd)]
+    e = b * n * k
+    cost = bound(0.0, 4.0 * (b * n * 3 + e + e * 3))
+    log(f"  edge_gather B={b} N={n} k={k} C=3: forward bitwise; kernel {t[0]} "
+        f"ms, plain {t[1]} ms, torch.gather {t[2]} ms, bound {cost}")
+    rep.add("edge_gather_fwd pseg train", 0.0, t[0], t[1], cost, t[2])
+
+
 def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
-              log_card):
+              log_card, with_label=False):
     """1 + TRAIN_STEPS binary train steps of ``apply`` (the recipe's Adam,
-    rot z) through train_epoch, from ``weights``; each launches the counted
-    kernels ``per_step`` times (the others never). Returns the launch counts,
-    the median step ms, the peak device memory and the state."""
+    rot z; part segmentation, ``with_label``: the one-hot category handed
+    to the forward, no label smoothing) through train_epoch, from
+    ``weights``; each launches the counted kernels ``per_step`` times (the
+    others never). Returns the launch counts, the median step ms, the peak
+    device memory and the state."""
     import numpy as np
     import torch
 
     from svnet_tpu_torch.train.loop import train_epoch
-    from svnet_tpu_torch.train.losses import cal_loss
     from svnet_tpu_torch.train.steps import create_state, make_train_step
 
     dev, steps = loader.device, len(loader)
     state = create_state(weights, binary=True, lr=1e-3, epochs=1,
                          steps_per_epoch=steps, recipe=recipe, device=dev)
-    step = make_train_step(apply, cal_loss, rot="z")
+    step = make_train_step(apply, train_loss(with_label), rot="z",
+                           with_label=with_label)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters:
@@ -1684,9 +1761,10 @@ def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
     timed = out["step_ms"][1:]
     median = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"{tag}: {steps} train steps of ({B_TRAIN}, {N}, 3), binary, {recipe} "
-        f"Adam, rot z; launches { {n: c for n, c in launches.items() if c} }; "
-        f"loss {out['loss']:.6f}")
+    shape = tuple(loader.dataset.data.shape[1:2])
+    log(f"{tag}: {steps} train steps of ({loader.batch_size}, {shape[0]}, 3), "
+        f"binary, {recipe} Adam, rot z; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; loss {out['loss']:.6f}")
     log(f"{tag}: step time (CUDA events, ms) median of {len(timed)} "
         f"{median:.3f}, all {[round(t, 3) for t in timed]}; warm-up "
         f"{out['step_ms'][0]:.3f}; peak device memory {peak / 2**30:.3f} GiB | "
@@ -1694,38 +1772,60 @@ def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
     return launches, median, peak, state
 
 
-def recal_and_eval(tag, apply, state, model, loader, gen, counters):
+def train_loss(with_label):
+    """The trainers' loss: label smoothing for classification, none for
+    part segmentation (the CLIs' ``--smoothing`` defaults)."""
+    import functools
+
+    from svnet_tpu_torch.train.losses import cal_loss
+
+    return functools.partial(cal_loss, smoothing=not with_label)
+
+
+def recal_and_eval(tag, apply, state, model, loader, gen, counters,
+                   with_label=False):
     """One BN re-estimation batch through ``apply`` and one eval batch
     through the eager ``model`` (loaded with the state's weights); returns
-    the launch counts of each."""
+    the launch counts of each. Part segmentation (``with_label``) prints
+    the batch's mean shape IoU."""
+    import numpy as np
     import torch
 
     from svnet_tpu_torch.train.loop import bn_reestimate
-    from svnet_tpu_torch.train.losses import cal_loss
+    from svnet_tpu_torch.train.metrics import shape_iou
     from svnet_tpu_torch.train.steps import make_eval_step, make_recal_step
     from svnet_tpu_torch.utils.convert import load_tree
 
     for fn in counters:
         fn.launches = 0
-    state.batch_stats = bn_reestimate(make_recal_step(apply, "z"), state, loader,
-                                      gen, 1)
+    state.batch_stats = bn_reestimate(make_recal_step(apply, "z", with_label),
+                                      state, loader, gen, 1)
     recal = {fn.__name__: fn.launches for fn in counters}
     model = model.to(loader.device).eval()
     load_tree(model, state.tree())
     for fn in counters:
         fn.launches = 0
-    loss, preds = make_eval_step(model, cal_loss, "so3")(next(iter(loader)), gen)
+    batch = next(iter(loader))
+    loss, preds = make_eval_step(model, train_loss(with_label), "so3",
+                                 with_label)(batch, gen)
     evals = {fn.__name__: fn.launches for fn in counters}
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(loss)) or preds.shape != (B_TRAIN,):
+    if not bool(torch.isfinite(loss)) or preds.shape != batch["target"].shape:
         raise AssertionError(f"{tag}: eval loss {loss} / preds {preds.shape}")
+    iou = ""
+    if with_label:
+        ious = shape_iou(preds.cpu().numpy(), batch["seg"].cpu().numpy(),
+                         batch["category"].cpu().numpy())
+        iou = f", mean shape IoU {float(np.mean(ious)):.6f}"
     log(f"{tag}: BN re-estimation batch launches "
         f"{ {n: c for n, c in recal.items() if c} }; eval batch (eager model) "
-        f"loss {loss.item():.6f}, launches { {n: c for n, c in evals.items() if c} }")
+        f"loss {loss.item():.6f}{iou}, launches "
+        f"{ {n: c for n, c in evals.items() if c} }")
     return recal, evals
 
 
-def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed):
+def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed,
+                  with_label=False):
     """One train step through the kernels (``make_apply(False)``) against
     the same step through the plain twin (``make_apply(True)``), from the
     same weights and batch: loss and new BN running statistics within 1e-4
@@ -1733,7 +1833,6 @@ def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed):
     >= 0.999."""
     import torch
 
-    from svnet_tpu_torch.train.losses import cal_loss
     from svnet_tpu_torch.train.steps import create_state, make_train_step, tree_map
     from svnet_tpu_torch.utils.convert import flatten as flat
     from svnet_tpu_torch.utils.convert import to_flax
@@ -1742,7 +1841,8 @@ def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed):
     for oracle in (False, True):
         state = create_state(weights, binary=True, lr=1e-3, epochs=1,
                              steps_per_epoch=1, recipe=recipe, device=dev)
-        step = make_train_step(make_apply(oracle), cal_loss, rot="z")
+        step = make_train_step(make_apply(oracle), train_loss(with_label),
+                               rot="z", with_label=with_label)
         loss, _ = step(state, batch, torch.Generator().manual_seed(seed))
         res.append((loss.item(), tree_map(lambda t: t.grad, state.params),
                     state.batch_stats, tree_map(lambda t: t.detach(), state.params)))
@@ -1999,6 +2099,95 @@ def phase11(dev, gen, counters, loader, log_card):
                                                       oracle=oracle),
                   weights, "dgcnn", next(iter(loader)), dev, SEED + 11)
     return launches, median
+
+
+def pseg_loader(dev):
+    """1 + TRAIN_STEPS batches of seeded surface clouds (B_TRAIN, N_PSEG)
+    with random categories and, per point, random part ids inside the
+    category's range; each item's points and ids shuffled together."""
+    import numpy as np
+
+    from svnet_tpu_torch.data import Loader, PartArrayDataset
+    from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    m = (TRAIN_STEPS + 1) * B_TRAIN
+    rng = np.random.default_rng(SEED + 22)
+    cat = rng.integers(0, 16, m)
+    seg = np.stack([INDEX_START[c] + rng.integers(0, SEG_NUM[c], N_PSEG)
+                    for c in cat])
+    data = PartArrayDataset(surface_clouds(SEED + 22, m, N_PSEG), cat, seg,
+                            shuffle=True, seed=SEED)
+    return Loader(data, B_TRAIN, shuffle=True, drop_last=True, seed=SEED,
+                  device=dev)
+
+
+def phase_pseg_train(tag, apply_of, model, weights, recipe, per_step,
+                     recal_want, eval_want, loader, dev, gen, counters, card,
+                     seed):
+    """Part-segmentation training: 1 + TRAIN_STEPS steps through
+    train_epoch with the per-step launches ``per_step``, one BN
+    re-estimation and one eval batch (the eager ``model``) with the stated
+    launches, then one step through the kernels against its oracle twin.
+    Returns the launch counts of the steps, the median step ms and the
+    peak device memory."""
+    import torch
+
+    launches, median, peak, state = train_run(
+        tag, apply_of(False), weights, recipe, loader, gen, counters, per_step,
+        card, with_label=True)
+    recal, evals = recal_and_eval(tag, apply_of(False), state, model, loader,
+                                  gen, counters, with_label=True)
+    if recal != {n: recal_want.get(n, 0) for n in recal} or \
+            evals != {n: eval_want.get(n, 0) for n in evals}:
+        raise AssertionError(f"{tag}: recal launches {recal}, eval {evals}")
+    torch.cuda.empty_cache()
+    step_vs_plain(f"{tag} oracle", apply_of, weights, recipe, next(iter(loader)),
+                  dev, seed, with_label=True)
+    return launches, median, peak
+
+
+def phase22(dev, gen, counters, loader, card):
+    """SV-DGCNN part-segmentation binary training through the fused train
+    forward at (B_TRAIN, N_PSEG, K_PSEG): knn x4, B5 fwd/bwd x1, B6
+    fwd/bwd x3 a step; the eager SVDGCNNPseg evaluates (knn x4, B7's
+    forward x4)."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNPseg, init_params_pseg
+    from svnet_tpu_torch.train.fused import make_fused_train_apply_pseg
+
+    weights = init_params_pseg(PARTS, K_PSEG, True,
+                               torch.Generator().manual_seed(SEED + 23))
+    return phase_pseg_train(
+        "phase 22", lambda oracle: make_fused_train_apply_pseg(
+            PARTS, K_PSEG, True, oracle=oracle),
+        SVDGCNNPseg(PARTS, K_PSEG, True), weights, "dgcnn",
+        {"knn": 4, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
+         "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3},
+        {"knn": 4, "sv_first_train_fwd": 1, "sv_round3_train_fwd": 3},
+        {"knn": 4, "edge_gather_fwd": 4}, loader, dev, gen, counters, card,
+        SEED + 24)
+
+
+def phase23(dev, gen, counters, loader, card):
+    """SV-PointNet part-segmentation binary training (pointnet_partseg
+    recipe) at (B_TRAIN, N_PSEG, K_PSEG): knn x1 and B7's forward x1 a
+    step (the step differentiates the weights, not the points); the eager
+    SVPointNetPseg evaluates with the same launches."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_pointnet import SVPointNetPseg, init_params_pseg
+    from svnet_tpu_torch.train.pointnet import make_train_apply_pseg
+
+    weights = init_params_pseg(PARTS, K_PSEG, True,
+                               torch.Generator().manual_seed(SEED + 25))
+    one = {"knn": 1, "edge_gather_fwd": 1}
+    return phase_pseg_train(
+        "phase 23", lambda oracle: make_train_apply_pseg(PARTS, K_PSEG, True,
+                                                         oracle=oracle),
+        SVPointNetPseg(PARTS, K_PSEG, True), weights, "pointnet_partseg", one,
+        one, one, loader, dev, gen, counters, card, SEED + 26)
 
 
 @contextlib.contextmanager
@@ -3997,7 +4186,8 @@ def main() -> int:
     p_fp = tree_map(lambda t: t.to(dev), w_fp["params"])
     phase2_train(rep, p_bin, p_fp, gen, dev)
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
-                 rounds=("conv2",))
+                 rounds={"conv2": (32, 10, 32, 10)})
+    phase2_pseg_train(rep, gen, dev)
     phase2_forced(rep, dev)
     phase2_first_forced(rep, dev)
     phase2_point_forced(rep, dev)
@@ -4145,6 +4335,18 @@ def main() -> int:
     # phase 21: the edge trunk's fast and approx mode; B4's modes
     launches.update(phase21(dg, w_bin, edge_feats, gen, dev, counters, card))
 
+    # phases 22 and 23: part-segmentation training, both families
+    p_loader = pseg_loader(dev)
+    t_pseg = time.perf_counter()
+    ps_launches, ps_step_ms, ps_peak = phase22(dev, gen, counters, p_loader, card)
+    pp_launches, pp_step_ms, pp_peak = phase23(dev, gen, counters, p_loader, card)
+    t_pseg = time.perf_counter() - t_pseg
+    for name in ("sv_first_train_fwd", "sv_first_train_bwd",
+                 "sv_round3_train_fwd", "sv_round3_train_bwd"):
+        launches[f"{name} pseg train"] = ps_launches[name]
+    launches["knn pseg train"] = ps_launches["knn"] + pp_launches["knn"]
+    launches["edge_gather_fwd pseg train"] = pp_launches["edge_gather_fwd"]
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -4238,6 +4440,9 @@ def main() -> int:
     for name in ("neg_min", "neg_min pseg"):
         src_of[name] = ("svnet_tpu_torch/csrc/knn.cu",
                         "svnet_tpu/ops/pallas/sv_round3.py:203")
+    for name in ("knn", "sv_first_train_fwd", "sv_first_train_bwd",
+                 "sv_round3_train_fwd", "sv_round3_train_bwd", "edge_gather_fwd"):
+        src_of[f"{name} pseg train"] = src_of[name]
     for name in rep.ms:
         if name.startswith("sv_round3_first cross"):
             src_of[name] = src_of["sv_round3_first"]
@@ -4270,6 +4475,10 @@ def main() -> int:
         f"{pn_step_ms:.3f} ms, peak {pn_peak / 2**30:.3f} GiB; un-fused SV-DGCNN "
         f"train step median {dg_step_ms:.3f} ms; SV-DGCNN partseg request peak "
         f"{pseg_peak / 2**30:.3f} GiB")
+    log(f"partseg train step median (B={B_TRAIN}, N={N_PSEG}, k={K_PSEG}): "
+        f"SV-DGCNN {ps_step_ms:.3f} ms, peak {ps_peak / 2**30:.3f} GiB; "
+        f"SV-PointNet {pp_step_ms:.3f} ms, peak {pp_peak / 2**30:.3f} GiB; "
+        f"phases 22-23 took {t_pseg:.1f} s")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     log(card)
     log(json.dumps({"kernels": kernels}))

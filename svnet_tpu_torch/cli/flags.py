@@ -1,9 +1,11 @@
-"""The classification flag surface of the JAX CLI (counterpart of
+"""The flag surface of the JAX CLIs (counterpart of
 svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
 Every flag of the JAX surface parses; ``check_ported`` raises for a flag
 whose feature the port does not have yet (KD, the mesh, profiling, the
-fused eval engine, the serving knobs, other models and datasets).
+fused eval engine, the serving knobs, other models and datasets). The
+ported datasets are ModelNet40 for classification and ShapeNetPart for
+part segmentation.
 """
 
 from __future__ import annotations
@@ -12,13 +14,15 @@ import argparse
 
 # flag -> value that means "off"; any other value is not ported yet
 _NOT_PORTED = {
-    "model": "svnet", "dataset": "modelnet40", "preload": None,
+    "model": "svnet", "preload": None,
     "distill": False, "profile_dir": None, "debug_nans": False,
     "engine_mode": "exact", "approx_fold": 0, "approx_gather_bits": 0,
     "fast_gather_bits": 0, "graph_reuse": "none", "reuse_k": 0,
     "train_knobs": False, "morton_entry": False, "fused": False, "dp": 1,
     "tp": 1,
 }
+# the dataset each task's port reads
+PORTED_DATASET = {"cls": "modelnet40", "partseg": "shapenetpart"}
 
 
 def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.ArgumentParser:
@@ -94,13 +98,14 @@ def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.Argumen
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default: the card, required) or 'cpu'")
-    p.set_defaults(backbone=backbone)
+    p.set_defaults(backbone=backbone, task=task)
     return p
 
 
 def check_ported(args) -> None:
     """Raise for every flag set to a feature the port does not have."""
-    for name, off in _NOT_PORTED.items():
+    offs = {**_NOT_PORTED, "dataset": PORTED_DATASET[getattr(args, "task", "cls")]}
+    for name, off in offs.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}={getattr(args, name)!r} is not "

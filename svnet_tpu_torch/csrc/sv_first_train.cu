@@ -23,3 +23,7 @@ extern "C" int sv_first_train_launch(int phase, void* const* ptrs,
                                      const int* dims, void* stream) {
   return tr_run(phase, ptrs, dims, /*first=*/1, stream);
 }
+
+extern "C" int sv_first_train_tile(int phase, const int* dims) {
+  return tr_tile(phase, dims, /*first=*/1);
+}

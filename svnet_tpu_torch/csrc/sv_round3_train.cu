@@ -35,3 +35,7 @@ extern "C" int sv_round3_train_launch(int phase, void* const* ptrs,
                                       const int* dims, void* stream) {
   return tr_run(phase, ptrs, dims, /*first=*/0, stream);
 }
+
+extern "C" int sv_round3_train_tile(int phase, const int* dims) {
+  return tr_tile(phase, dims, /*first=*/0);
+}

@@ -878,10 +878,8 @@ static cudaError_t tr_launch_phase(const TrArgs& A, const TrDims& D, int nblocks
   return tr_launch_tile<PH, TR_TP>(A, D, nblocks, st);
 }
 
-// One phase of a training round. ptrs: P_COUNT pointers in the P_* order
-// (unused slots may be null); dims: D_COUNT ints in the D_* order.
-static int tr_run(int phase, void* const* ptrs, const int* dims, int first,
-                  void* stream) {
+// dims: D_COUNT ints in the D_* order.
+static TrDims tr_dims(const int* dims, int first) {
   TrDims D;
   D.B = dims[D_B];
   D.N = dims[D_N];
@@ -896,7 +894,27 @@ static int tr_run(int phase, void* const* ptrs, const int* dims, int first,
   D.twoV = 2 * D.V;
   D.SX = first ? 3 * D.twoV : 2 * D.S;
   D.IN1 = D.SX + 3 * D.twoV;
-  const int nblocks = dims[D_NBLOCKS];
+  D.nrows = dims[D_NBLOCKS];
+  return D;
+}
+
+// Centre points per tile that a phase launches with at these dims (B2:
+// TR_TP / 2 where TR_TP's layout exceeds the shared-memory limit), 0 where
+// neither fits.
+static int tr_tile(int phase, const int* dims, int first) {
+  const TrDims D = tr_dims(dims, first);
+  if (tr_layout(D, phase, TR_TP).total <= SV_SMEM_LIMIT) return TR_TP;
+  if (phase == TR_B2 && tr_layout(D, phase, TR_TP / 2).total <= SV_SMEM_LIMIT)
+    return TR_TP / 2;
+  return 0;
+}
+
+// One phase of a training round. ptrs: P_COUNT pointers in the P_* order
+// (unused slots may be null).
+static int tr_run(int phase, void* const* ptrs, const int* dims, int first,
+                  void* stream) {
+  const TrDims D = tr_dims(dims, first);
+  const int nblocks = D.nrows;
   if (D.k < 1 || D.k > D.N || nblocks < 1 || (first && (D.S != 0 || D.V != 1)))
     return (int)cudaErrorInvalidValue;
   TrArgs A;

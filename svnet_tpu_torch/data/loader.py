@@ -1,7 +1,10 @@
 """Batched loader (counterpart of svnet_tpu/data/loader.py) that hands
 batches to the device: ``points`` (B, n, 3) float32 and ``target`` (B,)
 int64 tensors on ``device`` (the card unless the caller asks for the
-CPU), plus ``pad`` and ``size``. ``num_workers > 0`` assembles batches
+CPU), plus ``pad`` and ``size``. A part-segmentation dataset's batch
+(items ``(points, category, seg)``) also holds ``label``, the (B, 16)
+float32 one-hot of the category, and ``category`` (B,); its ``target`` is
+the per-point part ids ``seg`` (B, n). ``num_workers > 0`` assembles batches
 in one producer thread ahead of the consumer; the order and the random
 draws are the same either way."""
 
@@ -17,6 +20,7 @@ import torch
 from svnet_tpu_torch import config
 
 PREFETCH = 3  # batches the producer thread may run ahead of the consumer
+NUM_CATEGORIES = 16  # ShapeNet part's categories: the width of ``label``
 
 
 class Loader:
@@ -56,9 +60,16 @@ class Loader:
     def _collate(self, items, pad):
         points = np.stack([it[0] for it in items]).astype("float32")
         target = np.asarray([it[1] for it in items], dtype=np.int64)
-        return {"points": torch.from_numpy(points).to(self.device),
-                "target": torch.from_numpy(target).to(self.device),
-                "pad": pad, "size": len(items) - pad}
+        batch = {"points": points, "target": target, "pad": pad,
+                 "size": len(items) - pad}
+        if len(items[0]) == 3:  # part segmentation: (points, category, seg)
+            label = np.zeros((len(items), NUM_CATEGORIES), dtype=np.float32)
+            label[np.arange(len(items)), target] = 1.0
+            batch["label"], batch["category"] = label, target
+            batch["target"] = batch["seg"] = np.stack(
+                [it[2] for it in items]).astype(np.int64)
+        return {n: torch.from_numpy(v).to(self.device)
+                if isinstance(v, np.ndarray) else v for n, v in batch.items()}
 
     def __iter__(self) -> Iterator[dict]:
         if self.num_workers <= 0:

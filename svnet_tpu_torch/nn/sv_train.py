@@ -7,8 +7,8 @@ running statistics. BatchNorm normalizes over all leading axes with the
 biased batch statistics and moves the running statistics by ``1 - BN_MOM``
 toward them (flax ``momentum=0.9``; the unbiased variance of torch's own
 BatchNorm is not used). Binarized layers sign through the straight-through
-``ste_sign``. Used by the fused SV-DGCNN train forward (train/fused.py) and
-the SV-PointNet train forward (train/pointnet.py).
+``ste_sign``. Used by the fused SV-DGCNN train forwards (train/fused.py)
+and the SV-PointNet train forwards (train/pointnet.py).
 """
 
 from __future__ import annotations
@@ -48,14 +48,17 @@ def linear_train(p: dict, x: torch.Tensor, bw: bool, ba: bool) -> torch.Tensor:
     return y + p["bias"] if "bias" in p else y
 
 
-def v2s_train(p: dict, v: torch.Tensor) -> torch.Tensor:
-    """Vector2Scalar; its frame is binarized iff the layer has a scale."""
+def v2s_train(p: dict, v: torch.Tensor, trans_back: bool = False):
+    """Vector2Scalar; its frame is binarized iff the layer has a scale.
+    ``trans_back`` also returns the frame z (..., 3, multi), as
+    ``SVFuse(trans_back=True)`` does."""
     lp = p["linear"]
     z = v @ (ste_sign(lp["kernel"]) if "scale" in lp else lp["kernel"])
     if "scale" in lp:
         z = z * lp["scale"]
     s = sum(v[..., i, :, None] * z[..., i, None, :] for i in range(3))
-    return s.reshape(s.shape[:-2] + (-1,))
+    s = s.reshape(s.shape[:-2] + (-1,))
+    return (s, z) if trans_back else s
 
 
 def vector_bn_train(p: dict, st: dict, v: torch.Tensor):

@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes), all return an int (a
-# cudaError_t, but for sv_block_point_ppb and sv_pack_bytes)
+# cudaError_t, but for sv_block_point_ppb, sv_pack_bytes and the
+# training rounds' *_tile queries)
 SIGNATURES = {
     # pts, aa, 8 weights, s_out, v_out, ssum, wins, pts_q, tile_scale,
     # keep, ok; B N k S_out V_out cross T L W LW; stream
@@ -71,6 +72,9 @@ SIGNATURES = {
     "sv_block_point_launch": [_P] * 14 + [_I] * 7 + [_P],
     # S V S_out V_out binary -> points per block
     "sv_block_point_ppb": [_I] * 5,
+    # phase, dims (the launch's 9 ints) -> centre points per tile, 0: none
+    "sv_round3_train_tile": [_I, _P],
+    "sv_first_train_tile": [_I, _P],
     # K S_out -> bytes of W1's packed signs
     "sv_pack_bytes": [_I] * 2,
     # w1, out; K S_out; stream

@@ -351,6 +351,16 @@ def _launch(symbol: str, phase: str, d: RoundDims, B: int, N: int,
     _build.check(err, f"{symbol} {phase}")
 
 
+def tile(d: RoundDims, phase: str) -> int:
+    """Centre points per tile that the kernel launches ``phase`` with at
+    ``d``'s widths: 16, or 8 where b2's layout would exceed the shared
+    memory with 16 (0: none fits). Builds the kernels."""
+    dims = (ctypes.c_int * 9)(1, d.k, d.k, d.S, d.V, d.S_out, d.V_out,
+                              int(d.binary), 1)
+    symbol = "sv_first_train_tile" if d.first else "sv_round3_train_tile"
+    return getattr(_build.lib(), symbol)(PHASE[phase], dims)
+
+
 def check_inputs(src, idx, d: RoundDims):
     """Shapes of a round's src (B, N, C) and ids (B, N, k)."""
     if src.dim() != 3 or src.shape[-1] != d.C:

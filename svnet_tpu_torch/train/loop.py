@@ -1,6 +1,6 @@
-"""Classification training driver (counterpart of
-svnet_tpu/train/loop.py::run_cls, SV-DGCNN and SV-PointNet on ModelNet40,
-train path).
+"""Classification and part-segmentation training loops (counterpart of
+svnet_tpu/train/loop.py::run_cls and run_partseg, SV-DGCNN and
+SV-PointNet on ModelNet40 and ShapeNetPart, train path).
 
 Epochs of train steps (SV-DGCNN: the fused train forward; SV-PointNet:
 the flax-equivalent train forward of ``train/pointnet.py``); before each
@@ -13,6 +13,7 @@ on its own, so a caller can drive it with any dataset the Loader accepts.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -21,15 +22,18 @@ import torch
 
 from svnet_tpu_torch import config
 from svnet_tpu_torch.cli.flags import check_ported
-from svnet_tpu_torch.data import Loader, ModelNet40
-from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls
-from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls
+from svnet_tpu_torch.data import Loader, ModelNet40, ShapeNetPart
+from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, SVDGCNNPseg
+from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls, SVPointNetPseg
 from svnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from svnet_tpu_torch.train.fused import make_fused_train_apply
+from svnet_tpu_torch.train.fused import (
+    make_fused_train_apply,
+    make_fused_train_apply_pseg,
+)
 from svnet_tpu_torch.train.logs import configure_logging
 from svnet_tpu_torch.train.losses import cal_loss
-from svnet_tpu_torch.train.metrics import accuracy, balanced_accuracy
-from svnet_tpu_torch.train.pointnet import make_train_apply_cls
+from svnet_tpu_torch.train.metrics import accuracy, balanced_accuracy, shape_iou
+from svnet_tpu_torch.train.pointnet import make_train_apply_cls, make_train_apply_pseg
 from svnet_tpu_torch.train.steps import (
     create_state,
     make_eval_step,
@@ -37,6 +41,8 @@ from svnet_tpu_torch.train.steps import (
     make_train_step,
 )
 from svnet_tpu_torch.utils.convert import flatten, load_tree, module_tree, nest
+
+NUM_PARTS = 50  # ShapeNetPart's part labels
 
 
 def _weighted_loss(losses, counts) -> float:
@@ -57,11 +63,24 @@ def _build_cls_model(args, num_classes: int):
                                           dropout=args.dropout), "dgcnn")
 
 
+def _build_pseg_model(args, num_part: int):
+    """As ``_build_cls_model``, for part segmentation."""
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.backbone == "pointnet":
+        model = SVPointNetPseg(num_part, args.k, args.binary, gen)
+        return (model, make_train_apply_pseg(num_part, args.k, args.binary),
+                "pointnet_partseg")
+    model = SVDGCNNPseg(num_part, args.k, args.binary, gen)
+    return (model, make_fused_train_apply_pseg(num_part, args.k, binary=args.binary,
+                                               dropout=args.dropout), "dgcnn")
+
+
 def train_epoch(state, train_step, loader, generator, log_string=print,
                 epoch: int = 0, epochs: int = 1) -> dict:
     """One pass of train steps over ``loader``. Returns the epoch's
-    loss, accuracy, balanced accuracy, wall seconds and the time of each
-    step in ms (CUDA events on the card, the host clock on the CPU)."""
+    loss, accuracy (per point, for part segmentation), balanced accuracy
+    (classification only), wall seconds and the time of each step in ms
+    (CUDA events on the card, the host clock on the CPU)."""
     t0 = time.time()
     cuda = loader.device.type == "cuda"
     true, pred, losses, counts, marks = [], [], [], [], []
@@ -92,13 +111,16 @@ def train_epoch(state, train_step, loader, generator, log_string=print,
         step_ms = [(b - a) * 1e3 for a, b in zip(marks[::2], marks[1::2])]
     y_true = torch.cat(true).cpu().numpy()
     y_pred = torch.cat(pred).cpu().numpy()
-    out = {"loss": _weighted_loss(losses, counts),
-           "acc": accuracy(y_true, y_pred),
-           "avg_acc": balanced_accuracy(y_true, y_pred),
+    out = {"loss": _weighted_loss(losses, counts), "acc": accuracy(y_true, y_pred),
            "seconds": time.time() - t0, "step_ms": step_ms}
+    median = f"{out['seconds']:.1f}s, median step {float(np.median(step_ms)):.3f} ms"
+    if y_true.ndim > 1:
+        log_string(f"TRAIN: loss {out['loss']:.6f}, point acc {out['acc']:.6f} "
+                   f"({median})")
+        return out
+    out["avg_acc"] = balanced_accuracy(y_true, y_pred)
     log_string(f"TRAIN: loss {out['loss']:.6f}, acc {out['acc']:.6f}, avg acc "
-               f"{out['avg_acc']:.6f} ({out['seconds']:.1f}s, median step "
-               f"{float(np.median(step_ms)):.3f} ms)")
+               f"{out['avg_acc']:.6f} ({median})")
     return out
 
 
@@ -126,10 +148,12 @@ def bn_reestimate(recal_step, state, loader, generator, n: int) -> dict:
     return nest({p: v / done for p, v in acc.items()})
 
 
-def eval_cls(eval_step, model, state, loader, generator, log_string=print):
-    """Eval through the eager model with the state's current weights."""
+def _eval_batches(eval_step, model, state, loader, generator):
+    """Eval through the eager model with the state's current weights:
+    (loss, truth, predictions, categories), the pad of the last batch
+    dropped."""
     load_tree(model, state.tree())
-    true, pred, losses, counts = [], [], [], []
+    true, pred, cats, losses, counts = [], [], [], [], []
     for batch in loader:
         loss, preds = eval_step(batch, generator)
         size = batch["size"]
@@ -137,95 +161,178 @@ def eval_cls(eval_step, model, state, loader, generator, log_string=print):
         counts.append(size)
         true.append(batch["target"][:size])
         pred.append(preds[:size])
-    y_true = torch.cat(true).cpu().numpy()
-    y_pred = torch.cat(pred).cpu().numpy()
-    loss = _weighted_loss(losses, counts)
+        if "category" in batch:
+            cats.append(batch["category"][:size])
+    cat = torch.cat(cats).cpu().numpy() if cats else None
+    return (_weighted_loss(losses, counts), torch.cat(true).cpu().numpy(),
+            torch.cat(pred).cpu().numpy(), cat)
+
+
+def eval_cls(eval_step, model, state, loader, generator, log_string=print):
+    """Eval through the eager model with the state's current weights."""
+    loss, y_true, y_pred, _ = _eval_batches(eval_step, model, state, loader,
+                                            generator)
     acc, avg = accuracy(y_true, y_pred), balanced_accuracy(y_true, y_pred)
     log_string(f"TEST: loss {loss:.6f}, acc {acc:.6f}, avg acc {avg:.6f}")
     return acc, avg, loss
 
 
-def run_cls(args) -> Optional[float]:
-    """Classification driver: ModelNet40, binary or FP SV-DGCNN or
-    SV-PointNet (``args.backbone``)."""
-    check_ported(args)
-    dev = config.resolve_device(args.device)
-    log_string = configure_logging(args.save_dir, "cls")
-    epoch_string = configure_logging(args.save_dir, "cls", "log")
-    epoch_string(str(vars(args)))
-    num_classes = 40
-    model, apply, recipe = _build_cls_model(args, num_classes)
-    if args.checkinfo:
-        n = sum(p.numel() for p in model.parameters())
-        print(f"Number of Parameters: {n / 1e6:.6f}M")
-        return None
-    weights = module_tree(model)
-    model = model.to(dev).eval()
+def eval_pseg(eval_step, model, state, loader, generator, log_string=print):
+    """Part-segmentation eval through the eager model: the mean over
+    shapes of ``shape_iou``, the point accuracy and the loss."""
+    loss, seg, pred, cat = _eval_batches(eval_step, model, state, loader,
+                                         generator)
+    iou = float(np.mean(shape_iou(pred, seg, cat)))
+    acc = accuracy(seg, pred)
+    log_string(f"TEST: loss {loss:.6f}, iou {iou:.6f}, point acc {acc:.6f}")
+    return iou, acc, loss
 
-    train_set = ModelNet40(args.num_points, args.data_dir, "train", seed=args.seed)
-    test_set = ModelNet40(args.num_points, args.data_dir, "test", seed=args.seed + 1)
-    train_loader = Loader(train_set, args.batch_size, shuffle=True, drop_last=True,
-                          seed=args.seed, num_workers=args.num_workers, device=dev)
-    test_loader = Loader(test_set, args.batch_size, shuffle=False, pad_last=True,
-                         device=dev)
-    log_string(f"trainloader: {len(train_set)}, test_loader: {len(test_set)}")
 
-    state = create_state(weights, binary=args.binary, lr=args.lr,
-                         epochs=args.epochs, steps_per_epoch=len(train_loader),
-                         momentum=args.momentum, weight_decay=args.wd,
-                         opt=args.opt, recipe=recipe, device=dev)
-    train_step = make_train_step(apply, cal_loss, rot=args.rot)
-    eval_step = make_eval_step(model, cal_loss, rot_test=args.rot_test)
-    recal_n = resolve_recal_n(args)
-    recal_step = make_recal_step(apply, rot=args.rot) if recal_n else None
-    if recal_n:
-        log_string(f"BN re-estimation before eval: {recal_n} train batches")
+class _Run:
+    """What both trainers share: the device, the two logs, the eager model,
+    the train state, the steps, BN re-estimation, checkpoint restore and
+    save."""
 
-    start_epoch, best_acc = 0, 0.0
-    ckpt = load_checkpoint(args.save_dir, test=args.test,
-                           resume_from=args.resume_from, resume=args.resume,
-                           device=dev)
-    if ckpt is not None:
+    def __init__(self, args, task: str):
+        check_ported(args)
+        self.args, self.task = args, task
+        self.dev = config.resolve_device(args.device)
+        self.log = configure_logging(args.save_dir, task)
+        self.epoch_log = configure_logging(args.save_dir, task, "log")
+        self.epoch_log(str(vars(args)))
+
+    def prepare(self, built, loss_fn, train_set, test_set) -> None:
+        """The loaders, the train state from the built model's weights,
+        and the steps."""
+        args = self.args
+        model, apply, recipe = built
+        weights = module_tree(model)
+        self.model = model.to(self.dev).eval()
+        with_label = self.task == "partseg"
+        self.train_loader = Loader(train_set, args.batch_size, shuffle=True,
+                                   drop_last=True, seed=args.seed,
+                                   num_workers=args.num_workers, device=self.dev)
+        self.test_loader = Loader(test_set, args.batch_size, shuffle=False,
+                                  pad_last=True, device=self.dev)
+        self.log(f"trainloader: {len(train_set)}, test_loader: {len(test_set)}")
+        self.state = create_state(
+            weights, binary=args.binary, lr=args.lr, epochs=args.epochs,
+            steps_per_epoch=len(self.train_loader), momentum=args.momentum,
+            weight_decay=args.wd, opt=args.opt, recipe=recipe, device=self.dev)
+        self.train_step = make_train_step(apply, loss_fn, rot=args.rot,
+                                          with_label=with_label)
+        self.eval_step = make_eval_step(self.model, loss_fn, rot_test=args.rot_test,
+                                        with_label=with_label)
+        self.recal_n = resolve_recal_n(args)
+        self.recal_step = (make_recal_step(apply, rot=args.rot, with_label=with_label)
+                           if self.recal_n else None)
+        if self.recal_n:
+            self.log(f"BN re-estimation before eval: {self.recal_n} train batches")
+        self.generator = torch.Generator().manual_seed(args.seed + 123)
+        self.save_id = None
+
+    def restore(self):
+        """(first epoch, best metric) after loading the checkpoint that
+        --test, --resume-from or --resume names, if any."""
+        args, state = self.args, self.state
+        ckpt = load_checkpoint(args.save_dir, test=args.test,
+                               resume_from=args.resume_from, resume=args.resume,
+                               device=self.dev)
+        if ckpt is None:
+            self.log("no checkpoint loaded")
+            return 0, 0.0
         saved = flatten(ckpt["params"])
         with torch.no_grad():
             for path, leaf in flatten(state.params).items():
                 leaf.copy_(saved[path])
         state.batch_stats = ckpt["batch_stats"]
-        if args.test is None:
-            state.opt.load_state_dict(ckpt["opt_state"])
-            state.step = ckpt["step"]
-            start_epoch = ckpt["epoch"] + 1
-            best_acc = ckpt["best_metric"]
-        log_string("checkpoint loaded successfully")
-    else:
-        log_string("no checkpoint loaded")
+        self.log("checkpoint loaded successfully")
+        if args.test is not None:
+            return 0, 0.0
+        state.opt.load_state_dict(ckpt["opt_state"])
+        state.step = ckpt["step"]
+        return ckpt["epoch"] + 1, ckpt["best_metric"]
 
-    generator = torch.Generator().manual_seed(args.seed + 123)
-    if args.test is not None:
-        return eval_cls(eval_step, model, state, test_loader, generator,
-                        log_string)[0]
+    def train(self, epoch: int) -> dict:
+        tr = train_epoch(self.state, self.train_step, self.train_loader,
+                         self.generator, self.log, epoch, self.args.epochs)
+        if self.recal_step is not None:
+            self.state.batch_stats = bn_reestimate(
+                self.recal_step, self.state, self.train_loader, self.generator,
+                self.recal_n)
+        return tr
 
-    save_id = None
-    for epoch in range(start_epoch, args.epochs):
-        tr = train_epoch(state, train_step, train_loader, generator, log_string,
-                         epoch, args.epochs)
-        if recal_step is not None:
-            state.batch_stats = bn_reestimate(recal_step, state, train_loader,
-                                              generator, recal_n)
-        test_acc, test_avg, test_loss = eval_cls(eval_step, model, state,
-                                                 test_loader, generator, log_string)
-        is_best = test_acc >= best_acc
-        best_acc = max(best_acc, test_acc)
-        tree = state.tree()
-        save_id = save_checkpoint(
+    def evaluate(self, eval_fn):
+        return eval_fn(self.eval_step, self.model, self.state, self.test_loader,
+                       self.generator, self.log)
+
+    def save(self, epoch: int, is_best: bool, best: float) -> None:
+        tree = self.state.tree()
+        self.save_id = save_checkpoint(
             {"epoch": epoch, "params": tree["params"],
              "batch_stats": tree["batch_stats"],
-             "opt_state": state.opt.state_dict(), "step": state.step,
-             "best_metric": best_acc},
-            epoch, args.save_dir, is_best, save_id)
-        epoch_string(
+             "opt_state": self.state.opt.state_dict(), "step": self.state.step,
+             "best_metric": best},
+            epoch, self.args.save_dir, is_best, self.save_id)
+
+
+def _param_count(model) -> None:
+    n = sum(p.numel() for p in model.parameters())
+    print(f"Number of Parameters: {n / 1e6:.6f}M")
+
+
+def run_cls(args) -> Optional[float]:
+    """Classification trainer: ModelNet40, binary or FP SV-DGCNN or
+    SV-PointNet (``args.backbone``)."""
+    run = _Run(args, "cls")
+    built = _build_cls_model(args, 40)
+    if args.checkinfo:
+        return _param_count(built[0])
+    run.prepare(built, cal_loss,
+                ModelNet40(args.num_points, args.data_dir, "train", seed=args.seed),
+                ModelNet40(args.num_points, args.data_dir, "test", seed=args.seed + 1))
+    start_epoch, best_acc = run.restore()
+    if args.test is not None:
+        return run.evaluate(eval_cls)[0]
+    for epoch in range(start_epoch, args.epochs):
+        tr = run.train(epoch)
+        test_acc, test_avg, test_loss = run.evaluate(eval_cls)
+        is_best = test_acc >= best_acc
+        best_acc = max(best_acc, test_acc)
+        run.save(epoch, is_best, best_acc)
+        run.epoch_log(
             f"EPOCH {epoch:03d}/{args.epochs:03d} | Test: loss {test_loss:.6f}, "
             f"acc {test_acc:.6f}, avg acc {test_avg:.6f} | Train: loss "
             f"{tr['loss']:.6f}, acc {tr['acc']:.6f}, avg acc {tr['avg_acc']:.6f} | "
             f"{time.strftime('%Y-%m-%d-%H-%M-%S')}")
     return best_acc
+
+
+def run_partseg(args) -> Optional[float]:
+    """Part-segmentation trainer: ShapeNetPart (trainval for training, test
+    for eval; ``--class-choice`` keeps one category), binary or FP
+    SV-DGCNN or SV-PointNet (``args.backbone``); reports the mean shape
+    IoU."""
+    run = _Run(args, "partseg")
+    built = _build_pseg_model(args, NUM_PARTS)
+    if args.checkinfo:
+        return _param_count(built[0])
+    sets = [ShapeNetPart(args.num_points, args.data_dir, part, args.class_choice,
+                         seed) for part, seed in (("trainval", args.seed),
+                                                  ("test", args.seed + 1))]
+    run.prepare(built, functools.partial(cal_loss, smoothing=args.smoothing),
+                *sets)
+    start_epoch, best_iou = run.restore()
+    if args.test is not None:
+        return run.evaluate(eval_pseg)[0]
+    for epoch in range(start_epoch, args.epochs):
+        tr = run.train(epoch)
+        test_iou, test_acc, test_loss = run.evaluate(eval_pseg)
+        is_best = test_iou >= best_iou
+        best_iou = max(best_iou, test_iou)
+        run.save(epoch, is_best, best_iou)
+        run.epoch_log(
+            f"EPOCH {epoch:03d}/{args.epochs:03d} | Test: loss {test_loss:.6f}, "
+            f"iou {test_iou:.6f}, acc {test_acc:.6f} | Train: loss "
+            f"{tr['loss']:.6f} | {time.strftime('%Y-%m-%d-%H-%M-%S')}")
+    return best_iou

@@ -1,13 +1,15 @@
-"""Optimizers and LR schedules of the DGCNN and SV-PointNet cls recipes
-(counterpart of svnet_tpu/train/optim.py::make_optimizer, recipes 'dgcnn'
-and 'pointnet_cls').
+"""Optimizers and LR schedules of the DGCNN and SV-PointNet recipes
+(counterpart of svnet_tpu/train/optim.py::make_optimizer, recipes 'dgcnn',
+'pointnet_cls' and 'pointnet_partseg').
 
 Adam adds the L2 weight decay to the gradient before the moments (torch
 ``Adam(weight_decay=...)``, optax ``add_decayed_weights`` before
 ``scale_by_adam``). 'dgcnn': binary, Adam and a per-epoch cosine from lr
 to 0; FP, SGD with momentum 0.9, lr x 100, cosine to ``eta_min = lr``;
 ``opt`` forces 'adam' or 'sgd' ('auto' keeps the recipe's choice).
-'pointnet_cls': always Adam and StepLR(20, 0.7) per epoch. The schedule
+'pointnet_cls': always Adam and StepLR(20, 0.7) per epoch;
+'pointnet_partseg': Adam and lr * 0.5 ** (epoch // 20), at least 1e-5
+(``manual_clip_schedule``). The schedule
 is a function of the optimizer step, applied by the train step.
 """
 
@@ -41,6 +43,19 @@ def step_schedule(lr0: float, steps_per_epoch: int, step_size: int = 20,
     return schedule
 
 
+def manual_clip_schedule(lr0: float, steps_per_epoch: int, gamma: float = 0.5,
+                         step_size: int = 20,
+                         floor: float = 1e-5) -> Callable[[int], float]:
+    """lr0 * gamma ** (epoch // step_size), at least ``floor``, stepped per
+    epoch, as a function of the step."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return max(lr0 * gamma ** (epoch // step_size), floor)
+
+    return schedule
+
+
 def make_optimizer(params: Iterable[torch.Tensor], *, binary: bool, lr: float,
                    epochs: int, steps_per_epoch: int, momentum: float = 0.9,
                    weight_decay: float = 1e-4, recipe: str = "dgcnn",
@@ -48,11 +63,12 @@ def make_optimizer(params: Iterable[torch.Tensor], *, binary: bool, lr: float,
     """Returns (optimizer, schedule(step) -> lr)."""
     if opt not in ("auto", "adam", "sgd"):
         raise ValueError(f"unknown optimizer {opt!r}")
-    if recipe == "pointnet_cls":
-        sched = step_schedule(lr, steps_per_epoch)
+    if recipe in ("pointnet_cls", "pointnet_partseg"):
+        sched = (step_schedule if recipe == "pointnet_cls"
+                 else manual_clip_schedule)(lr, steps_per_epoch)
         return torch.optim.Adam(params, lr=sched(0), weight_decay=weight_decay), sched
     if recipe != "dgcnn":
-        raise NotImplementedError(f"optimizer recipe {recipe!r} is not ported")
+        raise ValueError(f"unknown recipe {recipe!r}")
     use_adam = binary if opt == "auto" else opt == "adam"
     if use_adam:
         sched = cosine_schedule(lr, epochs, steps_per_epoch, eta_min=0.0)

@@ -1,6 +1,8 @@
-"""Train-mode forward of SV-PointNet classification (counterpart of
+"""Train-mode forwards of SV-PointNet classification and part
+segmentation (counterparts of
 ``svnet_tpu/models/sv_pointnet.py::SV_PointNet_CLS.apply(..., train=True,
-mutable=["batch_stats"])``, the flax path of svnet_tpu/train/steps.py).
+mutable=["batch_stats"])`` and of ``SV_PointNet_PSEG``'s, the flax path of
+svnet_tpu/train/steps.py).
 
 ``apply(params, batch_stats, points, generator=None) -> (logits,
 new_batch_stats)`` on the flax-named trees, the signature of
@@ -12,7 +14,8 @@ layers of ``nn/sv_train.py``: the FP conv_pos on the B*N*k edges (its
 BatchNorm reduces over all of them), the pool over k, conv1, the SV_STNkd
 token, conv2, conv3, the global-mean concat, conv_fuse, the pool over the
 points, SVFuse and the head ``relu(bn1(fc1))``, ``relu(bn2(dropout(fc2)))``,
-fc3. The pools are ``torch.amax``, whose gradient is split evenly among
+fc3 (the part segmenter: ``make_train_apply_pseg``). The pools are
+``torch.amax``, whose gradient is split evenly among
 tied entries, as JAX's ``max`` splits it.
 
 The gradient is taken with respect to the weights only, as the JAX step
@@ -79,3 +82,57 @@ def make_train_apply_cls(num_classes: int, k: int, binary: bool,
 def _bn(params, batch_stats, name, x):
     y, st = svt.bn_train(params[name]["bn"], batch_stats[name]["bn"], x)
     return y, {"bn": st}
+
+
+def make_train_apply_pseg(num_part: int, k: int, binary: bool,
+                          oracle: bool = False):
+    """Returns ``apply(params, batch_stats, points, label, generator=None)
+    -> (logits (B, N, num_part), new_batch_stats)`` of ``SV_PointNet_PSEG``
+    in train mode; ``label`` is the (B, 16) one-hot category. The cross
+    edges, conv_pos and the pool over k as in the classifier; conv1-3, the
+    SV_STNkd token on conv3, conv4 and conv5; SVFuse with its frame on
+    [conv5 | its mean over the points]; the conv_fuse bottleneck pooled
+    over the points (mean when binary, max when FP) beside the label; the
+    skip vectors of conv1-5 un-projected through the frame; convs1-3 and
+    the FP convs4. The model has no dropout: ``generator`` is unused.
+    ``oracle`` as in ``make_train_apply_cls``."""
+    del num_part  # the head's width comes from the weights
+
+    def apply(params, batch_stats, points, label, generator=None):
+        p, bs, new = params, batch_stats, {}
+        B, N = points.shape[:2]
+
+        def block(name, x, blk_binary=binary):
+            y, new[name] = svt.svblock_train(p[name], bs[name], x, blk_binary)
+            return y
+
+        def conv_bn_relu(name, x):
+            y, new[f"{name}_bn"] = _bn(p, bs, f"{name}_bn", svt.linear_train(
+                p[f"{name}_conv"], x, binary, binary))
+            return torch.relu(y)
+
+        v = get_graph_feature_cross(points, k, plain=oracle)  # (B, N, k, 3, 3)
+        x = svpool(block("conv_pos", (svt.v2s_train(p["init_scalar"], v), v),
+                         False))  # always FP
+        out1 = block("conv1", x)
+        out2 = block("conv2", out1)
+        out3 = block("conv3", out2)
+        tok, new["fstn"] = svt.stn_train(p["fstn"], bs["fstn"], out3, binary)
+        out4 = block("conv4", svcat([out3, svexpand((tok[0][:, None],
+                                                     tok[1][:, None]), out3)]))
+        out5 = block("conv5", out4)
+        s, v = svcat([out5, svexpand(svpool(out5, dim=1, keepdim=True,
+                                            spool="mean"), out5)])
+        sv, trans = svt.v2s_train(p["svfuse"]["v2s"], v, trans_back=True)
+        x = conv_bn_relu("conv_fuse2", conv_bn_relu("conv_fuse1",
+                                                    torch.cat([s, sv], dim=-1)))
+        x = torch.mean(x, dim=1) if binary else torch.amax(x, dim=1)
+        x_l = torch.cat([x, label], dim=-1)[:, None, :].expand(B, N, -1)
+        cs, cv = svcat([out1, out2, out3, out4, out5])
+        concat_v = torch.einsum("bnic,bnik->bnck", cv, trans).reshape(B, N, -1)
+        net = torch.cat([x_l, cs, concat_v], dim=-1)
+        for name in ("convs1", "convs2", "convs3"):
+            net = conv_bn_relu(name, net)
+        return svt.linear_train(p["convs4"], net, False, False), new
+
+    return apply

@@ -7,6 +7,8 @@ The JAX ``TrainState`` becomes the weight trees plus a torch optimizer:
 the moments. The step updates both trees in place of the JAX step's new
 state, and leaves each parameter's gradient of the step in ``.grad``.
 Rotation augmentation draws from the step's explicit ``torch.Generator``.
+``with_label=True`` (part segmentation) hands the batch's one-hot
+category ``label`` to the forward after the points.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def create_state(weights: dict, *, binary: bool, lr: float, epochs: int,
                  weight_decay: float = 1e-4, opt: str = "auto",
                  recipe: str = "dgcnn", device="cuda") -> TrainState:
     """A train state from a weight tree (``init_params``, ``from_flax`` or a
-    checkpoint) and the optimizer ``recipe`` ('dgcnn', 'pointnet_cls'), on
-    the card unless ``device="cpu"``."""
+    checkpoint) and the optimizer ``recipe`` ('dgcnn', 'pointnet_cls',
+    'pointnet_partseg'), on the card unless ``device="cpu"``."""
     dev = config.resolve_device(device)
     if dev.type == "cuda":
         config.set_full_fp32()
@@ -63,17 +65,25 @@ def create_state(weights: dict, *, binary: bool, lr: float, epochs: int,
     return TrainState(params, stats, optimizer, sched)
 
 
-def make_train_step(apply, loss_fn, rot: str = "aligned"):
+def _inputs(batch: dict, rot: str, generator, with_label: bool) -> tuple:
+    points = apply_rotation_aug(batch["points"], rot, generator)
+    return (points, batch["label"]) if with_label else (points,)
+
+
+def make_train_step(apply, loss_fn, rot: str = "aligned",
+                    with_label: bool = False):
     """``step(state, batch, generator) -> (loss, preds)``: rotation
     augmentation, the train forward ``apply`` (``make_fused_train_apply``
-    or ``train.pointnet.make_train_apply_cls``), the loss, its gradients
-    and one optimizer update at the schedule's rate for this step."""
+    or ``train.pointnet.make_train_apply_cls``; with a label,
+    ``make_fused_train_apply_pseg`` or ``make_train_apply_pseg``), the
+    loss, its gradients and one optimizer update at the schedule's rate
+    for this step."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
-        points = apply_rotation_aug(batch["points"], rot, generator)
+        inputs = _inputs(batch, rot, generator, with_label)
         for group in state.opt.param_groups:
             group["lr"] = state.schedule(state.step)
-        logits, new_stats = apply(state.params, state.batch_stats, points,
+        logits, new_stats = apply(state.params, state.batch_stats, *inputs,
                                   generator)
         loss = loss_fn(logits, batch["target"])
         state.opt.zero_grad(set_to_none=True)
@@ -86,30 +96,30 @@ def make_train_step(apply, loss_fn, rot: str = "aligned"):
     return step
 
 
-def make_recal_step(apply, rot: str = "aligned"):
+def make_recal_step(apply, rot: str = "aligned", with_label: bool = False):
     """``step(params, batch_stats, batch, generator) -> new batch_stats``:
     a train-mode forward at fixed weights that only moves the running
     statistics (BN re-estimation before eval)."""
 
     @torch.no_grad()
     def step(params, batch_stats, batch, generator):
-        points = apply_rotation_aug(batch["points"], rot, generator)
-        return apply(params, batch_stats, points, generator)[1]
+        inputs = _inputs(batch, rot, generator, with_label)
+        return apply(params, batch_stats, *inputs, generator)[1]
 
     return step
 
 
-def make_eval_step(model, loss_fn, rot_test: str = "so3"):
+def make_eval_step(model, loss_fn, rot_test: str = "so3",
+                   with_label: bool = False):
     """``step(batch, generator) -> (loss, preds)`` through the eager eval
     model (``models.sv_dgcnn.SVDGCNNCls`` or
-    ``models.sv_pointnet.SVPointNetCls``, whose kNN and neighbour gathers
-    launch kernels B4 and B7 on the card); load the weights into ``model``
-    first."""
+    ``models.sv_pointnet.SVPointNetCls``; with a label ``SVDGCNNPseg`` or
+    ``SVPointNetPseg``, whose kNN and neighbour gathers launch kernels B4
+    and B7 on the card); load the weights into ``model`` first."""
 
     @torch.no_grad()
     def step(batch, generator):
-        points = apply_rotation_aug(batch["points"], rot_test, generator)
-        logits = model(points)
+        logits = model(*_inputs(batch, rot_test, generator, with_label))
         return loss_fn(logits, batch["target"]), logits.argmax(dim=-1)
 
     return step

@@ -292,7 +292,8 @@ def test_dgcnn_cls_engine_approx_matches_jax():
     entry; shuffled points give the same logits."""
     model = models.SV_DGCNN_CLS(num_classes=10, k=K_ENG, binary=True)
     points = _rand(7, B, N_ENG, 3)
-    var = model.init(jax.random.PRNGKey(1), jnp.asarray(points))
+    # one compile of init instead of its eager ops (bitwise the same tree)
+    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(points))
     weights = _with_beta(from_flax(jax.tree.map(np.asarray, {
         "params": var["params"], "batch_stats": jax.tree.map(
             lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])})), 6)

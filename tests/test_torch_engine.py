@@ -36,10 +36,12 @@ def setup(request):
     binary = request.param
     model = models.SV_DGCNN_CLS(num_classes=CLASSES, k=K, binary=binary)
     points = np.random.default_rng(0).standard_normal((B, N, 3)).astype(np.float32)
-    var = model.init(jax.random.PRNGKey(1), jnp.asarray(points))
+    # one compile of init instead of its eager ops (bitwise the same tree)
+    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(points))
     var = {"params": var["params"], "batch_stats": jax.tree.map(
         lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])}
-    want = np.asarray(model.apply(var, jnp.asarray(points), False))
+    want = np.asarray(jax.jit(model.apply, static_argnums=2)(
+        var, jnp.asarray(points), False))
     weights = from_flax(jax.tree.map(np.asarray, var))
     return binary, points, var, weights, want
 

@@ -8,6 +8,8 @@ and outputs agree to f32 summation order. The kernels themselves run
 only on the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,9 +57,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@functools.lru_cache(maxsize=None)
 def _variables(binary):
+    """The flax weights, made once per model: one compile of init instead
+    of its eager ops (bitwise the same tree)."""
     model = models.SV_DGCNN_CLS(num_classes=10, k=K, binary=binary)
-    var = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, 3)))
+    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, 16, 3)))
     return {"params": var["params"], "batch_stats": jax.tree.map(
         lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])}
 
@@ -238,7 +243,7 @@ def train_round(request):
         block_in = jops.get_graph_feature_sv((s, v), K)
         binary, n_gate = kind == "binary", 2 * S
     block = jsvl.SVBlock(S_out, V_out, binary=binary)
-    var = block.init(jax.random.PRNGKey(2), block_in, True)
+    var = jax.jit(block.init, static_argnums=2)(jax.random.PRNGKey(2), block_in, True)
     params = {n: var["params"][n] for n in TRAIN_SUB}
     if kind == "first":
         params["init_scalar"] = init_p
@@ -262,8 +267,8 @@ def train_round(request):
         return (jnp.sum(so * cts[0]) + jnp.sum(vo * cts[1])
                 + jnp.sum(sm * cts[2])), (so, vo, sm) + tuple(st)
 
-    (_, want), (wgp, wgx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
-        params, jnp.asarray(src))
+    (_, want), (wgp, wgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(src))
     tp = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), params)
     x = torch.tensor(src, requires_grad=True)
     so, vo, sm, st = fused_round_apply(ops, d, x, torch.from_numpy(idx), tp)

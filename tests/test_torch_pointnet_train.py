@@ -183,9 +183,12 @@ def _run(binary: bool, f64: bool):
                                     steps_per_epoch=1, weight_decay=WD,
                                     recipe="pointnet_cls")
             update = jax.jit(TrainState.apply_gradients)
-            s1 = update(TrainState.create(params=var["params"],
-                                          batch_stats=var["batch_stats"], tx=tx),
-                        grads, stats)
+            # TrainState.create with the optimizer's state made in one compile
+            s1 = update(TrainState(step=jnp.zeros((), jnp.int32),
+                                   params=var["params"],
+                                   batch_stats=var["batch_stats"],
+                                   opt_state=jax.jit(tx.init)(var["params"]),
+                                   tx=tx), grads, stats)
             (_, (_, stats2)), grads2 = vg(s1.params, s1.batch_stats, *data)
             s2 = update(s1, grads2, stats2)
             want = {"logits": np.asarray(logits), "stats": _flat(stats),

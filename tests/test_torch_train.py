@@ -100,17 +100,21 @@ def two_steps(request):
                               batch_stats=var["batch_stats"], tx=tx)
     batch = {"points": jnp.asarray(points), "target": jnp.asarray(target)}
 
-    def loss_fn(params):
-        out, _ = model.apply({"params": params,
-                              "batch_stats": var["batch_stats"]},
+    def loss_fn(params, stats, batch):
+        out, _ = model.apply({"params": params, "batch_stats": stats},
                              batch["points"], True, mutable=["batch_stats"])
         return jax_cal_loss(out, batch["target"])
 
-    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(var["params"])
-    jstep = jax.jit(jax_make_train_step(model, jax_cal_loss, rot="aligned"))
+    jstep = jax_make_train_step(model, jax_cal_loss, rot="aligned")
+
+    @jax.jit  # one compile: the gradients at the state, and its step
+    def grads_and_step(state, batch, key):
+        return (jax.value_and_grad(loss_fn)(state.params, state.batch_stats, batch),
+                jstep(state, batch, key)[0])
+
     key = jax.random.PRNGKey(0)
-    s1, _, _ = jstep(state, batch, key)
-    s2, _, _ = jstep(s1, batch, key)
+    (want_loss, want_grads), s1 = grads_and_step(state, batch, key)
+    s2 = grads_and_step(s1, batch, key)[1]
 
     tstate = create_state(from_flax(var), binary=binary, lr=LR, epochs=2,
                           steps_per_epoch=1, weight_decay=WD, opt="adam",
