@@ -23,10 +23,12 @@ SV-DGCNN engines and the SV-PointNet classifier, graph reuse, the
 certified Morton candidate window at N = 8192, fast and approx mode
 on the legacy row-major trunks (round2 in both SV-DGCNN engines, round in
 the classifier) and on the classifier's edge trunk, B4's fast and
-approx mode through its own entry point, and binary part-segmentation
+approx mode through its own entry point, binary part-segmentation
 training of both families (B=32, N=2048, k=40, 50 parts) through the
-trainer. Phases; any failure raises and
-the script exits non-zero:
+trainer, and the JAX package's recipe for its serving pick: un-fused
+SV-DGCNN partseg training, knob-aware fused training, --preload and KD
+through the trainer, and --fused certification on every leg. Phases; any
+failure raises and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -240,6 +242,44 @@ the script exits non-zero:
      the pointnet_partseg recipe) on phase 22's clouds: each step, the BN
      re-estimation batch and the eval batch (eager SVPointNetPseg) launch
      knn and edge_gather_fwd once; the rest as phase 22
+ 24  SV-DGCNN part segmentation through the un-fused train forward
+     (train/dgcnn.py::make_train_apply_pseg) on phase 22's clouds: each
+     step knn x4, edge_gather_fwd x4 and edge_gather_bwd x3 (the edges in
+     device memory; the peak printed); BN re-estimation and eval batches
+     knn x4, edge_gather_fwd x4; one step against its oracle twin
+ 25  knob-aware fused training, the serving pick's stage 1 (spatial reuse,
+     the 8-bit grid through ste_quant8; partseg also reuse_k 20): cls on
+     phase 5's clouds, partseg on phase 22's; each step knn x1 (the xyz
+     ids, which every conv round reuses), the first round fwd/bwd x1 and
+     the conv rounds fwd/bwd x3; a BN re-estimation batch; a knob-world
+     eval batch of the eager model (knn x1, edge_gather_fwd x4); one step
+     against its oracle twin
+ 26  stage 2 through the trainer (train.loop.run_cls on in-memory clouds):
+     a binary base and an FP teacher saved by the trainer; --preload of
+     the base (its own tree) with the knobs; --preload of the FP
+     checkpoint into a binary student (the overlap merge, leaf counts
+     printed); --resume-from STAGE1 --preload FP --distill --kd-t 2
+     --kd-alpha 0.3 --no-kd-init with the knobs, launches counted over
+     the run (a KD step adds the FP teacher's eager forward: knn x4,
+     edge_gather_fwd x4), the KD step's median printed; one KD step
+     against its oracle twin
+ 27  certification: --test --fused on each leg of tools/certify_serving.sh
+     (10 cls, 10 partseg with fold 512) through the trainer's eval step
+     on the stage-1 weights: loss finite, launches per batch as phases 3,
+     12, 16-18 count them, seconds; the exact leg equal to the plain
+     engine's loss and predictions; the FP weights' exact engine >= 0.99
+     top-1 against the eager eval (the binary leg's agreement printed)
+
+Phase 2 also holds knob-aware training's B6 (phase2_knob_train): on the
+ids of another round with its input through ste_quant8, binary, forward
+and backward to the training bars, inputs chained through the plain
+versions: cls (32, 1024, 20) on B4's xyz ids at r = 20 and 10 and
+(conv3, conv4) on conv2's; partseg (32, 2048, 40) on B4's ids at r = 20
+of k = 40, a strided rank prefix given to B6 as a copy; each pass's
+centre points per tile printed; the spatial rounds at r = 20 timed. And
+B7 at the un-fused part segmenter's joint widths (phase2_pseg_gather):
+(32, 2048, 40), C = 80, 80, 136, forward and backward bitwise, each timed
+beside torch.gather and index_add_.
 
 Phase 2 also holds the part segmenters' training kernels
 (phase2_pseg_train) at (32, 2048, 40): B4 on the xyz and on the joint
@@ -337,6 +377,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1825,12 +1866,13 @@ def recal_and_eval(tag, apply, state, model, loader, gen, counters,
 
 
 def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed,
-                  with_label=False):
+                  with_label=False, distiller=None, alpha=0.5):
     """One train step through the kernels (``make_apply(False)``) against
     the same step through the plain twin (``make_apply(True)``), from the
-    same weights and batch: loss and new BN running statistics within 1e-4
-    relative, gradients within the bars of phase 2, parameter update cosine
-    >= 0.999."""
+    same weights and batch (with a KD ``distiller``: its term at ``alpha``,
+    the same teacher on both sides): loss and new BN running statistics
+    within 1e-4 relative, gradients within the bars of phase 2, parameter
+    update cosine >= 0.999."""
     import torch
 
     from svnet_tpu_torch.train.steps import create_state, make_train_step, tree_map
@@ -1842,7 +1884,8 @@ def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed,
         state = create_state(weights, binary=True, lr=1e-3, epochs=1,
                              steps_per_epoch=1, recipe=recipe, device=dev)
         step = make_train_step(make_apply(oracle), train_loss(with_label),
-                               rot="z", with_label=with_label)
+                               rot="z", with_label=with_label,
+                               distiller=distiller, alpha=alpha)
         loss, _ = step(state, batch, torch.Generator().manual_seed(seed))
         res.append((loss.item(), tree_map(lambda t: t.grad, state.params),
                     state.batch_stats, tree_map(lambda t: t.detach(), state.params)))
@@ -1910,12 +1953,13 @@ def phase5(dev, gen, counters, log_card):
     return launches, median, peak, loader
 
 
-def compare_edge_gather(rep, b, n, k, c, gen, dev, time_it=True):
+def compare_edge_gather(rep, b, n, k, c, gen, dev, time_it=True, names=None):
     """B7 forward and backward against their plain versions on the same
     seeded inputs, ids from kNN (B4) of seeded clouds: both bitwise, and
     two backward launches identical; timed beside torch.gather and
     index_add_ (float atomics), the library yardsticks, where
-    ``time_it``. Returns the cotangent and the ids."""
+    ``time_it``, into the kernels line's ``names`` (forward, backward)
+    where given. Returns the cotangent and the ids."""
     import torch
 
     from svnet_tpu_torch.ops.kernels import edge_gather as eg
@@ -1961,6 +2005,10 @@ def compare_edge_gather(rep, b, n, k, c, gen, dev, time_it=True):
         f"plain {t[1]} ms, torch.gather {t[2]} ms, bound {fwd_cost}; "
         f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
         f"bound {bwd_cost}")
+    if names is not None:
+        rep.add(names[0], 0.0, t[0], t[1], fwd_cost, t[2])
+        rep.add(names[1], 0.0, t[3], t[4], bwd_cost, t[5])
+        return g, idx
     # the kernels line times each pass at its main path's shapes: the
     # forward at C=3 (phase 9 gathers the points) and at the joint widths
     # (phase 11: conv2 and conv3 at C=62, conv4 at C=127), the backward
@@ -2124,26 +2172,31 @@ def pseg_loader(dev):
 
 def phase_pseg_train(tag, apply_of, model, weights, recipe, per_step,
                      recal_want, eval_want, loader, dev, gen, counters, card,
-                     seed):
-    """Part-segmentation training: 1 + TRAIN_STEPS steps through
-    train_epoch with the per-step launches ``per_step``, one BN
-    re-estimation and one eval batch (the eager ``model``) with the stated
-    launches, then one step through the kernels against its oracle twin.
-    Returns the launch counts of the steps, the median step ms and the
-    peak device memory."""
+                     seed, with_label=True, state_out=None):
+    """Part-segmentation training (classification with ``with_label``
+    False): 1 + TRAIN_STEPS steps through train_epoch with the per-step
+    launches ``per_step``, one BN re-estimation and one eval batch (the
+    eager ``model``) with the stated launches, then one step through the
+    kernels against its oracle twin. Returns the launch counts of the
+    steps, the median step ms and the peak device memory; the trained
+    state goes to ``state_out`` (a list) where given."""
     import torch
 
     launches, median, peak, state = train_run(
         tag, apply_of(False), weights, recipe, loader, gen, counters, per_step,
-        card, with_label=True)
+        card, with_label=with_label)
     recal, evals = recal_and_eval(tag, apply_of(False), state, model, loader,
-                                  gen, counters, with_label=True)
+                                  gen, counters, with_label=with_label)
     if recal != {n: recal_want.get(n, 0) for n in recal} or \
             evals != {n: eval_want.get(n, 0) for n in evals}:
         raise AssertionError(f"{tag}: recal launches {recal}, eval {evals}")
+    if state_out is not None:
+        state_out.append(state)
+    del state
     torch.cuda.empty_cache()
     step_vs_plain(f"{tag} oracle", apply_of, weights, recipe, next(iter(loader)),
-                  dev, seed, with_label=True)
+                  dev, seed, with_label=with_label)
+    torch.cuda.empty_cache()
     return launches, median, peak
 
 
@@ -4110,6 +4163,449 @@ def phase19(w_bin, W, gen, dev, counters, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving pick's training recipe (ACCURACY.md:180-246): the un-fused
+# part segmenter's training, knob-aware fused training (stage 1), KD and
+# --preload (stage 2) and the certification legs
+# ---------------------------------------------------------------------------
+
+KNOB_R = {"cls": (K, K // 2), "pseg": (K_PSEG // 2,)}  # reuse ranks of phase 2
+
+
+def phase2_knob_train(rep, gen, dev):
+    """B6 on the ids of another round with its input through ste_quant8
+    (knob-aware training, train/fused.py::make_trunk), binary, forward and
+    backward against the plain version to the training bars: cls (32,
+    1024, 20) on B4's xyz ids ("spatial") at r = 20 and 10 and, for conv3
+    and conv4, on conv2's ("conv2"); partseg (32, 2048, 40) on B4's ids at
+    r = 20, the nearest half of each rank list (a strided prefix, handed
+    to B6 as a copy). Inputs chained through the plain versions; each
+    round's centre points per tile printed; the recipe's rounds (spatial,
+    r = 20) timed ("sv_round3_train_fwd/bwd knob <task>")."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import init_params, init_params_pseg
+    from svnet_tpu_torch.nn.sv_train import gate, ste_quant8
+    from svnet_tpu_torch.ops.kernels import sv_first_train as kf
+    from svnet_tpu_torch.ops.kernels import sv_round3_train as kr
+    from svnet_tpu_torch.ops.kernels.knn import knn
+    from svnet_tpu_torch.ops.kernels.sv_round3 import first_perm
+    from svnet_tpu_torch.train.fused import PSEG_ROUNDS, ROUNDS, SUB
+    from svnet_tpu_torch.train.steps import tree_map
+
+    ops = (kr.sv_round3_train_fwd, kr.sv_round3_train_bwd)
+    for task, rounds, (b, n, k), init, width, seed in (
+            ("cls", ROUNDS, (B_TRAIN, N, K), init_params, CLASSES, 30),
+            ("pseg", PSEG_ROUNDS, (B_TRAIN, N_PSEG, K_PSEG), init_params_pseg,
+             PARTS, 31)):
+        p = tree_map(lambda t: t.to(dev), init(
+            width, k, True, torch.Generator().manual_seed(SEED + seed))["params"])
+        pts = cloud(b, n, gen, dev)
+        idx0 = knn(pts, k)
+        S1, V1 = rounds["conv2"][:2]
+        d1 = kf.first_dims(S1, V1, k)
+        sub = {"init_scalar": p["init_scalar"], **{m: p["conv1"][m] for m in SUB}}
+        po = kr.train_fwd_plain(pts, idx0, kr.kernel_params(sub, d1), d1)
+        s_mean = (po[2] / (n * k)).float()[:, first_perm()]
+        x = (po[0], po[1].reshape(b, n, 3, V1)
+             * gate(p["conv1"], s_mean)[:, None, None, :])
+        r0, wins = KNOB_R[task][0], {"spatial": idx0}
+        names = (f"sv_round3_train_fwd knob {task}", f"sv_round3_train_bwd knob {task}")
+        for name, (S, V, So, Vo) in rounds.items():
+            joint = torch.cat([x[0], x[1].reshape(b, n, -1)], dim=-1)
+            if name == "conv2" and task == "cls":
+                wins["conv2"] = knn(joint.contiguous(), k)  # the exact input's ids
+            src = ste_quant8(joint).contiguous()
+            kp = kr.kernel_params({m: p[name][m] for m in SUB},
+                                  kr.RoundDims(S, V, So, Vo, k, True))
+            for reuse, ids in wins.items():
+                if reuse == "conv2" and name == "conv2":
+                    continue
+                for r in KNOB_R[task]:
+                    d = kr.RoundDims(S, V, So, Vo, r, True)
+                    tiles = {ph: kr.tile(d, ph) for ph in ("f1", "f2", "b1", "b2")}
+                    out = compare_train(
+                        rep, f"sv_round3_train {name} ({S}, {V}) -> ({So}, {Vo}) "
+                        f"binary on {reuse} ids r={r} of k={k}, ste_quant8 input, "
+                        f"B={b} N={n}, centre points per tile {tiles}", names, ops,
+                        src, ids[:, :, :r].contiguous(), kp, d, gen,
+                        reuse == "spatial" and r == r0, 1e-3)
+                    if reuse == "spatial" and r == r0:
+                        po = out
+            s_mean = (po[2] / (n * r0)).float()
+            x = (po[0], po[1].reshape(b, n, 3, Vo)
+                 * gate(p[name], s_mean)[:, None, None, :])
+
+
+def phase2_pseg_gather(rep, gen, dev):
+    """B7 forward and backward at the un-fused part segmenter's joint widths
+    (32, 2048, 40), C = 80 (conv2's and conv3's input) and 136 (conv4's),
+    bitwise, each timed beside torch.gather and index_add_ ("edge_gather_fwd
+    pseg unfused", "edge_gather_bwd pseg unfused": the path's three calls)."""
+    names = ("edge_gather_fwd pseg unfused", "edge_gather_bwd pseg unfused")
+    for c in (80, 80, 136):
+        compare_edge_gather(rep, B_TRAIN, N_PSEG, K_PSEG, c, gen, dev, names=names)
+
+
+def phase24(dev, gen, counters, loader, card):
+    """SV-DGCNN part segmentation through the un-fused train forward
+    (train/dgcnn.py::make_train_apply_pseg) at (B_TRAIN, N_PSEG, K_PSEG),
+    binary, Adam, rot z: knn x4, B7 forward x4 and backward x3 a step, the
+    edges in device memory (its peak printed); a BN re-estimation batch
+    and an eval batch (knn x4, B7 forward x4), one step against its plain
+    twin."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNPseg, init_params_pseg
+    from svnet_tpu_torch.train.dgcnn import make_train_apply_pseg
+
+    weights = init_params_pseg(PARTS, K_PSEG, True,
+                               torch.Generator().manual_seed(SEED + 32))
+    eager = {"knn": 4, "edge_gather_fwd": 4}
+    return phase_pseg_train(
+        "phase 24", lambda oracle: make_train_apply_pseg(PARTS, K_PSEG, True,
+                                                         oracle=oracle),
+        SVDGCNNPseg(PARTS, K_PSEG, True), weights, "dgcnn",
+        {"knn": 4, "edge_gather_fwd": 4, "edge_gather_bwd": 3}, eager, eager,
+        loader, dev, gen, counters, card, SEED + 33)
+
+
+# the knob-aware recipe's knobs (stage 1): spatial reuse, the 8-bit grid;
+# partseg also reuse_k 20 (tools/certify_serving.sh, bench.py:300-346)
+def recipe_knobs(task):
+    from svnet_tpu_torch.config import TrainKnobs
+
+    return TrainKnobs("spatial", 0 if task == "cls" else K_PSEG // 2, True)
+
+
+def phase25(dev, gen, counters, loader, p_loader, card):
+    """Knob-aware fused training, the recipe's stage 1 (train/fused.py with
+    ``knobs``): cls (B_TRAIN, N, K) spatial reuse + 8-bit grid, partseg
+    (B_TRAIN, N_PSEG, K_PSEG) the same with reuse_k 20; 1 + TRAIN_STEPS
+    steps each (B4 x1, B5 1 + 1, B6 3 + 3 a step), a BN re-estimation
+    batch (B4, B5, B6 x3 forward), one knob-world eval batch of the eager
+    model (B4 x1, B7 forward x4) and one step against its plain twin.
+    Returns {task: (launches, step ms, peak, state)}."""
+    import torch
+
+    from svnet_tpu_torch.models.sv_dgcnn import (
+        SVDGCNNCls, SVDGCNNPseg, init_params, init_params_pseg)
+    from svnet_tpu_torch.train.fused import (
+        make_fused_train_apply, make_fused_train_apply_pseg)
+
+    per_step = {"knn": 1, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
+                "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3}
+    recal = {"knn": 1, "sv_first_train_fwd": 1, "sv_round3_train_fwd": 3}
+    evals = {"knn": 1, "edge_gather_fwd": 4}
+    out = {}
+    for task, make, model, init, width, (ld, k), seed in (
+            ("cls", make_fused_train_apply, SVDGCNNCls, init_params, CLASSES,
+             (loader, K), 34),
+            ("pseg", make_fused_train_apply_pseg, SVDGCNNPseg, init_params_pseg,
+             PARTS, (p_loader, K_PSEG), 36)):
+        knobs = recipe_knobs(task)
+        weights = init(width, k, True, torch.Generator().manual_seed(SEED + seed))
+        states = []
+        res = phase_pseg_train(
+            f"phase 25 {task} {knobs}",
+            lambda oracle, make=make, width=width, k=k, knobs=knobs: make(
+                width, k, True, oracle=oracle, knobs=knobs),
+            model(width, k, True, knobs=knobs), weights, "dgcnn", per_step,
+            recal, evals, ld, dev, gen, counters, card, SEED + seed + 1,
+            with_label=task == "pseg", state_out=states)
+        out[task] = (*res, states[0])
+    return out
+
+
+@contextlib.contextmanager
+def echo_captured():
+    """stdout captured (and still printed): the trainer's log lines."""
+    import io
+
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            buf.write(text)
+            return sys.__stdout__.write(text)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    with contextlib.redirect_stdout(Tee()):
+        yield buf
+
+
+def phase26(dev, gen, counters, loader, card, tmp):
+    """The recipe's stage 2 through the trainer (``loop.run_cls`` on
+    in-memory clouds, the CLI's own flags): a binary base and an FP
+    teacher trained one epoch and saved by the trainer; stage 1
+    ``--preload BASE --train-knobs --graph-reuse spatial
+    --approx-gather-bits 8`` (the student's own tree, every leaf); the FP
+    checkpoint preloaded into a binary student (the overlap merge, its
+    leaf counts); stage 2 ``--resume-from STAGE1 --preload FP --distill
+    --kd-t 2 --kd-alpha 0.3 --no-kd-init`` with the knobs, its launches
+    counted over the run (a KD step: the student's B4 x1, B5 1 + 1, B6
+    3 + 3 and the FP teacher's eager forward, B4 x4 and B7 forward x4),
+    and one KD step against its plain twin. Returns the stage-1 and the
+    FP checkpoints' paths, the test set and the KD step's median ms."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.cli.flags import build_parser
+    from svnet_tpu_torch.data import ArrayDataset
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls
+    from svnet_tpu_torch.train.fused import make_fused_train_apply
+    from svnet_tpu_torch.train.loop import read_weights, run_cls, tree_shapes
+    from svnet_tpu_torch.train.steps import Distiller
+    from svnet_tpu_torch.utils.convert import load_tree
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    test_b = 4
+    test_set = ArrayDataset(surface_clouds(SEED + 40, test_b * B_TRAIN, N),
+                            np.random.default_rng(SEED + 40).integers(
+                                0, CLASSES, test_b * B_TRAIN))
+    sets = (loader.dataset, test_set)
+    common = ["--epochs", "1", "--bn-reestimate", "1", "--num-workers", "0",
+              "--k", str(K), "--batch-size", str(B_TRAIN), "--device", str(dev)]
+    knobs = ["--train-knobs", "--graph-reuse", "spatial", "--approx-gather-bits", "8"]
+
+    def run(tag, argv):
+        args = build_parser().parse_args(argv + ["--save-dir", f"{tmp}/{tag}"])
+        t0 = time.perf_counter()
+        with echo_captured() as out:
+            metric = run_cls(args, datasets=sets)
+        log(f"phase 26 {tag}: run_cls {' '.join(argv)} -> {metric:.6f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return out.getvalue(), f"{tmp}/{tag}/save_models/"
+
+    _, base = run("base", ["--binary"] + common)
+    _, fp = run("fp", common)
+    fp_best, base_best = fp + "model_best.ckpt", base + "model_best.ckpt"
+    text, s1 = run("stage1", ["--binary", "--preload", base_best] + knobs + common)
+    n_leaves = len(tree_shapes(read_weights(base_best, dev)))
+    if f"preloaded weights from {base_best}" not in text or "overlap" in text:
+        raise AssertionError("phase 26: stage 1 did not preload the base whole")
+    log(f"phase 26: --preload of the binary base: its own tree, {n_leaves} of "
+        f"{n_leaves} leaves loaded")
+    text, _ = run("merge", ["--binary", "--preload", fp_best] + common)
+    merge = re.search(r"overlap merge: (\d+)/(\d+) params, (\d+)/(\d+) "
+                      r"batch_stats leaves", text)
+    if merge is None or not int(merge[1]) < int(merge[2]):
+        raise AssertionError("phase 26: the FP checkpoint was not overlap-merged")
+    log(f"phase 26: --preload of the FP teacher into a binary student: overlap "
+        f"merge {merge[1]}/{merge[2]} params, {merge[3]}/{merge[4]} batch_stats "
+        "leaves")
+    for fn in counters:
+        fn.launches = 0
+    steps, tests = TRAIN_STEPS + 1, test_b
+    text, _ = run("stage2", ["--epochs", "2", "--binary", "--resume-from",
+                             s1 + "checkpoint_000.ckpt", "--preload", fp_best,
+                             "--distill", "--kd-t", "2", "--kd-alpha", "0.3",
+                             "--no-kd-init"] + knobs + common[2:])
+    launches = {fn.__name__: fn.launches for fn in counters}
+    per_step = {"knn": 5, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
+                "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3,
+                "edge_gather_fwd": 4}
+    want = {n: steps * per_step.get(n, 0) for n in launches}
+    for n, c in (("knn", 1 + tests), ("sv_first_train_fwd", 1),
+                 ("sv_round3_train_fwd", 3), ("edge_gather_fwd", 4 * tests)):
+        want[n] += c  # the BN re-estimation batch, the knob-world eval
+    if launches != want or "KD teacher loaded" not in text:
+        raise AssertionError(f"phase 26 stage 2: launches {launches} != {want}")
+    median = float(re.findall(r"median step ([0-9.]+) ms", text)[-1])
+    log(f"phase 26: stage 2, {steps} KD steps of ({B_TRAIN}, {N}, 3) with the "
+        f"knobs: launches {launches} ({steps} steps, 1 BN re-estimation batch, "
+        f"{tests} eval batches); KD step median {median:.3f} ms | {card}")
+    teacher = SVDGCNNCls(CLASSES, K, False).to(dev)
+    load_tree(teacher, read_weights(fp_best, dev))
+    knobs_c = recipe_knobs("cls")
+    step_vs_plain("phase 26 KD oracle",
+                  lambda oracle: make_fused_train_apply(CLASSES, K, True,
+                                                        oracle=oracle,
+                                                        knobs=knobs_c),
+                  read_weights(s1 + "model_best.ckpt", dev), "dgcnn",
+                  next(iter(loader)), dev, SEED + 41,
+                  distiller=Distiller(teacher, 2.0), alpha=0.3)
+    torch.cuda.empty_cache()
+    return s1 + "model_best.ckpt", fp_best, test_set, median
+
+
+# tools/certify_serving.sh's legs (--reuse-k R is k / 2; fold 512 at partseg)
+CERT_LEGS = ([["--engine-mode", "exact"], ["--engine-mode", "fast"],
+              ["--engine-mode", "approx"],
+              ["--engine-mode", "approx", "--approx-gather-bits", "8"]]
+             + [["--engine-mode", "approx"] + bits + ["--graph-reuse", reuse] + rk
+                for bits, rk in (([], []), (["--approx-gather-bits", "8"], []),
+                                 (["--approx-gather-bits", "8"], ["--reuse-k", "R"]))
+                for reuse in ("conv2", "spatial")])
+
+
+def float64_witness(task, tree, model, engine, width, k, loader, dev):
+    """The binary weights in float64, where no binarization sign lies
+    within rounding of 0: the exact plain engine (``dtype=torch.float64``)
+    against the eager model (``oracle``: B4 and B7 take float32) on the
+    same unrotated batches, top-1
+    agreement >= 0.99 (per cloud at cls, per point at partseg); the eager
+    model's float32 against its float64 printed beside it, the share of
+    top-1 that float32 rounding alone moves."""
+    import torch
+
+    from svnet_tpu_torch.utils.convert import load_tree
+
+    eng64 = engine(tree, width, k, True, device=dev, oracle=True,
+                   dtype=torch.float64)
+    eager = {}
+    for dtype in (torch.float32, torch.float64):
+        m = model(width, k, True, oracle=dtype == torch.float64).to(dev)
+        load_tree(m, tree)
+        eager[dtype] = m.to(dtype).eval()
+    same64 = same32 = total = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for batch in loader:
+            args = ((batch["points"],)
+                    + ((batch["label"],) if task == "pseg" else ()))
+            args64 = tuple(a.double() for a in args)
+            want = eager[torch.float64](*args64).argmax(dim=-1)
+            same64 += int((eng64(*args64).argmax(dim=-1) == want).sum())
+            same32 += int((eager[torch.float32](*args).argmax(dim=-1)
+                           == want).sum())
+            total += want.numel()
+    agree64, agree32 = same64 / total, same32 / total
+    log(f"phase 27 {task}: binary weights in float64, the plain engine against "
+        f"the eager model: top-1 agreement {agree64:.6f} over {total} "
+        f"predictions; the eager model's float32 against its float64: "
+        f"{agree32:.6f} ({time.perf_counter() - t0:.1f} s)")
+    if agree64 < 0.99:
+        raise AssertionError(f"phase 27 {task}: the float64 plain engine agrees "
+                             f"with the float64 eager model on {agree64} < 0.99")
+    del eng64, eager
+    torch.cuda.empty_cache()
+
+
+def phase27(trees, fp_trees, sets, dev, counters, card):
+    """Certification: ``--test CKPT --fused`` on each leg of
+    tools/certify_serving.sh, the stage-1 weights (cls: phase 26's
+    checkpoint; partseg: phase 25's state) through the trainer's eval
+    step (``loop.make_fused_eval_step`` under ``loop.knob_scope`` of the
+    leg's parsed flags), --rot-test so3: per leg a finite loss, the
+    launches per batch as the engines' phases count them (B1 x1, B2 x3 of
+    which reuse x2 (conv2) or x3 (spatial), the pre-pass once per
+    selecting round in fast and approx mode, B3 x1) and its seconds. The
+    exact leg: its predictions and loss equal to those of the plain
+    engine on the same batches and rotations, and its top-1 agreement
+    with the eager eval printed; the eager model and the engine fold and
+    sum a binary net in other orders, so an ulp flips a sign (measured on
+    the CPU at (16, 1024, 20), random binary weights: top-1 0.625), and
+    the >= 0.99 bar against the eager eval is held on the FP weights
+    (``fp_trees``: phase 26's FP teacher, a seeded FP part segmenter),
+    where the two agree to 1e-8, and on the binary weights in float64
+    (``float64_witness``), where no sign flips."""
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.cli.flags import build_parser, check_ported
+    from svnet_tpu_torch.data import Loader
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, SVDGCNNPseg
+    from svnet_tpu_torch.train.loop import (
+        eval_batches, knob_scope, make_fused_eval_step)
+    from svnet_tpu_torch.train.steps import make_eval_step
+    from svnet_tpu_torch.utils.convert import load_tree
+
+    def run_eval(step, loader):
+        return eval_batches(step, loader, torch.Generator().manual_seed(SEED + 50))
+
+    out = {}
+    for task, k, width, model, engine in (
+            ("cls", K, CLASSES, SVDGCNNCls, SVDGCNNClsEngine),
+            ("pseg", K_PSEG, PARTS, SVDGCNNPseg, SVDGCNNPsegEngine)):
+        pseg = task == "pseg"
+        trainer_task = "partseg" if pseg else "cls"
+        parser = build_parser(trainer_task)
+        loader = Loader(sets[task], B_TRAIN, shuffle=False, pad_last=True,
+                        device=dev)
+        loss_fn = train_loss(pseg)
+        eager = {}
+        for binary, tree in ((True, trees[task]), (False, fp_trees[task])):
+            m = model(width, k, binary).to(dev).eval()
+            load_tree(m, tree)
+            eager[binary] = run_eval(make_eval_step(m, loss_fn, "so3", pseg), loader)
+        fp_args = parser.parse_args(["--test", "CKPT", "--fused", "--k", str(k)])
+        fp_pred = run_eval(make_fused_eval_step(fp_trees[task], fp_args,
+                                                trainer_task, loss_fn, dev),
+                           loader)[2]
+        top1 = float((fp_pred == eager[False][2]).mean())
+        log(f"phase 27 {task}: FP weights, exact engine against the eager eval: "
+            f"top-1 agreement {top1:.6f}")
+        if top1 < 0.99:
+            raise AssertionError(f"phase 27 {task}: FP exact engine agrees with the "
+                                 f"eager eval on {top1} < 0.99")
+        float64_witness(task, trees[task], model, engine, width, k, loader, dev)
+        for leg in CERT_LEGS:
+            leg = [str(k // 2) if a == "R" else a for a in leg]
+            if pseg and "approx" in leg:
+                leg = leg + ["--approx-fold", "512"]
+            args = parser.parse_args(["--binary", "--test", "CKPT", "--fused",
+                                      "--k", str(k)] + leg)
+            check_ported(args)
+            selecting = {"none": 3, "conv2": 1, "spatial": 0}[args.graph_reuse]
+            per = {"sv_round3_first": 1, "sv_round3": 3, "sv_point_block_cm": 1,
+                   "sv_round3_reuse": 3 - selecting,
+                   "neg_min": 0 if args.engine_mode == "exact" else 1 + selecting}
+            with knob_scope(args):
+                step = make_fused_eval_step(trees[task], args, trainer_task,
+                                            loss_fn, dev)
+                for fn in counters:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                loss, _, pred, _ = run_eval(step, loader)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            got = {fn.__name__: fn.launches for fn in counters}
+            want = {n: len(loader) * per.get(n, 0) for n in got}
+            if got != want or not np.isfinite(loss):
+                raise AssertionError(f"phase 27 {task} {leg}: loss {loss}, "
+                                     f"launches {got} != {want}")
+            line = (f"phase 27 {task} {' '.join(leg)}: {len(loader)} batches, loss "
+                    f"{loss:.6f}, launches { {n: c for n, c in got.items() if c} }, "
+                    f"{secs:.3f} s")
+            if args.engine_mode == "exact":
+                plain = engine(trees[task], width, k, True, device=dev, oracle=True)
+                p_loss, _, p_pred, _ = run_eval(
+                    make_eval_step(plain, loss_fn, "so3", pseg), loader)
+                if p_loss != loss or not np.array_equal(p_pred, pred):
+                    raise AssertionError(f"phase 27 {task}: the exact leg differs "
+                                         f"from the plain engine ({loss} / {p_loss})")
+                line += (f"; loss and predictions equal to the plain engine's; "
+                         f"top-1 agreement with the eager eval "
+                         f"{float((pred == eager[True][2]).mean()):.6f} (binary: "
+                         "not a bar)")
+            log(line + f" | {card}")
+            out[f"{task} {' '.join(leg)}"] = secs
+    return out
+
+
+def pseg_test_set():
+    """2 batches of seeded surface clouds (B_TRAIN, N_PSEG) with random
+    categories and part ids inside each category's range, unshuffled."""
+    import numpy as np
+
+    from svnet_tpu_torch.data import PartArrayDataset
+    from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    m = 2 * B_TRAIN
+    rng = np.random.default_rng(SEED + 42)
+    cat = rng.integers(0, 16, m)
+    seg = np.stack([INDEX_START[c] + rng.integers(0, SEG_NUM[c], N_PSEG)
+                    for c in cat])
+    return PartArrayDataset(surface_clouds(SEED + 42, m, N_PSEG), cat, seg)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4188,6 +4684,9 @@ def main() -> int:
     phase2_train(rep, p_bin, p_fp, gen, dev, b=8, n=N - 24, k=7, time_it=False,
                  rounds={"conv2": (32, 10, 32, 10)})
     phase2_pseg_train(rep, gen, dev)
+    t_recipe = time.perf_counter()
+    phase2_knob_train(rep, gen, dev)
+    t_recipe = time.perf_counter() - t_recipe
     phase2_forced(rep, dev)
     phase2_first_forced(rep, dev)
     phase2_point_forced(rep, dev)
@@ -4197,6 +4696,9 @@ def main() -> int:
     pn = pointnet_engines(dev)
     phase2_pointnet(rep, pn, gen, dev)
     phase2_gather(rep, gen, dev)
+    t0 = time.perf_counter()
+    phase2_pseg_gather(rep, gen, dev)
+    t_recipe += time.perf_counter() - t0
     phase2_fast(rep, eng, eng_fp, dg, pn, gen, dev)
     phase2_prepass_forced(dev)
     phase2_approx(rep, eng, eng_fp, dg, pn, gen, dev)
@@ -4347,6 +4849,30 @@ def main() -> int:
     launches["knn pseg train"] = ps_launches["knn"] + pp_launches["knn"]
     launches["edge_gather_fwd pseg train"] = pp_launches["edge_gather_fwd"]
 
+    # phases 24-27: the serving pick's training recipe
+    t0 = time.perf_counter()
+    pu_launches, pu_step_ms, pu_peak = phase24(dev, gen, counters, p_loader, card)
+    for name in ("edge_gather_fwd", "edge_gather_bwd"):
+        launches[f"{name} pseg unfused"] = pu_launches[name]
+    knob = phase25(dev, gen, counters, loader, p_loader, card)
+    for task in ("cls", "pseg"):
+        for name in ("sv_round3_train_fwd", "sv_round3_train_bwd"):
+            launches[f"{name} knob {task}"] = knob[task][0][name]
+    with tempfile.TemporaryDirectory() as tmp:
+        s1_ckpt, fp_ckpt, cls_test, kd_ms = phase26(dev, gen, counters, loader,
+                                                    card, tmp)
+        from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
+        from svnet_tpu_torch.train.loop import read_weights
+
+        trees = {"cls": read_weights(s1_ckpt, dev),
+                 "pseg": knob["pseg"][3].tree()}
+        fp_trees = {"cls": read_weights(fp_ckpt, dev),
+                    "pseg": init_params_pseg(PARTS, K_PSEG, False,
+                                             torch.Generator().manual_seed(SEED + 43))}
+    cert = phase27(trees, fp_trees, {"cls": cls_test, "pseg": pseg_test_set()},
+                   dev, counters, card)
+    t_recipe += time.perf_counter() - t0
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -4443,6 +4969,14 @@ def main() -> int:
     for name in ("knn", "sv_first_train_fwd", "sv_first_train_bwd",
                  "sv_round3_train_fwd", "sv_round3_train_bwd", "edge_gather_fwd"):
         src_of[f"{name} pseg train"] = src_of[name]
+    # B6 on another round's ids, its input through ste_quant8 (knob-aware
+    # training: sv_round3_train.py's kernel at round_k on the caller's
+    # ids), and B7 at the un-fused part segmenter's joint widths
+    for task in ("cls", "pseg"):
+        for name in ("sv_round3_train_fwd", "sv_round3_train_bwd"):
+            src_of[f"{name} knob {task}"] = src_of[name]
+    for name in ("edge_gather_fwd", "edge_gather_bwd"):
+        src_of[f"{name} pseg unfused"] = src_of[name]
     for name in rep.ms:
         if name.startswith("sv_round3_first cross"):
             src_of[name] = src_of["sv_round3_first"]
@@ -4479,7 +5013,16 @@ def main() -> int:
         f"SV-DGCNN {ps_step_ms:.3f} ms, peak {ps_peak / 2**30:.3f} GiB; "
         f"SV-PointNet {pp_step_ms:.3f} ms, peak {pp_peak / 2**30:.3f} GiB; "
         f"phases 22-23 took {t_pseg:.1f} s")
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
+    log(f"un-fused SV-DGCNN partseg train step median (B={B_TRAIN}, N={N_PSEG}, "
+        f"k={K_PSEG}) {pu_step_ms:.3f} ms, peak {pu_peak / 2**30:.3f} GiB; knob-aware "
+        f"fused step median cls {knob['cls'][1]:.3f} ms (peak "
+        f"{knob['cls'][2] / 2**30:.3f} GiB), partseg {knob['pseg'][1]:.3f} ms (peak "
+        f"{knob['pseg'][2] / 2**30:.3f} GiB); KD step median {kd_ms:.3f} ms; "
+        f"certification legs {sum(cert.values()):.1f} s in all")
+    total = time.perf_counter() - t_start
+    log(f"chip_smoke: {total:.1f} s, the build included; the recipe's phases "
+        f"(phase 2's knob and partseg gather shapes, phases 24-27) {t_recipe:.1f} s, "
+        f"{100 * t_recipe / total:.1f}% of it")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

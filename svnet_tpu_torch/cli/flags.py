@@ -1,11 +1,13 @@
 """The flag surface of the JAX CLIs (counterpart of
 svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
-Every flag of the JAX surface parses; ``check_ported`` raises for a flag
-whose feature the port does not have yet (KD, the mesh, profiling, the
-fused eval engine, the serving knobs, other models and datasets). The
-ported datasets are ModelNet40 for classification and ShapeNetPart for
-part segmentation.
+Every flag of the JAX surface parses; ``check_ported`` raises
+``NotImplementedError`` for a flag whose feature the port does not have
+yet (other models, the mesh, profiling, NaN debugging, other datasets)
+and ``ValueError`` for a ported flag that would not act where it is given
+(``check_acts``, ROADMAP C24), where the JAX CLI ignores it. The ported
+datasets are ModelNet40 for classification and ShapeNetPart for part
+segmentation.
 """
 
 from __future__ import annotations
@@ -13,14 +15,15 @@ from __future__ import annotations
 import argparse
 
 # flag -> value that means "off"; any other value is not ported yet
-_NOT_PORTED = {
-    "model": "svnet", "preload": None,
-    "distill": False, "profile_dir": None, "debug_nans": False,
-    "engine_mode": "exact", "approx_fold": 0, "approx_gather_bits": 0,
-    "fast_gather_bits": 0, "graph_reuse": "none", "reuse_k": 0,
-    "train_knobs": False, "morton_entry": False, "fused": False, "dp": 1,
-    "tp": 1,
-}
+_NOT_PORTED = {"model": "svnet", "profile_dir": None, "debug_nans": False,
+               "dp": 1, "tp": 1}
+# the serving knobs, which act through --fused eval's engines (and three of
+# them through --train-knobs): flag -> value that means "not given"
+SERVING_KNOBS = {"engine_mode": "exact", "approx_fold": 0,
+                 "approx_gather_bits": 0, "fast_gather_bits": 0,
+                 "graph_reuse": "none", "reuse_k": 0, "morton_entry": False}
+# the ones knob-aware training reads (svnet_tpu/train/fused.py:39-59)
+TRAIN_KNOBS = ("graph_reuse", "reuse_k", "approx_gather_bits")
 # the dataset each task's port reads
 PORTED_DATASET = {"cls": "modelnet40", "partseg": "shapenetpart"}
 
@@ -102,11 +105,78 @@ def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.Argumen
     return p
 
 
+def _flag(name: str) -> str:
+    return "--" + name.replace("_", "-")
+
+
+def _knob_acts(name: str, args) -> bool:
+    """Whether the serving knob ``name`` acts: through ``--fused`` eval's
+    engine (its mode's knobs; graph reuse and the Morton entry on
+    SV-DGCNN only) or through ``--train-knobs``."""
+    if name == "reuse_k" and args.graph_reuse == "none":
+        return False
+    if not args.fused:
+        return args.train_knobs and name in TRAIN_KNOBS
+    if name in ("graph_reuse", "reuse_k", "morton_entry"):
+        return args.backbone == "dgcnn"
+    if name in ("approx_fold", "approx_gather_bits"):
+        return args.engine_mode == "approx"
+    if name == "fast_gather_bits":
+        return args.engine_mode == "fast"
+    return True
+
+
+def check_acts(args) -> None:
+    """C24: raise ``ValueError`` for a flag that would not act where it is
+    given (the JAX CLI ignores it there): ``--fused`` off ``--test`` or on
+    SV-PointNet part segmentation; ``--train-knobs`` off binary SV-DGCNN
+    or with no knob it reads, or with ``--fused`` (the engines read the
+    serving knobs, not it); a
+    serving knob that neither ``--fused`` eval nor ``--train-knobs``
+    reads (``_knob_acts``); ``--distill`` without ``--preload`` or with
+    ``--test``; ``--preload`` without ``--distill``, or ``--distill``'s
+    student init, beside ``--test`` or ``--resume-from``, which overwrite
+    what it loaded."""
+    dgcnn = args.backbone == "dgcnn"
+    if args.fused and args.test is None:
+        raise ValueError("--fused evaluates a checkpoint: give it with --test")
+    if args.fused and not dgcnn and args.task == "partseg":
+        raise ValueError("--fused is ported for SV-DGCNN part segmentation "
+                         "only (the JAX CLI evaluates SV-PointNet eagerly)")
+    if args.train_knobs and not (dgcnn and args.binary):
+        raise ValueError("--train-knobs acts on binary SV-DGCNN only")
+    if args.train_knobs and args.graph_reuse == "none" and \
+            args.approx_gather_bits != 8:
+        raise ValueError("--train-knobs reads --graph-reuse and "
+                         "--approx-gather-bits 8, and neither is given")
+    if args.train_knobs and args.fused:
+        raise ValueError("--train-knobs does not act on --fused eval: the "
+                         "engines read the serving knobs themselves")
+    for name, off in SERVING_KNOBS.items():
+        if getattr(args, name) != off and not _knob_acts(name, args):
+            raise ValueError(
+                f"{_flag(name)}={getattr(args, name)!r} does not act here "
+                f"(--fused {args.fused}, --train-knobs {args.train_knobs}, "
+                f"--engine-mode {args.engine_mode}, {args.backbone}; C24)")
+    if args.distill and args.preload is None:
+        raise ValueError("--distill needs its teacher: --preload TEACHER")
+    if args.distill and args.test is not None:
+        raise ValueError("--distill does not act on --test")
+    overwrite = args.test is not None or args.resume_from is not None
+    if args.preload is not None and overwrite and (
+            not args.distill or args.kd_init):
+        what = "--distill's student init" if args.distill else "--preload"
+        raise ValueError(f"{what} is overwritten by --test/--resume-from: "
+                         "give --no-kd-init, or drop one")
+
+
 def check_ported(args) -> None:
-    """Raise for every flag set to a feature the port does not have."""
+    """Raise for every flag set to a feature the port does not have, and
+    for a ported one that would not act (``check_acts``)."""
     offs = {**_NOT_PORTED, "dataset": PORTED_DATASET[getattr(args, "task", "cls")]}
     for name, off in offs.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
-                f"--{name.replace('_', '-')}={getattr(args, name)!r} is not "
-                "ported to svnet_tpu_torch")
+                f"{_flag(name)}={getattr(args, name)!r} is not ported to "
+                "svnet_tpu_torch")
+    check_acts(args)

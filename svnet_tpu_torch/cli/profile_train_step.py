@@ -4,7 +4,7 @@
 
 Builds the binary model of ``--path`` (pointnet: SV-PointNet through
 ``train/pointnet.py``; fused: SV-DGCNN through ``train/fused.py``;
-unfused: SV-DGCNN cls through ``train/dgcnn.py``) from seeded weights,
+unfused: SV-DGCNN through ``train/dgcnn.py``) from seeded weights,
 trains it on seeded surface clouds (cls: B=32, N=1024, k=20; partseg:
 B=32, N=2048, k=40, 50 parts, random categories and part ids inside each
 category's range; rot z, the recipe's Adam). After 3 warm-up steps it
@@ -47,10 +47,9 @@ def _build(path: str, task: str):
         if path == "pointnet":
             return (sv_pointnet.init_params_pseg(50, 40, True, gen),
                     pointnet.make_train_apply_pseg(50, 40, True), "pointnet_partseg")
-        if path == "unfused":
-            raise ValueError("--path unfused trains classification only")
-        return (sv_dgcnn.init_params_pseg(50, 40, True, gen),
-                fused.make_fused_train_apply_pseg(50, 40, True), "dgcnn")
+        make = {"fused": fused.make_fused_train_apply_pseg,
+                "unfused": dgcnn.make_train_apply_pseg}[path]
+        return sv_dgcnn.init_params_pseg(50, 40, True, gen), make(50, 40, True), "dgcnn"
     if path == "pointnet":
         return (sv_pointnet.init_params(40, 20, True, gen),
                 pointnet.make_train_apply_cls(40, 20, True), "pointnet_cls")

@@ -20,11 +20,17 @@ the nearest r ranks and run at k = r) and ``reuse_gather_window`` (a
 gather-compaction width on the TPU; here the full gather, which it
 equals bitwise, and a reason to Morton-sort at entry). The candidate
 window is an argument of the SV-DGCNN engines and of B1 and B2
-(``window=``, ops/window.py), as in JAX; the other knobs of
-svnet_tpu/config.py are not ported yet.
+(``window=``, ops/window.py), as in JAX. Training: ``train_knobs``
+(knob-aware finetuning: the binary SV-DGCNN train and eval forwards
+simulate ``graph_reuse``, ``reuse_k`` and an 8-bit ``approx_gather_bits``;
+``train_knob_state`` resolves it once, for a caller that passes it on) and
+``fused_train`` (which SV-DGCNN train forward the trainer takes). The
+other knobs of svnet_tpu/config.py are not ported yet.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -39,6 +45,9 @@ GRAPH_REUSE = ("none", "conv2", "spatial")
 graph_reuse: str = "none"  # which neighbour ids the later conv rounds reuse
 reuse_k: int = 0  # 0: off; reuse rounds take the nearest reuse_k ranks
 reuse_gather_window: int = 0  # 0: off; rows of the TPU's gather compaction
+train_knobs: bool = False  # binary SV-DGCNN forwards simulate the serving knobs
+FUSED_TRAIN = ("auto", "on", "off")
+fused_train: str = "auto"  # "auto": the fused train forward on the card
 
 
 def set_fast_gather_bits(bits: int) -> None:
@@ -112,6 +121,69 @@ def set_reuse_gather_window(width: int) -> None:
         raise ValueError(f"reuse_gather_window must be 0 or a multiple of 128 "
                          f">= 128, got {width}")
     reuse_gather_window = width
+
+
+def set_train_knobs(on: bool) -> None:
+    """Knob-aware training (svnet_tpu/config.py::set_train_knobs): the
+    binary SV-DGCNN train forwards, and the eval forward of the eager
+    models a trainer builds, simulate the serving knobs set here --
+    ``graph_reuse`` (later rounds take the cached round's ids),
+    ``reuse_k`` (reuse rounds take the nearest r ranks) and
+    ``approx_gather_bits`` 8 (each binary round's input through
+    ``nn.sv_train.ste_quant8``); the selection stays exact. Read once,
+    by ``train_knob_state``."""
+    global train_knobs
+    train_knobs = bool(on)
+
+
+def set_fused_train(name: str) -> None:
+    """The SV-DGCNN trainers' train forward (svnet_tpu/config.py::
+    set_fused_train): "on" the fused one (train/fused.py, kernels B5/B6),
+    "off" the un-fused one (train/dgcnn.py, B7), "auto" the fused one on
+    the card, as JAX's on the TPU."""
+    global fused_train
+    if name not in FUSED_TRAIN:
+        raise ValueError(f"fused_train must be one of {FUSED_TRAIN}, got {name!r}")
+    fused_train = name
+
+
+def use_fused_train(device) -> bool:
+    """Whether an SV-DGCNN trainer on ``device`` takes the fused train
+    forward (svnet_tpu/train/loop.py:356-372)."""
+    return fused_train == "on" or (fused_train == "auto"
+                                   and torch.device(device).type == "cuda")
+
+
+@dataclass(frozen=True)
+class TrainKnobs:
+    """Resolved knob-aware training (svnet_tpu/train/fused.py::_train_knobs,
+    svnet_tpu/models/sv_dgcnn.py::_knob_state): ``reuse`` ("none", "conv2",
+    "spatial"), ``reuse_k`` (0: all ranks) and ``q8`` (each binary round's
+    input on the 8-bit gather grid, straight-through)."""
+
+    reuse: str = "none"
+    reuse_k: int = 0
+    q8: bool = False
+
+    def reuses(self, name: str) -> bool:
+        """Whether round ``name`` takes a cached round's ids."""
+        return self.reuse == "spatial" or (self.reuse == "conv2"
+                                           and name != "conv2")
+
+    def round_k(self, name: str, k: int) -> int:
+        """The neighbours round ``name`` runs at: reuse_k in a reuse round
+        where 0 < reuse_k < k, else k."""
+        rk = self.reuse_k
+        return rk if self.reuses(name) and 0 < rk < k else k
+
+
+def train_knob_state(binary: bool) -> TrainKnobs | None:
+    """The knobs a binary SV-DGCNN forward simulates, read from this
+    module once; None where ``train_knobs`` is off or the model is FP (a
+    teacher never takes them)."""
+    if not (train_knobs and binary):
+        return None
+    return TrainKnobs(graph_reuse, reuse_k, approx_gather_bits == 8)
 
 
 def check_mode(mode: str, trunk: str = "round3") -> str:

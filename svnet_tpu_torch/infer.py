@@ -246,9 +246,9 @@ def check_rounds_impl(rounds_impl: str) -> str:
     return rounds_impl
 
 
-def _to(tree, device):
-    return {n: _to(v, device) if isinstance(v, dict)
-            else v.to(device=device, dtype=torch.float32).contiguous()
+def _to(tree, device, dtype=torch.float32):
+    return {n: _to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device=device, dtype=dtype).contiguous()
             for n, v in tree.items()}
 
 
@@ -362,11 +362,17 @@ class _DGCNNEngine:
     """What the two SV-DGCNN engines share: the device, the folds, the
     trunk (``trunk``, from the caller's ``rounds_impl``) and conv5 + the
     SVFuse at ``fuse_key``. ``oracle`` runs every kernel's plain version,
-    the kNN's included."""
+    the kNN's included; only then may ``dtype`` be float64 (the kernels
+    take float32)."""
 
     def __init__(self, weights: dict, dims: dict, emb: tuple, fuse_key: str,
                  k: int, binary: bool, mode: str, device, oracle: bool,
-                 trunk: str, window: int = 0, tile: int = 64):
+                 trunk: str, window: int = 0, tile: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        if dtype != torch.float32 and not (oracle and dtype == torch.float64):
+            raise ValueError(f"dtype {dtype}: float32, or float64 with "
+                             "oracle=True (the kernels take float32)")
+        self.dtype = dtype
         self.mode = config.check_mode(mode, trunk)
         self.trunk, self.tile = trunk, tile
         self.row_major = trunk != "round3"
@@ -387,8 +393,8 @@ class _DGCNNEngine:
             # full-f32 matmuls: TF32 would flip binarization signs (C7)
             config.set_full_fp32()
         self.k, self.binary = k, binary
-        p = self.p = _to(weights["params"], self.device)
-        bs = self.bs = _to(weights["batch_stats"], self.device)
+        p = self.p = _to(weights["params"], self.device, dtype)
+        bs = self.bs = _to(weights["batch_stats"], self.device, dtype)
         self.dims, self.rounds = dims, dgcnn_rounds(dims)
         self.folded = {
             name: _contig(fold_svblock_params(p[name], bs[name], S, V, binary))
@@ -405,9 +411,9 @@ class _DGCNNEngine:
             binary=binary))
 
     def _check(self, points: torch.Tensor) -> None:
-        if points.device != self.device or points.dtype != torch.float32:
+        if points.device != self.device or points.dtype != self.dtype:
             raise ValueError(
-                f"points must be float32 on {self.device}, got "
+                f"points must be {self.dtype} on {self.device}, got "
                 f"{points.dtype} on {points.device}")
 
     def _entry_sort(self, points: torch.Tensor):
@@ -507,15 +513,19 @@ class SVDGCNNClsEngine(_DGCNNEngine):
 
     ``oracle=True`` runs the kernels' plain PyTorch versions in their place
     on any device: the reference the kernel path is held against on the
-    card (chip_smoke.py). It is never chosen for the caller."""
+    card (chip_smoke.py). It is never chosen for the caller. With it,
+    ``dtype=torch.float64`` runs the plain versions in float64 on float64
+    points, where no binarization sign lies within rounding of 0: the
+    engine's function held to the eager model's without flips."""
 
     def __init__(self, weights: dict, num_classes: int = 40, k: int = 20,
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3",
-                 window: int = 0, tile: int = 64):
+                 window: int = 0, tile: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(weights, CLS_DIMS, (1024 // 2, 1024 // 6), "svfuse",
                          k, binary, mode, device, oracle,
-                         check_rounds_impl(rounds_impl), window, tile)
+                         check_rounds_impl(rounds_impl), window, tile, dtype)
         self.num_classes = num_classes
         # the tail emits SVFuse channels j-major; the head's first linear
         # takes its rows in that order
@@ -557,12 +567,13 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
     def __init__(self, weights: dict, num_part: int = 50, k: int = 40,
                  binary: bool = True, mode: str = "exact", device="cuda",
                  oracle: bool = False, rounds_impl: str = "round3",
-                 window: int = 0, tile: int = 64):
+                 window: int = 0, tile: int = 64,
+                 dtype: torch.dtype = torch.float32):
         trunk = check_rounds_impl(rounds_impl)
         super().__init__(weights, PSEG_TRUNK, PSEG_DIMS["conv5"], "svfuse3",
                          k, binary, mode, device, oracle,
                          "round3" if trunk == "round3" else "round2", window,
-                         tile)
+                         tile, dtype)
         self.num_part = num_part
         p = self.p
         self.v_off0 = point_v_off(0, [V for _, V in self.dims.values()])
@@ -626,11 +637,11 @@ class SVDGCNNPsegEngine(_DGCNNEngine):
         """(B, N, 3) points, (B, 16) one-hot category -> (B, N, num_part)."""
         self._check(points)
         B = points.shape[0]
-        if (label.device != self.device or label.dtype != torch.float32
+        if (label.device != self.device or label.dtype != self.dtype
                 or tuple(label.shape) != (B, 16)):
-            raise ValueError(f"label: expected (B, 16) float32 on {self.device}"
-                             f", got {tuple(label.shape)} {label.dtype} on "
-                             f"{label.device}")
+            raise ValueError(f"label: expected (B, 16) {self.dtype} on "
+                             f"{self.device}, got {tuple(label.shape)} "
+                             f"{label.dtype} on {label.device}")
         if self.row_major:
             return self._tail_rows(label, *self._trunk(points.contiguous()))
         points, order = self._entry_sort(points.contiguous())

@@ -1,9 +1,15 @@
 """SV-DGCNN classifier and part segmenter, eager eval forward (counterparts
-of svnet_tpu/models/sv_dgcnn.py:83-251 with ``train_knobs`` off).
+of svnet_tpu/models/sv_dgcnn.py:83-251).
 
 These are the un-fused oracles: every round builds its (B, N, k, ...) edge
 tensors explicitly. The serving paths are ``svnet_tpu_torch.infer``'s
 ``SVDGCNNClsEngine`` and ``SVDGCNNPsegEngine``.
+
+``knobs`` (a ``config.TrainKnobs``, None for none) is knob-aware
+training's state, which a trainer resolves once and hands to the model
+it evaluates with: the eval forward then runs in the knobs' world, as
+JAX's does whenever ``train_knobs`` is set and the model is binary
+(``knob_graph``). The model reads no module global for it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from svnet_tpu_torch.nn.sv_layers import (
     SVFuse,
     Vector2Scalar,
 )
+from svnet_tpu_torch.nn.sv_train import ste_quant8
 from svnet_tpu_torch.utils.convert import load_tree, module_tree
 
 # (in_s, in_v, out_s, out_v) of the trunk's SVBlocks; edge rounds see
@@ -33,17 +40,70 @@ _BLOCKS = {
 }
 
 
+def knob_graph(x, k: int, idx0, wins, name: str, knobs, plain: bool = False):
+    """One round's edges under knob-aware training
+    (svnet_tpu/models/sv_dgcnn.py::_knob_graph): the cached ids' nearest
+    ``knobs.round_k(name, k)`` ranks in a reuse round ("spatial": the
+    points' ids ``idx0``; "conv2": conv2's ``wins``), else the kNN of the
+    joint features (kept in ``wins`` at conv2 under "conv2"); under ``q8``
+    s and v go through ``ste_quant8`` before the gather, the selection
+    staying on the exact features. ``knobs`` None: the plain edges.
+    Returns (edges, wins)."""
+    if knobs is None:
+        return ops.get_graph_feature_sv(x, k, plain=plain), wins
+    s, v = x
+    if knobs.reuses(name):
+        idx = (idx0 if knobs.reuse == "spatial" else wins)[
+            :, :, :knobs.round_k(name, k)]
+    else:
+        B, N = s.shape[:2]
+        joint = torch.cat([s, v.reshape(B, N, -1)], dim=-1).detach()
+        idx = (ops.knn_plain if plain else ops.knn)(joint, k)
+        if knobs.reuse == "conv2":
+            wins = idx
+    if knobs.q8:
+        s, v = ste_quant8(s), ste_quant8(v)
+    return ops.get_graph_feature_sv((s, v), idx.shape[-1], idx=idx,
+                                    plain=plain), wins
+
+
+def trunk_edges(points, k: int, knobs, plain: bool = False):
+    """The first round's edges and the points' ids (None without knobs,
+    where the gather selects its own)."""
+    idx0 = None
+    if knobs is not None:
+        idx0 = (ops.knn_plain if plain else ops.knn)(points.detach(), k)
+    return ops.get_graph_feature(points, k, idx=idx0, plain=plain), idx0
+
+
+def _trunk(model: nn.Module, points: torch.Tensor) -> list:
+    """The four rounds' pooled (s, v) of an eager SV-DGCNN model; with its
+    ``oracle`` the kNN and gathers' plain versions on any device."""
+    k, knobs, plain = model.k, model.knobs, model.oracle
+    v, idx0 = trunk_edges(points, k, knobs, plain)  # (B, N, k, 3, 2)
+    outs = [ops.svpool(model.conv1((model.init_scalar(v), v)))]
+    wins = None
+    for name in ("conv2", "conv3", "conv4"):
+        e, wins = knob_graph(outs[-1], k, idx0, wins, name, knobs, plain)
+        outs.append(ops.svpool(getattr(model, name)(e)))
+    return outs
+
+
 class SVDGCNNCls(nn.Module):
     """SV_DGCNN_CLS: 4 dynamic-graph rounds, skip-concat, conv5 SVBlock,
     SVFuse read-out, max+mean pool, binarizable MLP head. conv1 and
-    linear3 are always full-precision. Eval only; dropout is identity."""
+    linear3 are always full-precision. Eval only; dropout is identity.
+    ``oracle``: the kNN and gathers' plain versions on the card too (kernels
+    B4 and B7 take float32; the model in float64 needs them)."""
 
     def __init__(self, num_classes: int = 40, k: int = 20, binary: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, knobs=None,
+                 oracle: bool = False):
         super().__init__()
         g = generator
-        self.k = k
+        self.k, self.oracle = k, oracle
         self.binary = binary
+        self.knobs = knobs if binary else None
         self.init_scalar = Vector2Scalar(2, 3, generator=g)
         for name, (i_s, i_v, o_s, o_v) in _BLOCKS.items():
             blk_binary = binary and name != "conv1"
@@ -59,14 +119,7 @@ class SVDGCNNCls(nn.Module):
         self.linear3 = Linear(256, num_classes, use_bias=True, generator=g)
 
     def forward(self, points: torch.Tensor) -> torch.Tensor:
-        k = self.k
-        v = ops.get_graph_feature(points, k)  # (B, N, k, 3, 2)
-        x = (self.init_scalar(v), v)
-        x1 = ops.svpool(self.conv1(x))
-        x2 = ops.svpool(self.conv2(ops.get_graph_feature_sv(x1, k)))
-        x3 = ops.svpool(self.conv3(ops.get_graph_feature_sv(x2, k)))
-        x4 = ops.svpool(self.conv4(ops.get_graph_feature_sv(x3, k)))
-        x = self.svfuse(self.conv5(ops.svcat([x1, x2, x3, x4])))  # (B, N, 1022)
+        x = self.svfuse(self.conv5(ops.svcat(_trunk(self, points))))  # (B, N, 1022)
         x = torch.cat([torch.amax(x, dim=1), torch.mean(x, dim=1)], dim=-1)
         lrelu = nn.functional.leaky_relu
         x = lrelu(self.bn1(self.linear1(x)), 0.2)
@@ -135,13 +188,15 @@ class SVDGCNNPseg(nn.Module):
     per-point conv5 embedding through svfuse3, max over the points), the
     16 -> 64 label branch (conv7, bn7; always FP) and the binarizable
     pointwise head conv8-10, then the FP conv11. Eval only; dropout is
-    identity."""
+    identity. ``oracle`` as ``SVDGCNNCls``'s."""
 
     def __init__(self, num_part: int = 50, k: int = 40, binary: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, knobs=None,
+                 oracle: bool = False):
         super().__init__()
         g, d = generator, PSEG_DIMS
-        self.k, self.binary = k, binary
+        self.k, self.binary, self.oracle = k, binary, oracle
+        self.knobs = knobs if binary else None
         self.init_scalar = Vector2Scalar(2, 3, generator=g)
         blocks = {"conv1": (6, 2), "conv2": (2 * d["conv1"][0], 2 * d["conv1"][1]),
                   "conv3": (2 * d["conv2"][0], 2 * d["conv2"][1]),
@@ -166,14 +221,8 @@ class SVDGCNNPseg(nn.Module):
 
     def forward(self, points: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) points, (B, 16) one-hot category -> (B, N, num_part)."""
-        k = self.k
         B, N = points.shape[:2]
-        v = ops.get_graph_feature(points, k)
-        x1 = ops.svpool(self.conv1((self.init_scalar(v), v)))
-        x2 = ops.svpool(self.conv2(ops.get_graph_feature_sv(x1, k)))
-        x3 = ops.svpool(self.conv3(ops.get_graph_feature_sv(x2, k)))
-        x4 = ops.svpool(self.conv4(ops.get_graph_feature_sv(x3, k)))
-        x = ops.svcat([x1, x2, x3, x4])
+        x = ops.svcat(_trunk(self, points))
         x_fine = self.svfuse1(x)  # (B, N, S_c + 3V_c)
         x = self.conv5(x)
         x_pool = self.svfuse2(self.conv6(ops.svpool(x, dim=1, keepdim=True)))

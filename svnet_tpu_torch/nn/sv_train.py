@@ -112,6 +112,23 @@ def stn_train(p: dict, st: dict, x, binary: bool):
     return x, new
 
 
+def ste_quant8(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel symmetric int8 fake-quantization with a straight-through
+    gradient (svnet_tpu/nn/sv_layers.py::ste_quant8), the training twin of
+    the serving engines' 8-bit gather grid (``ops/kernels/quant.py::
+    grid_codes(x, 8)``): per trailing channel, amax over batch and points
+    (axes 0, 1), codes ``round_half_even(x * 127 / amax)`` clipped to
+    +-127, read back as ``code / scale`` (the grid reads ``code * (1 /
+    scale)``; the two can differ by a rounding). Scalars (B, N, S) and
+    vectors (B, N, 3, V) alike: a vector's (axis, channel) rows quantize
+    independently, as the engines' flattened joint channels do."""
+    amax = torch.amax(torch.abs(x.detach()), dim=(0, 1), keepdim=True)
+    scale = torch.tensor(127.0, dtype=x.dtype, device=x.device) / \
+        torch.clamp(amax, min=1e-30)
+    q = torch.clamp(torch.round(x.detach() * scale), -127, 127) / scale
+    return x + (q - x.detach())
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator):
     keep = torch.rand(x.shape, generator=generator).to(x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

@@ -137,13 +137,16 @@ def kernel_params(p: dict, d: RoundDims) -> dict:
     return kp
 
 
-def bn_stats(sums: torch.Tensor, M: int, n: int):
-    """float64 sums [x (n), x^2 (n)] over M samples -> float32 (mean,
-    biased var, 1/std). Double sums round to the same f32 statistics in
-    any summation order, so kernel and plain version agree on them."""
+def bn_stats(sums: torch.Tensor, M: int, n: int, dtype=torch.float32):
+    """float64 sums [x (n), x^2 (n)] over M samples -> (mean, biased var,
+    1/std) in ``dtype``: float32 on the kernels' path (double sums round
+    to the same f32 statistics in any summation order, so kernel and plain
+    version agree on them), float64 where a plain version runs on float64
+    inputs."""
     mu = sums[:n] / M
     var = torch.clamp(sums[n:] / M - mu * mu, min=0.0)
-    return mu.float(), var.float(), (1.0 / torch.sqrt(var + BN_EPS)).float()
+    return (mu.to(dtype), var.to(dtype),
+            (1.0 / torch.sqrt(var + BN_EPS)).to(dtype))
 
 
 def _dsum(x: torch.Tensor) -> torch.Tensor:
@@ -216,8 +219,10 @@ def train_fwd_plain(src, idx, kp, d: RoundDims):
     q = _edges(src, idx, kp, d)
     M = B * N * d.k
     h, n = q["h"], q["n"]
-    mu1, var1, inv1 = bn_stats(torch.cat([_dsum(h), _dsum(h * h)]), M, d.S_out)
-    mun, varn, invn = bn_stats(torch.cat([_dsum(n), _dsum(n * n)]), M, d.V_out)
+    mu1, var1, inv1 = bn_stats(torch.cat([_dsum(h), _dsum(h * h)]), M, d.S_out,
+                               src.dtype)
+    mun, varn, invn = bn_stats(torch.cat([_dsum(n), _dsum(n * n)]), M, d.V_out,
+                               src.dtype)
     # per point over the ranks in rank order (as the kernel), then over N
     ssum = rank_sum(q["x"][..., :d.SX]).sum(1, dtype=torch.float64)
     y = _leaky(kp["g1"] * ((h - mu1) * inv1) + kp["bb1"])
@@ -253,9 +258,9 @@ def train_bwd_plain(src, idx, kp, d: RoundDims, saved, dso, dvo, dssum):
     dnbn = G / n
     sums = {"dysum": _dsum(dy), "dyxh": _dsum(dy * xhat),
             "dnbsum": _dsum(dnbn), "dnbnh": _dsum(dnbn * nhat)}
-    s1, s2, s3, s4 = [(sums[n] / M).float()
+    s1, s2, s3, s4 = [(sums[n] / M).to(src.dtype)
                       for n in ("dysum", "dyxh", "dnbsum", "dnbnh")]
-    g = {n: v.float() for n, v in sums.items()}
+    g = {n: v.to(src.dtype) for n, v in sums.items()}
 
     dh = (kp["g1"] * inv1) * ((dy - s1) - xhat * s2)
     dhr = dh * kp["scale1"]
@@ -510,7 +515,7 @@ class FusedTrainRound(torch.autograd.Function):
         s_out, v_out, ssum, (mu1, var1, inv1, mun, varn, invn), kmax = \
             ops[0](src, idx, kp, d)
         B, N, _ = src.shape
-        s_mean = (ssum / (N * d.k)).float()
+        s_mean = (ssum / (N * d.k)).to(src.dtype)
         if d.first:  # the kernel's j-major gate scalars -> flax c-major
             s_mean = s_mean[:, first_perm()]
         ctx.d, ctx.ops, ctx.names = d, ops, names

@@ -1,6 +1,6 @@
 """Fused train-mode forwards of SV-DGCNN classification and part
 segmentation (counterpart of svnet_tpu/train/fused.py::
-make_fused_train_apply and make_fused_train_apply_pseg, train knobs off).
+make_fused_train_apply and make_fused_train_apply_pseg).
 
 ``apply(params, batch_stats, points, [label,] generator=None) ->
 (logits, new_batch_stats)`` is the train-mode forward of the model on the
@@ -14,12 +14,21 @@ statistics moved by ``1 - BN_MOM`` toward them.
 
 The k-max pool's gradient goes to the FIRST argmax rank (the JAX fused
 path's documented choice; the flax path splits it among exact ties).
+
+Knob-aware training (``knobs``, a ``config.TrainKnobs`` the caller
+resolved; svnet_tpu/train/fused.py:39-59): a reuse round runs B6 at
+``knobs.round_k(name, k)`` on the nearest ranks of another round's ids
+("spatial": B4's xyz ids, so conv2-4 launch no B4; "conv2": conv2's ids
+for conv3 and conv4), given to B6 as a contiguous copy of the rank
+prefix; with ``q8`` each round's joint input goes through
+``ste_quant8`` before B6, its ids still selected on the exact input.
 """
 
 from __future__ import annotations
 
 import torch
 
+from svnet_tpu_torch.config import TrainKnobs
 from svnet_tpu_torch.models.sv_dgcnn import PSEG_DIMS
 from svnet_tpu_torch.nn import sv_train as svt
 from svnet_tpu_torch.ops.graph import svpool
@@ -39,12 +48,13 @@ PSEG_ROUNDS = {name: (*PSEG_DIMS[prev], *PSEG_DIMS[name]) for prev, name in
 SUB = ("v2s", "linear1", "bn1", "linear2", "bn2")
 
 
-def make_trunk(rounds: dict, k: int, binary: bool, oracle: bool):
+def make_trunk(rounds: dict, k: int, binary: bool, oracle: bool, knobs=None):
     """``trunk(params, batch_stats, points) -> (outs, new)``: kNN of the
     points, the fused first round (B5) to the first round's widths
     ``rounds["conv2"][:2]``, then kNN of each round's joint [s, flat(v)]
-    and the fused conv round (B6) of ``rounds``. ``outs`` holds the four
-    rounds' gated (s, v); ``new`` their new running statistics."""
+    (or, under ``knobs``, the reused ids) and the fused conv round (B6)
+    of ``rounds``. ``outs`` holds the four rounds' gated (s, v); ``new``
+    their new running statistics."""
     if oracle:
         nn_ids = knn_plain
         first_ops = (kr.train_fwd_plain, kr.train_bwd_plain)
@@ -53,9 +63,10 @@ def make_trunk(rounds: dict, k: int, binary: bool, oracle: bool):
         nn_ids = knn
         first_ops = (kf.sv_first_train_fwd, kf.sv_first_train_bwd)
         round_ops = (kr.sv_round3_train_fwd, kr.sv_round3_train_bwd)
+    knobs = knobs or TrainKnobs()
     S1, V1 = rounds["conv2"][0], rounds["conv2"][1]
     d_first = kf.first_dims(S1, V1, k)
-    d_rounds = {name: kr.RoundDims(S, V, So, Vo, k, binary)
+    d_rounds = {name: kr.RoundDims(S, V, So, Vo, knobs.round_k(name, k), binary)
                 for name, (S, V, So, Vo) in rounds.items()}
 
     def stats(st, mu, var, mun, varn):
@@ -72,10 +83,18 @@ def make_trunk(rounds: dict, k: int, binary: bool, oracle: bool):
               * svt.gate(p["conv1"], s_mean1)[:, None, None, :])
         new = {"conv1": stats(bs["conv1"], *st1)}
         outs = [x1]
+        wins = idx0 if knobs.reuse == "spatial" else None  # rank-major
         for name, d in d_rounds.items():
             s_in, v_in = outs[-1]
             joint = torch.cat([s_in, v_in.reshape(B, N, -1)], dim=-1)
-            idx = nn_ids(joint.detach(), k)
+            if knobs.reuses(name):  # the nearest d.k ranks of the cached ids
+                idx = wins[:, :, :d.k].contiguous()
+            else:
+                idx = nn_ids(joint.detach(), k)
+                if knobs.reuse == "conv2":
+                    wins = idx
+            if knobs.q8:  # the serving gather's 8-bit grid, selection exact
+                joint = svt.ste_quant8(joint)
             so, vo, s_mean, st = kr.fused_round_apply(
                 round_ops, d, joint, idx, {n: p[name][n] for n in SUB})
             vo = (vo.reshape(B, N, 3, d.V_out)
@@ -88,16 +107,18 @@ def make_trunk(rounds: dict, k: int, binary: bool, oracle: bool):
 
 
 def make_fused_train_apply(num_classes: int, k: int, binary: bool = True,
-                           dropout: float = 0.5, oracle: bool = False):
+                           dropout: float = 0.5, oracle: bool = False,
+                           knobs=None):
     """Returns ``apply(params, batch_stats, points, generator=None) ->
     (logits, new_batch_stats)``. The FP model's head dropout draws from
     ``generator`` when one is given (none: no dropout); the binary model
-    has none. Knob-aware training is not ported (the CLI's
-    ``--train-knobs`` raises). ``oracle=True`` runs the kernels' plain
-    versions on any device: the reference the kernel path is held against
-    on the card (chip_smoke.py). It is never chosen for the caller."""
+    has none. ``knobs``: the resolved ``config.TrainKnobs`` of knob-aware
+    training (``config.train_knob_state``), None for none. ``oracle=True``
+    runs the kernels' plain versions on any device: the reference the
+    kernel path is held against on the card (chip_smoke.py). It is never
+    chosen for the caller."""
     del num_classes  # the head's width comes from the weights
-    trunk = make_trunk(ROUNDS, k, binary, oracle)
+    trunk = make_trunk(ROUNDS, k, binary, oracle, knobs)
 
     def apply(params, batch_stats, points, generator=None):
         outs, new = trunk(params, batch_stats, points)
@@ -107,7 +128,8 @@ def make_fused_train_apply(num_classes: int, k: int, binary: bool = True,
 
 
 def make_fused_train_apply_pseg(num_part: int, k: int, binary: bool = True,
-                                dropout: float = 0.5, oracle: bool = False):
+                                dropout: float = 0.5, oracle: bool = False,
+                                knobs=None):
     """Returns ``apply(params, batch_stats, points, label, generator=None)
     -> (logits (B, N, num_part), new_batch_stats)``, the train-mode forward
     of SV_DGCNN_PSEG (counterpart of
@@ -115,9 +137,9 @@ def make_fused_train_apply_pseg(num_part: int, k: int, binary: bool = True,
     ``make_trunk`` at PSEG_ROUNDS, then ``tail_pseg``. ``label`` is the
     (B, 16) one-hot category. Dropout and ``oracle`` as in
     ``make_fused_train_apply``: the FP head's dropout after conv8 and
-    conv9 draws from ``generator``."""
+    conv9 draws from ``generator``; ``knobs`` as there."""
     del num_part  # the head's width comes from the weights
-    trunk = make_trunk(PSEG_ROUNDS, k, binary, oracle)
+    trunk = make_trunk(PSEG_ROUNDS, k, binary, oracle, knobs)
 
     def apply(params, batch_stats, points, label, generator=None):
         outs, new = trunk(params, batch_stats, points)

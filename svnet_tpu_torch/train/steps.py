@@ -70,14 +70,40 @@ def _inputs(batch: dict, rot: str, generator, with_label: bool) -> tuple:
     return (points, batch["label"]) if with_label else (points,)
 
 
+class Distiller:
+    """Knowledge distillation (svnet_tpu/train/loop.py::_Distiller): a
+    frozen teacher's logits guide the student through the Hinton term
+    ``T^2 * CE(softmax(teacher / T), log_softmax(student / T))``, mean
+    over the leading axes. ``model`` is the teacher's eager eval model
+    (the FP model, never knob-aware) with its weights loaded, on the
+    student's device; its forward runs under ``torch.no_grad()``."""
+
+    def __init__(self, model, temperature: float = 4.0):
+        self.model = model.eval()
+        self.T = temperature
+
+    def loss(self, student_logits: torch.Tensor, *inputs) -> torch.Tensor:
+        """The KD term for the student's logits on ``inputs`` (the rotated
+        points, and the one-hot label for part segmentation)."""
+        with torch.no_grad():
+            teacher = self.model(*inputs)
+        T = self.T
+        p_t = torch.softmax(teacher / T, dim=-1)
+        log_p_s = torch.log_softmax(student_logits / T, dim=-1)
+        return -(p_t * log_p_s).sum(dim=-1).mean() * (T * T)
+
+
 def make_train_step(apply, loss_fn, rot: str = "aligned",
-                    with_label: bool = False):
+                    with_label: bool = False, distiller: Distiller | None = None,
+                    alpha: float = 0.5):
     """``step(state, batch, generator) -> (loss, preds)``: rotation
-    augmentation, the train forward ``apply`` (``make_fused_train_apply``
-    or ``train.pointnet.make_train_apply_cls``; with a label,
-    ``make_fused_train_apply_pseg`` or ``make_train_apply_pseg``), the
-    loss, its gradients and one optimizer update at the schedule's rate
-    for this step."""
+    augmentation, the train forward ``apply`` (``make_fused_train_apply``,
+    ``train.dgcnn.make_train_apply_cls`` or
+    ``train.pointnet.make_train_apply_cls``; with a label, their partseg
+    twins), the loss, its gradients and one optimizer update at the
+    schedule's rate for this step. With a ``distiller`` the loss is
+    ``(1 - alpha) * loss + alpha * distiller.loss`` on the same rotated
+    inputs (svnet_tpu/train/loop.py::_make_kd_train_step)."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         inputs = _inputs(batch, rot, generator, with_label)
@@ -86,6 +112,8 @@ def make_train_step(apply, loss_fn, rot: str = "aligned",
         logits, new_stats = apply(state.params, state.batch_stats, *inputs,
                                   generator)
         loss = loss_fn(logits, batch["target"])
+        if distiller is not None:
+            loss = (1 - alpha) * loss + alpha * distiller.loss(logits, *inputs)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         state.opt.step()
@@ -115,7 +143,10 @@ def make_eval_step(model, loss_fn, rot_test: str = "so3",
     model (``models.sv_dgcnn.SVDGCNNCls`` or
     ``models.sv_pointnet.SVPointNetCls``; with a label ``SVDGCNNPseg`` or
     ``SVPointNetPseg``, whose kNN and neighbour gathers launch kernels B4
-    and B7 on the card); load the weights into ``model`` first."""
+    and B7 on the card; load the weights into ``model`` first) or through
+    a serving engine (``--fused`` eval: ``infer.SVDGCNNClsEngine``,
+    ``SVPointNetClsEngine`` or ``SVDGCNNPsegEngine``, built from the
+    state's tree; svnet_tpu/train/loop.py::_fused_cls_eval_step)."""
 
     @torch.no_grad()
     def step(batch, generator):

@@ -9,37 +9,29 @@ gathers, at N = 256 with fold 64 (four rows a residue class) and key
 tiles T = 64 and 128, to fast mode's bars (tests/test_torch_fast.py: the
 neighbour sets agree, at most 1 in 1,000 ids differ, outputs to f32
 summation order). The engines run approx mode at N = 128 with fold 64.
+
+The engines against the JAX engines are in
+tests/test_torch_approx_engines.py.
 """
 
 import contextlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from svnet_tpu import config as jconfig
-from svnet_tpu import models
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxDGCNNEngine
-from svnet_tpu.infer import SVDGCNNPsegEngine as JaxPsegEngine
-from svnet_tpu.infer import SVPointNetClsEngine as JaxPointNetEngine
 from svnet_tpu.ops.pallas import sv_round3 as jr3
 from svnet_tpu_torch import config
-from svnet_tpu_torch.infer import (
-    ROUNDS,
-    SVDGCNNClsEngine,
-    SVDGCNNPsegEngine,
-    SVPointNetClsEngine,
-)
+from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
 from svnet_tpu_torch.models import sv_pointnet
-from svnet_tpu_torch.models.sv_dgcnn import init_params, init_params_pseg
+from svnet_tpu_torch.models.sv_dgcnn import init_params
 from svnet_tpu_torch.ops import morton
 from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.ops.kernels.sv_round3 import sv_round3, sv_round3_first
 from svnet_tpu_torch.ops.knn import knn_approx_plain, knn_fast_plain
-from svnet_tpu_torch.utils.convert import from_flax, to_flax
 
 from test_torch_fast import (
     CROSS_TOL,
@@ -282,57 +274,6 @@ def test_approx_refusals():
 N_ENG, K_ENG = 128, 4
 
 
-def _shuffled(points, seed):
-    perm = np.random.default_rng(seed).permutation(points.shape[1])
-    return points[:, perm], perm
-
-
-def test_dgcnn_cls_engine_approx_matches_jax():
-    """The binary classifier, fold 64 (L = 64 at N = 128), both sorting at
-    entry; shuffled points give the same logits."""
-    model = models.SV_DGCNN_CLS(num_classes=10, k=K_ENG, binary=True)
-    points = _rand(7, B, N_ENG, 3)
-    # one compile of init instead of its eager ops (bitwise the same tree)
-    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(points))
-    weights = _with_beta(from_flax(jax.tree.map(np.asarray, {
-        "params": var["params"], "batch_stats": jax.tree.map(
-            lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])})), 6)
-    with _approx(fold=64):
-        jeng = JaxDGCNNEngine(to_flax(weights), num_classes=10, k=K_ENG,
-                              binary=True, mode="approx", interpret=True)
-        want = np.asarray(jeng(jnp.asarray(points)))
-        eng = SVDGCNNClsEngine(weights, 10, K_ENG, True, mode="approx",
-                               device="cpu")
-        got = eng(torch.from_numpy(points))
-        shuffled, _ = _shuffled(points, 1)
-        got_sh = eng(torch.from_numpy(shuffled))
-        oracle = SVDGCNNClsEngine(weights, 10, K_ENG, True, mode="approx",
-                                  device="cpu", oracle=True)
-        assert torch.equal(oracle(torch.from_numpy(points)), got)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(got_sh.numpy(), got.numpy(), rtol=1e-4, atol=1e-5)
-
-
-def test_dgcnn_pseg_engine_approx_matches_jax():
-    """The FP part segmenter, fold 64, 8-bit gathers: logits against the
-    JAX engine's in the input's order (both un-permute the sort), and
-    shuffled points give the shuffled logits."""
-    weights = init_params_pseg(50, K_ENG, False, torch.Generator().manual_seed(2))
-    points = _rand(8, B, N_ENG, 3)
-    label = np.eye(16, dtype=np.float32)[[3, 11]]
-    with _approx(fold=64, bits=8):
-        jeng = JaxPsegEngine(to_flax(weights), num_part=50, k=K_ENG,
-                             binary=False, mode="approx", interpret=True)
-        want = np.asarray(jeng(jnp.asarray(points), jnp.asarray(label)))
-        eng = SVDGCNNPsegEngine(weights, 50, K_ENG, False, mode="approx",
-                                device="cpu")
-        got = eng(torch.from_numpy(points), torch.from_numpy(label)).numpy()
-        shuffled, perm = _shuffled(points, 2)
-        got_sh = eng(torch.from_numpy(shuffled), torch.from_numpy(label)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got_sh, got[:, perm], rtol=1e-4, atol=1e-4)
-
-
 def test_morton_entry_sorts_in_exact_mode():
     """``config.morton_entry`` sorts the SV-DGCNN classifier's cloud in
     exact mode too: the logits equal those of the pre-sorted cloud."""
@@ -348,18 +289,3 @@ def test_morton_entry_sorts_in_exact_mode():
     finally:
         config.set_morton_entry(was)
     assert eng._entry_sort(pts)[1] is None
-
-
-def test_pointnet_cls_engine_approx_matches_jax():
-    """SV-PointNet in approx mode at 8-bit gathers, no entry sort on
-    either side."""
-    weights = sv_pointnet.init_params(10, K_ENG, False,
-                                      torch.Generator().manual_seed(1))
-    points = _rand(8, B, N_ENG, 3)
-    with _approx(fold=64, bits=8):
-        jeng = JaxPointNetEngine(to_flax(weights), num_classes=10, k=K_ENG,
-                                 binary=False, mode="approx", interpret=True)
-        want = np.asarray(jeng(jnp.asarray(points)))
-        got = SVPointNetClsEngine(weights, 10, K_ENG, False, mode="approx",
-                                  device="cpu")(torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)

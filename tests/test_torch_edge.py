@@ -5,6 +5,9 @@ same neighbour ids, the host gate ``svblock_gate`` against JAX's, and the
 engine's edge trunk against the JAX engine's (CPU, B=2, N=64, k=4).
 
 Bars: outputs within rtol=1e-4, atol=1e-5; engines within 1e-4.
+
+The engine's edge trunk against the JAX engine's is in
+tests/test_torch_edge_engines.py.
 """
 
 import jax.numpy as jnp
@@ -12,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
 from svnet_tpu.ops.pallas.sv_edge import sv_edge_block as jax_edge
 from svnet_tpu.ops.pallas.sv_edge import svblock_gate as jax_gate
 from svnet_tpu.ops.pallas.sv_edge_first import sv_edge_first_block as jax_first
@@ -21,7 +23,6 @@ from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
 from svnet_tpu_torch.models.sv_dgcnn import init_params
 from svnet_tpu_torch.ops.kernels.sv_edge import sv_edge_block, svblock_gate
 from svnet_tpu_torch.ops.kernels.sv_edge_first import sv_edge_first_block
-from svnet_tpu_torch.utils.convert import from_flax, to_flax
 
 B, N, K, CLASSES = 2, 64, 4, 10
 RTOL, ATOL = 1e-4, 1e-5
@@ -137,26 +138,3 @@ def test_edge_wrappers_check_ids(engines):
         with pytest.raises(err):
             sv_edge_first_block(torch.zeros(B, 16, 3), bad, eng.folded_first,
                                 S_out=32, V_out=10, k=K)
-
-
-@pytest.mark.parametrize("binary", [False, True], ids=["fp", "binary"])
-def test_cls_edge_engine_matches_jax_engine(binary):
-    """The port's edge trunk (kNN x4, B10d, svblock_gate and B10c x3, B3r)
-    against the JAX engine's (knn_impl="xla", the Pallas kernels in
-    interpret mode), on the port's seeded weights crossed over as a flax
-    tree; the oracle twin equals the CPU engine."""
-    var = to_flax(init_params(CLASSES, K, binary,
-                              torch.Generator().manual_seed(4)))
-    points = _rand(2, B, N, 3)
-    jeng = JaxClsEngine(var, num_classes=CLASSES, k=K, binary=binary,
-                        tile=16, knn_impl="xla", exact=True,
-                        rounds_impl="edge", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    weights = from_flax(var)
-    x = torch.from_numpy(points)
-    got = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                           rounds_impl="edge")(x)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                              rounds_impl="edge", oracle=True)
-    assert torch.equal(oracle(x), got)

@@ -11,6 +11,9 @@ fast and approx ids are held to C8's bar: identical neighbour sets, at
 most 1 in 1,000 ids different (JAX's distances come from a matmul, the
 port's are summed channel by channel). Then the classifier's edge trunk
 in fast and approx mode against the JAX engine, and the refusals.
+
+The edge trunk against the JAX engine is in
+tests/test_torch_edge_modes_engines.py.
 """
 
 import jax.numpy as jnp
@@ -18,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
 from svnet_tpu.ops.pallas.knn import knn_pallas
 from svnet_tpu.ops.pallas.sv_edge import sv_edge_block as jax_edge
 from svnet_tpu.ops.pallas.sv_edge_first import sv_edge_first_block as jax_first
@@ -30,7 +32,6 @@ from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.sv_edge import sv_edge_block
 from svnet_tpu_torch.ops.kernels.sv_edge_first import sv_edge_first_block
 from svnet_tpu_torch.ops.knn import knn_approx_plain, knn_fast_plain
-from svnet_tpu_torch.utils.convert import from_flax, to_flax
 
 from test_torch_round2_modes import _with_beta
 
@@ -182,32 +183,6 @@ def test_edge_fast_self_edges_cancel(engines, binary):
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("mode", ["fast", "approx"])
-@pytest.mark.parametrize("binary", [False, True], ids=["fp", "binary"])
-def test_cls_edge_engine_modes_match_jax(binary, mode):
-    """The edge trunk in fast and approx mode (exact kNN x4, B10d and
-    B10c with exact=False, B3r) against the JAX engine's (knn_impl="xla",
-    the Pallas kernels in interpret mode, tile 16); approx is fast
-    bitwise; the oracle twin equals the CPU engine."""
-    weights = _weights(binary, seed=5)
-    points = _rand(2, B, N, 3)
-    jeng = JaxClsEngine(to_flax(weights), num_classes=CLASSES, k=K,
-                        binary=binary, tile=16, knn_impl="xla", mode=mode,
-                        rounds_impl="edge", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    w = from_flax(to_flax(weights))
-    x = torch.from_numpy(points)
-    kw = dict(device="cpu", rounds_impl="edge")
-    got = SVDGCNNClsEngine(w, CLASSES, K, binary, mode=mode, **kw)(x)
-    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    other = "fast" if mode == "approx" else "approx"
-    assert torch.equal(SVDGCNNClsEngine(w, CLASSES, K, binary, mode=other,
-                                        **kw)(x), got)
-    oracle = SVDGCNNClsEngine(w, CLASSES, K, binary, mode=mode, oracle=True, **kw)
-    assert torch.equal(oracle(x), got)
 
 
 def test_check_mode_on_edge():

@@ -1,21 +1,26 @@
-"""The port's engine (plain versions, CPU) and eager model against the JAX
-engine and flax ``model.apply`` at B=2, N=64, k=4, 10 classes.
+"""The port's engine (plain versions, CPU) at B=2, N=64, k=4, 10 classes:
+its rotation invariance, the modes it refuses, and both SV-DGCNN engines'
+plain versions in float64 against the eager models in float64.
 
-The bar is tests/test_kernel_smoke.py's: rtol=1e-4, atol=1e-5.
+The engine and the eager model against the JAX engine and flax
+``model.apply`` (tests/test_kernel_smoke.py's bar: rtol=1e-4, atol=1e-5)
+are in tests/test_torch_engine_models.py.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from svnet_tpu import models
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxEngine
 from svnet_tpu_torch import config, ops
-from svnet_tpu_torch.infer import SVDGCNNClsEngine
-from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, init_params
-from svnet_tpu_torch.utils.convert import from_flax
+from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
+from svnet_tpu_torch.models.sv_dgcnn import (
+    SVDGCNNCls,
+    SVDGCNNPseg,
+    init_params,
+    init_params_pseg,
+)
+from svnet_tpu_torch.utils.convert import load_tree
+
 
 B, N, K, CLASSES = 2, 64, 4, 10
 RTOL, ATOL = 1e-4, 1e-5
@@ -29,51 +34,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module", params=[False, True], ids=["fp", "binary"])
-def setup(request):
-    binary = request.param
-    model = models.SV_DGCNN_CLS(num_classes=CLASSES, k=K, binary=binary)
-    points = np.random.default_rng(0).standard_normal((B, N, 3)).astype(np.float32)
-    # one compile of init instead of its eager ops (bitwise the same tree)
-    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(points))
-    var = {"params": var["params"], "batch_stats": jax.tree.map(
-        lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])}
-    want = np.asarray(jax.jit(model.apply, static_argnums=2)(
-        var, jnp.asarray(points), False))
-    weights = from_flax(jax.tree.map(np.asarray, var))
-    return binary, points, var, weights, want
-
-
-def test_engine_matches_jax_engine(setup):
-    binary, points, var, weights, _ = setup
-    jeng = JaxEngine(var, num_classes=CLASSES, k=K, binary=binary,
-                     knn_impl="xla", exact=True, interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    got = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu")(
-        torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-
-
-def test_eager_model_matches_flax(setup):
-    binary, points, _, weights, want = setup
-    model = SVDGCNNCls.from_tree(weights, CLASSES, K, binary)
-    with torch.no_grad():
-        got = model(torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-
-
-def test_engine_matches_eager_model(setup):
-    """The fused path (folds, j-major layouts, head_perm) and the un-fused
-    oracle agree on the model's own output."""
-    binary, points, _, weights, want = setup
-    got = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu")(
-        torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                              oracle=True)
-    assert torch.equal(oracle(torch.from_numpy(points)), got)
 
 
 def test_engine_rotation_invariant():
@@ -114,3 +74,30 @@ def test_engine_rejects_other_modes(mode, rounds_impl):
         config.set_fast_gather_bits(was[0])
         config.set_approx_gather_bits(was[1])
         config.set_approx_fold(was[2])
+
+
+@pytest.mark.parametrize("pseg", [False, True], ids=["cls", "pseg"])
+def test_float64_plain_engine_matches_eager_model(pseg):
+    """The binary engine's plain versions in float64 (``dtype=
+    torch.float64``, exact mode) against the binary eager model in float64
+    (``oracle``): logits within 1e-12, where no sign lies within rounding
+    of 0 (chip_smoke.py phase 27 holds the same at full width); float64
+    off the plain path is refused (the kernels take float32)."""
+    width = 50 if pseg else CLASSES
+    init = init_params_pseg if pseg else init_params
+    w = init(width, K, True, torch.Generator().manual_seed(3))
+    engine = SVDGCNNPsegEngine if pseg else SVDGCNNClsEngine
+    model = (SVDGCNNPseg if pseg else SVDGCNNCls)(width, K, True, oracle=True)
+    load_tree(model, w)
+    gen = torch.Generator().manual_seed(4)
+    args = (torch.randn(B, N, 3, generator=gen, dtype=torch.float64),)
+    if pseg:
+        args += (torch.eye(16, dtype=torch.float64)[[3, 11]],)
+    got = engine(w, width, K, True, device="cpu", oracle=True,
+                 dtype=torch.float64)(*args)
+    with torch.no_grad():
+        want = model.double().eval()(*args)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError):
+        engine(w, width, K, True, device="cpu", dtype=torch.float64)

@@ -9,29 +9,28 @@ T = N. The two sides sum the distances in different orders (ROADMAP C8),
 so a distance near a quantization step can land in the next bucket: the
 neighbour sets must agree and at most 1 in 1,000 ids differ; outputs are
 held to f32 summation order on the centres whose neighbour sets agree.
+
+The engines against the JAX engines are in
+tests/test_torch_fast_engines.py.
 """
 
 import contextlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from svnet_tpu import config as jconfig
-from svnet_tpu import models
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxDGCNNEngine
-from svnet_tpu.infer import SVPointNetClsEngine as JaxPointNetEngine
 from svnet_tpu.ops.pallas import sv_round3 as jr3
 from svnet_tpu_torch import config
-from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine, SVPointNetClsEngine
+from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
 from svnet_tpu_torch.models import sv_pointnet
 from svnet_tpu_torch.models.sv_dgcnn import init_params
 from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.ops.kernels.sv_round3 import sv_round3, sv_round3_first
-from svnet_tpu_torch.utils.convert import from_flax, to_flax
+
 
 RTOL, ATOL = 1e-5, 1e-6  # the kernel tests' bar (tests/test_torch_kernels.py)
 CROSS_TOL = 1e-4, 1e-5  # B1 cross's (tests/test_torch_pointnet.py)
@@ -293,43 +292,3 @@ def test_fast_rounds_check_arguments():
 # ---------------------------------------------------------------------------
 
 N_ENG, K_ENG = 128, 4
-
-
-def test_dgcnn_cls_engine_fast_matches_jax():
-    """The binary classifier at 16-bit gathers (the JAX engine's jit is
-    the file's largest cost; 8 bits are held round by round above)."""
-    model = models.SV_DGCNN_CLS(num_classes=10, k=K_ENG, binary=True)
-    points = _rand(7, B, N_ENG, 3)
-    # one compile of init instead of its eager ops (bitwise the same tree)
-    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(points))
-    weights = _with_beta(from_flax(jax.tree.map(np.asarray, {
-        "params": var["params"], "batch_stats": jax.tree.map(
-            lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])})), 6)
-    jeng = JaxDGCNNEngine(to_flax(weights), num_classes=10, k=K_ENG,
-                          binary=True, mode="fast", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    eng = SVDGCNNClsEngine(weights, 10, K_ENG, True, mode="fast", device="cpu")
-    got = eng(torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    oracle = SVDGCNNClsEngine(weights, 10, K_ENG, True, mode="fast",
-                              device="cpu", oracle=True)
-    assert torch.equal(oracle(torch.from_numpy(points)), got)
-
-
-@pytest.mark.parametrize("bits,binary", [(16, False), (8, True)],
-                         ids=["gb16-fp", "gb8-binary"])
-def test_pointnet_cls_engine_fast_matches_jax(bits, binary):
-    with _gather_bits(bits):
-        _pointnet_engine_case(binary)
-
-
-def _pointnet_engine_case(binary):
-    weights = sv_pointnet.init_params(10, K_ENG, binary,
-                                      torch.Generator().manual_seed(1))
-    points = _rand(8, B, N_ENG, 3)
-    jeng = JaxPointNetEngine(to_flax(weights), num_classes=10, k=K_ENG,
-                             binary=binary, mode="fast", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    got = SVPointNetClsEngine(weights, 10, K_ENG, binary, mode="fast",
-                              device="cpu")(torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)

@@ -12,6 +12,9 @@ test holds their keys and shapes to flax's ``init`` by ``jax.eval_shape``.
 Tolerances: f32 summed in another order, rtol=1e-4, atol=1e-5 (1e-5 / 1e-6
 for single layers); binary part segmentation is held to the flip-tolerant
 bar of tests/test_infer_pointnet_pseg.py (see ``_flip_tolerant``).
+
+The part segmenter's eager model and engine against JAX are in
+tests/test_torch_pointnet_pseg.py.
 """
 
 import jax
@@ -23,7 +26,6 @@ import torch
 from svnet_tpu import models
 from svnet_tpu import ops as jops
 from svnet_tpu.infer import SVPointNetClsEngine as JaxClsEngine
-from svnet_tpu.infer import SVPointNetPsegEngine as JaxPsegEngine
 from svnet_tpu.nn import sv_layers as jsvl
 from svnet_tpu.ops.pallas.sv_block_point import fold_point_like_params as jax_fold
 from svnet_tpu.ops.pallas.sv_block_point import sv_block_point as jax_block
@@ -58,10 +60,6 @@ def _one_torch_thread():
 
 def _rand(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-
-
-def _labels():
-    return np.eye(16, dtype=np.float32)[np.arange(B) % 16]
 
 
 def _tree(module: torch.nn.Module) -> dict:
@@ -247,21 +245,6 @@ def cls_setup(request):
     return binary, weights, points, want, np.asarray(jeng(jnp.asarray(points)))
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["fp", "binary"])
-def pseg_setup(request):
-    binary = request.param
-    weights = init_params_pseg(PARTS, K, binary, torch.Generator().manual_seed(1))
-    var = to_flax(weights)
-    points, label = _rand(0, B, N, 3), _labels()
-    model = models.SV_PointNet_PSEG(num_part=PARTS, k=K, binary=binary)
-    want = np.asarray(jax.jit(model.apply)(var, jnp.asarray(points),
-                                           jnp.asarray(label)))
-    jeng = JaxPsegEngine(var, num_part=PARTS, k=K, binary=binary, exact=True,
-                         interpret=True)
-    return (binary, weights, points, label, want,
-            np.asarray(jeng(jnp.asarray(points), jnp.asarray(label))))
-
-
 def test_eager_cls_matches_flax(cls_setup):
     binary, weights, points, want, _ = cls_setup
     model = SVPointNetCls.from_tree(weights, CLASSES, K, binary)
@@ -280,30 +263,6 @@ def test_cls_engine_matches_jax_engine(cls_setup):
     oracle = SVPointNetClsEngine(weights, CLASSES, K, binary, device="cpu",
                                  oracle=True)
     assert torch.equal(oracle(torch.from_numpy(points)), got)
-
-
-def test_eager_pseg_matches_flax(pseg_setup):
-    binary, weights, points, label, want, _ = pseg_setup
-    model = SVPointNetPseg.from_tree(weights, PARTS, K, binary)
-    with torch.no_grad():
-        got = model(torch.from_numpy(points), torch.from_numpy(label)).numpy()
-    if binary:
-        _flip_tolerant(got, want)
-    else:
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-4)
-
-
-def test_pseg_engine_matches_jax_engine(pseg_setup):
-    """FP within 1e-4; binary to the flip-tolerant bar (``_flip_tolerant``):
-    sign flips cascade through the binary blocks at random init."""
-    binary, weights, points, label, _, want = pseg_setup
-    eng = SVPointNetPsegEngine(weights, PARTS, K, binary, device="cpu")
-    got = eng(torch.from_numpy(points), torch.from_numpy(label)).numpy()
-    assert got.shape == (B, N, PARTS)
-    if binary:
-        _flip_tolerant(got, want)
-    else:
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-4)
 
 
 @pytest.mark.parametrize("kind", ["cls", "pseg"])

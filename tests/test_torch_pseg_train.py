@@ -16,6 +16,9 @@ the flags.
 
 Weights are made by the port's seeded ``init_params_pseg`` and handed to
 flax as numpy; one module-scoped JAX reference per family.
+
+The SV-DGCNN partseg step and Adam steps are in
+tests/test_torch_pseg_train_dgcnn.py.
 """
 
 import h5py
@@ -33,13 +36,11 @@ from svnet_tpu.train.metrics import shape_iou as jax_shape_iou
 from svnet_tpu.train.optim import make_optimizer as jax_make_optimizer
 from svnet_tpu.train.optim import manual_clip_schedule as jax_clip_schedule
 from svnet_tpu.train.steps import TrainState
-from svnet_tpu.train.steps import make_train_step as jax_make_train_step
 from svnet_tpu_torch.cli import flags
 from svnet_tpu_torch.cli.main_partseg_dgcnn import main as dgcnn_main
 from svnet_tpu_torch.cli.main_partseg_pointnet import main as pointnet_main
 from svnet_tpu_torch.data import Loader, PartArrayDataset, ShapeNetPart
-from svnet_tpu_torch.models import sv_dgcnn, sv_pointnet
-from svnet_tpu_torch.train.fused import make_fused_train_apply_pseg
+from svnet_tpu_torch.models import sv_pointnet
 from svnet_tpu_torch.train.losses import cal_loss
 from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM, shape_iou
 from svnet_tpu_torch.train.optim import make_optimizer, manual_clip_schedule
@@ -48,7 +49,7 @@ from svnet_tpu_torch.train.steps import TrainState as TrainState_
 from svnet_tpu_torch.train.steps import create_state, make_train_step, tree_map
 from svnet_tpu_torch.utils.convert import flatten, from_flax, to_flax
 
-from test_torch_train import _concat, _cos, _flat, _flip_tolerant, _rel
+from test_torch_train import _concat, _cos, _flat, _rel, compile_once
 
 B, N, K, PARTS = 2, 64, 4, 50
 LR, WD = 1e-3, 1e-4
@@ -148,86 +149,6 @@ def test_part_array_dataset_batch():
 
 
 @pytest.fixture(scope="module")
-def dgcnn_steps():
-    """Two binary SV-DGCNN partseg train steps through both packages (the
-    JAX train step with its label, jitted; the port's fused forward on the
-    CPU), and the JAX loss's gradients at the first step."""
-    points, _, label, seg = _batch(0)
-    var = to_flax(sv_dgcnn.init_params_pseg(PARTS, K, True,
-                                            torch.Generator().manual_seed(1)))
-    model = models.SV_DGCNN_PSEG(num_part=PARTS, k=K, binary=True, dropout=0.0)
-    tx = jax_make_optimizer(binary=True, lr=LR, epochs=2, steps_per_epoch=1,
-                            weight_decay=WD)
-    state = TrainState.create(params=var["params"],
-                              batch_stats=var["batch_stats"], tx=tx)
-    batch = {"points": jnp.asarray(points), "target": jnp.asarray(seg),
-             "label": jnp.asarray(label)}
-
-    def loss_fn(params, stats, batch):
-        out, _ = model.apply({"params": params, "batch_stats": stats},
-                             batch["points"], batch["label"], True,
-                             mutable=["batch_stats"])
-        return jax_cal_loss(out, batch["target"], False)
-
-    jstep = jax_make_train_step(model, lambda o, t: jax_cal_loss(o, t, False),
-                                rot="aligned", with_label=True)
-
-    @jax.jit  # one compile: the gradients at the state, and its step
-    def grads_and_step(state, batch, key):
-        return (jax.value_and_grad(loss_fn)(state.params, state.batch_stats, batch),
-                jstep(state, batch, key)[0])
-
-    (want_loss, want_grads), s1 = grads_and_step(state, batch, jax.random.PRNGKey(0))
-    s2 = grads_and_step(s1, batch, jax.random.PRNGKey(0))[1]
-
-    tstate = create_state(from_flax(var), binary=True, lr=LR, epochs=2,
-                          steps_per_epoch=1, weight_decay=WD, device="cpu")
-    step = make_train_step(make_fused_train_apply_pseg(PARTS, K, binary=True),
-                           lambda o, t: cal_loss(o, t, False), rot="aligned",
-                           with_label=True)
-    tb = {"points": torch.from_numpy(points), "target": torch.from_numpy(seg),
-          "label": torch.from_numpy(label)}
-    gen = torch.Generator().manual_seed(0)
-    got_loss, preds = step(tstate, tb, gen)
-    got_grads = _flat(to_flax(tree_map(lambda t: t.grad, tstate.params)))
-    got_stats1 = _flat(to_flax(tstate.batch_stats))
-    step(tstate, tb, gen)
-    return {"loss": (got_loss.item(), float(want_loss)), "preds": preds,
-            "grads": (got_grads, _flat(want_grads)),
-            "stats": (got_stats1, _flat(s1.batch_stats)),
-            "params": (_flat(to_flax(tstate.params)), _flat(s2.params),
-                       _flat(var["params"]))}
-
-
-def test_dgcnn_pseg_step_loss_matches_jax(dgcnn_steps):
-    got, want = dgcnn_steps["loss"]
-    np.testing.assert_allclose(got, want, rtol=1e-4)
-    assert dgcnn_steps["preds"].shape == (B, N)
-
-
-def test_dgcnn_pseg_step_grads_match_jax(dgcnn_steps):
-    """The flip-tolerant bars of tests/test_torch_train.py: each leaf of 8
-    or more entries at cosine >= 0.9, all together within 5e-2."""
-    got, want = dgcnn_steps["grads"]
-    assert set(got) == set(want)
-    _flip_tolerant(got, want, 5e-2)
-
-
-def test_dgcnn_pseg_step_batch_stats_match_jax(dgcnn_steps):
-    got, want = dgcnn_steps["stats"]
-    assert set(got) == set(want)
-    for path, w in want.items():
-        assert _rel(got[path], w) <= 2e-2, path
-
-
-def test_dgcnn_pseg_two_adam_steps_match_jax(dgcnn_steps):
-    """The binary update as a whole, as tests/test_torch_train.py holds
-    it: cosine >= 0.95."""
-    got, want, start = dgcnn_steps["params"]
-    assert _cos(_concat(got) - _concat(start), _concat(want) - _concat(start)) >= 0.95
-
-
-@pytest.fixture(scope="module")
 def pointnet_steps():
     """The binary SV-PointNet partseg train forward, one step's loss,
     gradients and statistics, and two Adam steps of the pointnet_partseg
@@ -244,17 +165,19 @@ def pointnet_steps():
 
     with jax.enable_x64(True):
         var = jax.tree.map(lambda a: np.asarray(a, np.float64), var32)
-        vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
         data = (jnp.asarray(points), jnp.asarray(label), jnp.asarray(seg))
+        vg = compile_once(jax.value_and_grad(loss_fn, has_aux=True),
+                          var["params"], var["batch_stats"], *data)
         (loss, (logits, stats)), grads = vg(var["params"], var["batch_stats"], *data)
         tx = jax_make_optimizer(binary=True, lr=LR, epochs=2, steps_per_epoch=1,
                                 weight_decay=WD, recipe="pointnet_partseg")
-        update = jax.jit(TrainState.apply_gradients)
         # TrainState.create with the optimizer's state made in one compile
-        s1 = update(TrainState(step=jnp.zeros((), jnp.int32), params=var["params"],
-                               batch_stats=var["batch_stats"],
-                               opt_state=jax.jit(tx.init)(var["params"]), tx=tx),
-                    grads, stats)
+        s0 = TrainState(step=jnp.zeros((), jnp.int32), params=var["params"],
+                        batch_stats=var["batch_stats"],
+                        opt_state=compile_once(tx.init, var["params"])(var["params"]),
+                        tx=tx)
+        update = compile_once(TrainState.apply_gradients, s0, grads, stats)
+        s1 = update(s0, grads, stats)
         (_, (_, stats2)), grads2 = vg(s1.params, s1.batch_stats, *data)
         s2 = update(s1, grads2, stats2)
         want = {"logits": np.asarray(logits), "stats": _flat(stats),
@@ -355,8 +278,9 @@ def test_entry_points_need_the_card_unless_asked():
 
 def test_partseg_flags():
     """The partseg surface's defaults; ``--dataset shapenetpart`` is ported
-    for partseg and not for cls; another dataset, --preload, --distill,
-    --fused, --dp and --tp still raise."""
+    for partseg and not for cls; another dataset, --dp and --tp still
+    raise NotImplementedError; --preload is ported, and --distill without
+    it and --fused on SV-PointNet partseg raise ValueError (C24)."""
     parser = flags.build_parser("partseg", "pointnet")
     args = parser.parse_args([])
     assert (args.task, args.dataset, args.k, args.num_points, args.smoothing) == (
@@ -364,9 +288,12 @@ def test_partseg_flags():
     flags.check_ported(args)
     flags.check_ported(flags.build_parser("partseg", "dgcnn").parse_args(
         ["--class-choice", "chair"]))
-    for argv in (["--dataset", "s3dis"], ["--preload", "x"], ["--distill"],
-                 ["--fused"], ["--dp", "2"], ["--tp", "2"]):
+    for argv in (["--dataset", "s3dis"], ["--dp", "2"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
+            flags.check_ported(parser.parse_args(argv))
+    flags.check_ported(parser.parse_args(["--preload", "x"]))
+    for argv in (["--distill"], ["--fused", "--test", "x"]):
+        with pytest.raises(ValueError):
             flags.check_ported(parser.parse_args(argv))
     with pytest.raises(NotImplementedError):
         flags.check_ported(flags.build_parser().parse_args(

@@ -9,6 +9,9 @@ kernels keep their ids inside); engines within 1e-4. In exact mode B10a
 is B10b's function (tests/test_sv_round2.py holds the two JAX kernels
 within 1e-5), and the port's plain versions share one core: round equals
 round2 bitwise (tests/test_torch_round2.py).
+
+The engine's round trunk against the JAX engine's is in
+tests/test_torch_round1_engines.py.
 """
 
 import jax.numpy as jnp
@@ -16,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
 from svnet_tpu.ops.pallas.sv_round import sv_round as jax_round
 from svnet_tpu.ops.pallas.sv_round import sv_round_first as jax_first
 from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
@@ -24,7 +26,6 @@ from svnet_tpu_torch.models import sv_pointnet
 from svnet_tpu_torch.models.sv_dgcnn import init_params
 from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.ops.kernels.sv_round import sv_round, sv_round_first
-from svnet_tpu_torch.utils.convert import from_flax, to_flax
 
 B, N, K, CLASSES = 2, 64, 4, 10
 RTOL, ATOL = 1e-4, 1e-5
@@ -134,34 +135,3 @@ def test_round_wrappers_refuse_fast_mode_and_bad_shapes(engines):
                        V_out=10, k=K)
     with pytest.raises(ValueError):  # k > N
         sv_round(src, eng.folded["conv2"], **dict(kw, k=17))
-
-
-@pytest.fixture(scope="module", params=[False, True], ids=["fp", "binary"])
-def cls_setup(request):
-    """The port's seeded weights as a flax tree for the JAX engine, and
-    back through ``from_flax`` for the port's (flax's own init costs
-    seconds of compile here)."""
-    binary = request.param
-    var = to_flax(init_params(CLASSES, K, binary,
-                              torch.Generator().manual_seed(3)))
-    return binary, var, from_flax(var)
-
-
-def test_cls_round_engine_matches_jax_engine(cls_setup):
-    """The port's round trunk (B10a x4, B3r) against the JAX engine's
-    (sv_round_first, sv_round x3, sv_point_block in interpret mode); the
-    oracle twin equals the CPU engine."""
-    binary, var, weights = cls_setup
-    points = _rand(1, B, N, 3)
-    jeng = JaxClsEngine(var, num_classes=CLASSES, k=K, binary=binary,
-                        tile=16, exact=True, rounds_impl="round",
-                        interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    eng = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                           rounds_impl="round")
-    x = torch.from_numpy(points)
-    got = eng(x)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                              rounds_impl="round", oracle=True)
-    assert torch.equal(oracle(x), got)

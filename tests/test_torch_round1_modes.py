@@ -14,6 +14,9 @@ outputs to RTOL 1e-5 / ATOL 1e-6 on the centres whose ids agree. The bf16
 gather has no multiply, so a self-edge cancels on both sides: binary
 rounds run at beta = 0 as well as seeded. Then the classifier's round
 trunk in fast and approx mode against the JAX engine, and the refusals.
+
+The round trunk against the JAX engine is in
+tests/test_torch_round1_modes_engines.py.
 """
 
 import importlib
@@ -24,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
 from svnet_tpu_torch import config
 from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine
 from svnet_tpu_torch.models import sv_pointnet
@@ -33,7 +35,6 @@ from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.ops.kernels.sv_round import sv_round, sv_round_first
 from svnet_tpu_torch.ops.kernels.sv_round3 import conv_round_rows, first_round_rows
-from svnet_tpu_torch.utils.convert import to_flax
 
 from test_torch_round2_modes import _jnp_tree, _with_beta, check_round, jax_ids
 
@@ -178,39 +179,6 @@ def test_round_fast_matches_jax(engines, n, t, kind):
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def cls_weights():
-    """The port's seeded binary weights, batch stats moved off 0/1 and beta
-    seeded."""
-    w = init_params(CLASSES, 4, True, torch.Generator().manual_seed(6))
-    w = dict(w, batch_stats=jax.tree.map(
-        lambda x: x + 0.3 * x.abs() + 0.05, w["batch_stats"]))
-    return _with_beta(w, 7)
-
-
-@pytest.mark.parametrize("mode", ["fast", "approx"])
-def test_cls_round_engine_modes_match_jax(cls_weights, mode):
-    """The binary classifier's round trunk at N = 128 (key tiles of 64,
-    tile=16): JAX passes ``exact=False`` in both modes, so approx is fast
-    bitwise; top-1 equal, logits close; the oracle twin equals the CPU
-    engine."""
-    points = _rand(8, B, 128, 3)
-    jeng = JaxClsEngine(to_flax(cls_weights), num_classes=CLASSES, k=4,
-                        binary=True, tile=16, mode=mode, rounds_impl="round",
-                        interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    kw = dict(mode=mode, device="cpu", rounds_impl="round", tile=16)
-    x = torch.from_numpy(points)
-    got = SVDGCNNClsEngine(cls_weights, CLASSES, 4, True, **kw)(x)
-    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    oracle = SVDGCNNClsEngine(cls_weights, CLASSES, 4, True, oracle=True, **kw)
-    assert torch.equal(oracle(x), got)
-    fast = SVDGCNNClsEngine(cls_weights, CLASSES, 4, True,
-                            **dict(kw, mode="fast"))
-    assert torch.equal(fast(x), got)
 
 
 # ---------------------------------------------------------------------------

@@ -9,16 +9,16 @@ inside, so the ids are held to ``knn_pallas``, the same exact ordering);
 kernel outputs within rtol=1e-4, atol=1e-5; engines within 1e-4. The two
 trunks of the port compute the same function with the same arithmetic,
 so their plain versions agree bitwise.
+
+The engine's round2 trunk against the JAX engine's and the round3 trunk is
+in tests/test_torch_round2_engines.py.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from svnet_tpu import models
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
 from svnet_tpu.ops.pallas.knn import knn_pallas
 from svnet_tpu.ops.pallas.sv_point import sv_point_block as jax_point
 from svnet_tpu.ops.pallas.sv_round2 import sv_round2 as jax_round2
@@ -37,7 +37,7 @@ from svnet_tpu_torch.ops.kernels.sv_point import (
 )
 from svnet_tpu_torch.ops.kernels.sv_round2 import sv_round2, sv_round2_first
 from svnet_tpu_torch.ops.kernels.sv_round3 import sv_round3, sv_round3_first
-from svnet_tpu_torch.utils.convert import from_flax
+
 
 B, N, K, CLASSES, PARTS = 2, 64, 4, 10, 50
 RTOL, ATOL = 1e-4, 1e-5
@@ -181,46 +181,6 @@ def test_row_major_plain_equals_channel_major(engines):
 # ---------------------------------------------------------------------------
 # the classification engine's round2 trunk
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module", params=[False, True], ids=["fp", "binary"])
-def cls_setup(request):
-    """flax's own init, as tests/test_torch_engine.py: at the port's seeded
-    init the binary model sits on sign() ties that flip between any two
-    summation orders (JAX's round3 engine is 0.3 from flax there)."""
-    binary = request.param
-    model = models.SV_DGCNN_CLS(num_classes=CLASSES, k=K, binary=binary)
-    points = _rand(0, B, N, 3)
-    var = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, 16, 3)))
-    var = {"params": var["params"], "batch_stats": jax.tree.map(
-        lambda x: x + 0.3 * jnp.abs(x) + 0.05, var["batch_stats"])}
-    jeng = JaxClsEngine(var, num_classes=CLASSES, k=K, binary=binary,
-                        exact=True, rounds_impl="round2", interpret=True)
-    weights = from_flax(jax.tree.map(np.asarray, var))
-    return binary, weights, points, np.asarray(jeng(jnp.asarray(points)))
-
-
-def test_cls_round2_engine_matches_jax_engine(cls_setup):
-    binary, weights, points, want = cls_setup
-    eng = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                           rounds_impl="round2")
-    got = eng(torch.from_numpy(points))
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-
-
-def test_cls_round2_engine_equals_round3_engine(cls_setup):
-    """Both trunks through their plain versions: the same logits, bitwise
-    (the gate and head means are reduced in one layout, ``_mean_points``);
-    the oracle twin equals the CPU engine."""
-    binary, weights, points, _ = cls_setup
-    x = torch.from_numpy(points)
-    r2 = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                          rounds_impl="round2")(x)
-    r3 = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu")(x)
-    assert torch.equal(r2, r3)
-    oracle = SVDGCNNClsEngine(weights, CLASSES, K, binary, device="cpu",
-                              rounds_impl="round2", oracle=True)
-    assert torch.equal(oracle(x), r2)
 
 
 @pytest.mark.parametrize("impl", ["round", "edge", "bogus"])

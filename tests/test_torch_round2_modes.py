@@ -17,6 +17,9 @@ decodes the grid (``q * inv``) before the edge subtraction, which XLA
 contracts into an FMA on the CPU (C19), so binary rounds use seeded
 nonzero beta. Then both SV-DGCNN engines through the round2 trunk against
 the JAX engines, and the refusals.
+
+The engines against the JAX engines are in
+tests/test_torch_round2_modes_engines.py.
 """
 
 import functools
@@ -28,8 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from svnet_tpu.infer import SVDGCNNClsEngine as JaxClsEngine
-from svnet_tpu.infer import SVDGCNNPsegEngine as JaxPsegEngine
 from svnet_tpu.infer import _auto_round_tile
 from svnet_tpu_torch import config
 from svnet_tpu_torch.infer import ROUNDS, SVDGCNNClsEngine, SVDGCNNPsegEngine
@@ -37,7 +38,6 @@ from svnet_tpu_torch.models.sv_dgcnn import init_params, init_params_pseg
 from svnet_tpu_torch.ops.kernels import quant
 from svnet_tpu_torch.ops.kernels.fold import fold_first_params
 from svnet_tpu_torch.ops.kernels.sv_round2 import sv_round2, sv_round2_first
-from svnet_tpu_torch.utils.convert import to_flax
 
 # the module (the package's __init__ exports its function under its name)
 jr2 = importlib.import_module("svnet_tpu.ops.pallas.sv_round2")
@@ -257,78 +257,6 @@ def test_round2_approx_at_or_below_the_fold_is_fast():
 # ---------------------------------------------------------------------------
 
 N_ENG, K_ENG = 128, 4
-
-
-@pytest.fixture(scope="module")
-def cls_weights():
-    """The port's seeded binary weights, batch stats moved off 0/1 and beta
-    seeded (C19)."""
-    w = init_params(10, K_ENG, True, torch.Generator().manual_seed(5))
-    w = dict(w, batch_stats=jax.tree.map(
-        lambda x: x + 0.3 * x.abs() + 0.05, w["batch_stats"]))
-    return _with_beta(w, 6)
-
-
-@pytest.mark.parametrize("mode", ["fast", "approx"])
-def test_cls_round2_engine_modes_match_jax(cls_weights, mode):
-    """The binary classifier, round2 trunk, N = 128: two key tiles of 64 a
-    round (tile=16, as the engines' T heuristic gives); top-1 equal and
-    logits close; the oracle twin equals the CPU engine."""
-    points = _rand(7, B, N_ENG, 3)
-    jeng = JaxClsEngine(to_flax(cls_weights), num_classes=10, k=K_ENG,
-                        binary=True, tile=16, mode=mode, rounds_impl="round2",
-                        interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points)))
-    kw = dict(mode=mode, device="cpu", rounds_impl="round2", tile=16)
-    got = SVDGCNNClsEngine(cls_weights, 10, K_ENG, True, **kw)(
-        torch.from_numpy(points))
-    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
-    oracle = SVDGCNNClsEngine(cls_weights, 10, K_ENG, True, oracle=True, **kw)
-    assert torch.equal(oracle(torch.from_numpy(points)), got)
-
-
-@pytest.fixture(scope="module")
-def pseg_approx():
-    """The FP part segmenter at N = 512 and the JAX engine's round2 approx
-    logits on one request: each round folds 512 to 256 lanes on key tiles
-    of 256."""
-    weights = init_params_pseg(50, 4, False, torch.Generator().manual_seed(1))
-    points = _rand(2, 1, 512, 3)
-    label = np.eye(16, dtype=np.float32)[[3]]
-    jeng = JaxPsegEngine(to_flax(weights), num_part=50, k=4, binary=False,
-                         mode="approx", rounds_impl="round2", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points), jnp.asarray(label)))
-    return weights, points, label, want
-
-
-@pytest.mark.parametrize("impl", ["round2", "edge"])
-def test_pseg_round2_engine_approx_matches_jax(pseg_approx, impl):
-    """The part segmenter asked for round2, and for "edge", which runs
-    round2 as JAX's does, in approx mode: per-point top-1 equal to the JAX
-    engine's round2, logits close."""
-    weights, points, label, want = pseg_approx
-    eng = SVDGCNNPsegEngine(weights, 50, 4, False, mode="approx",
-                            device="cpu", rounds_impl=impl)
-    assert eng.trunk == "round2"
-    got = eng(torch.from_numpy(points), torch.from_numpy(label)).numpy()
-    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_pseg_round2_engine_fast_matches_jax():
-    """The FP part segmenter, round2 trunk, fast mode at N = 128."""
-    weights = init_params_pseg(50, K_ENG, False, torch.Generator().manual_seed(2))
-    points = _rand(3, B, N_ENG, 3)
-    label = np.eye(16, dtype=np.float32)[[1, 9]]
-    jeng = JaxPsegEngine(to_flax(weights), num_part=50, k=K_ENG, binary=False,
-                         mode="fast", rounds_impl="round2", interpret=True)
-    want = np.asarray(jeng(jnp.asarray(points), jnp.asarray(label)))
-    got = SVDGCNNPsegEngine(weights, 50, K_ENG, False, mode="fast",
-                            device="cpu", rounds_impl="round2")(
-        torch.from_numpy(points), torch.from_numpy(label)).numpy()
-    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
