@@ -27,8 +27,11 @@ approx mode through its own entry point, binary part-segmentation
 training of both families (B=32, N=2048, k=40, 50 parts) through the
 trainer, and the JAX package's recipe for its serving pick: un-fused
 SV-DGCNN partseg training, knob-aware fused training, --preload and KD
-through the trainer, and --fused certification on every leg. Phases; any
-failure raises and the script exits non-zero:
+through the trainer, and --fused certification on every leg; the VN and
+original model families (classification and part segmentation) through
+the trainer, ScanObjectNN through run_cls, ModelNet40_v2's farthest-point
+sampling, and a learning check on the card. Phases; any failure raises
+and the script exits non-zero:
 
   0  a CUDA device is required; print the card's name and power limit
   1  build the kernels (nvcc), print the build time
@@ -269,6 +272,49 @@ failure raises and the script exits non-zero:
      12, 16-18 count them, seconds; the exact leg equal to the plain
      engine's loss and predictions; the FP weights' exact engine >= 0.99
      top-1 against the eager eval (the binary leg's agreement printed)
+ 28  the VN and original model families (--model vn|original) through
+     train_epoch with the JAX trainer's recipes (--opt auto: PointNet
+     Adam, DGCNN SGD at lr x 100), rot z, seeded random weights:
+     VN-PointNet, VN-DGCNN, PointNet and DGCNN classification at (32,
+     1024, 20) on phase 5's clouds, 1 + 10 steps, and their part
+     segmenters at (32, 2048, 40), 50 parts, 3 steps (1 warm-up); per step
+     knn and edge_gather_fwd x1 (VN-PointNet), x4 with edge_gather_bwd x3
+     (VN-DGCNN cls, DGCNN cls and partseg), x3 with backward x2 (VN-DGCNN
+     partseg), none (PointNet); the median step and the peak device memory
+     printed; a BN re-estimation batch and an eval batch through the eager
+     model; one step against its oracle twin (the plain B4 and B7 on the
+     card): loss and running statistics within 1e-4 relative; each
+     classifier's eval forward at (32, 1024, 20) against its oracle twin,
+     top-1 >= 0.99
+ 29  the datasets: --dataset scanobjectnn --subset hard through
+     train.loop.run_cls from memory (seeded 2,048-point clouds, 15
+     classes, each item 1,024 of its points), binary SV-DGCNN through the
+     fused train forward at (32, 1024, 20), 11 steps, a BN re-estimation
+     batch and the eager eval: launches counted over the run, a 15-class
+     head, a finite loss; ModelNet40_v2(uniform=True) on seeded raw text
+     clouds of 10,000 points: farthest-point sampling on the card equal to
+     the CPU's
+ 30  the learning check: (a) FP SV-PointNet cls on the three shapes of
+     tests/test_learning.py with its numbers (N = 64, k = 8, B = 24, 40
+     clouds a class, 20 epochs, pointnet_cls, so3 in training and test):
+     the last 5 losses' mean at least 0.2 below the first 5's, test
+     accuracy >= 0.8; (b) binary SV-DGCNN cls at (32, 1024, 20) through
+     the fused train forward on the same shapes at N = 1024 (64 clouds a
+     class), LEARN_EPOCHS epochs, BN re-estimation over 60 batches, the
+     eager eval under so3: test accuracy >= 0.6 (chance 1/3); with its
+     trained weights ROADMAP C25's two numbers printed, no bar: the
+     float32 exact engine against the float32 eager model, and the
+     float64 plain engine against the float64 eager model
+
+Phase 2 also holds B4 and B7 at the VN and original models' widths
+(phase2_zoo, ZOO_ROUNDS): the kNN of each round and the gather of its
+input, ids and both passes bitwise their plain versions, each timed
+beside cdist + topk, torch.gather and index_add_: VN-DGCNN cls (32,
+1024, 20) C = 3, 63, 63, 126 (the flattened 3V vectors: C = 63 and 126
+take B7's scalar copies), DGCNN cls C = 3, 64, 64, 128, VN-PointNet cls
+C = 3, and at (32, 2048, 40) VN-DGCNN partseg C = 3, 63, 63, DGCNN
+partseg C = 3, 3 (the points through Transform_Net), 64, 64, VN-PointNet
+partseg C = 3; the backward where the gathered input carries gradient.
 
 Phase 2 also holds knob-aware training's B6 (phase2_knob_train): on the
 ids of another round with its input through ste_quant8, binary, forward
@@ -1770,8 +1816,9 @@ def phase2_pseg_train(rep, gen, dev):
 
 
 def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
-              log_card, with_label=False):
-    """1 + TRAIN_STEPS binary train steps of ``apply`` (the recipe's Adam,
+              log_card, with_label=False, binary=True):
+    """1 + TRAIN_STEPS train steps of ``apply`` (binary: the recipe's Adam;
+    ``binary=False``: the recipe's FP optimizer, --opt auto;
     rot z; part segmentation, ``with_label``: the one-hot category handed
     to the forward, no label smoothing) through train_epoch, from
     ``weights``; each launches the counted kernels ``per_step`` times (the
@@ -1784,7 +1831,7 @@ def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
     from svnet_tpu_torch.train.steps import create_state, make_train_step
 
     dev, steps = loader.device, len(loader)
-    state = create_state(weights, binary=True, lr=1e-3, epochs=1,
+    state = create_state(weights, binary=binary, lr=1e-3, epochs=1,
                          steps_per_epoch=steps, recipe=recipe, device=dev)
     step = make_train_step(apply, train_loss(with_label), rot="z",
                            with_label=with_label)
@@ -1804,7 +1851,8 @@ def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
     peak = torch.cuda.max_memory_allocated(dev)
     shape = tuple(loader.dataset.data.shape[1:2])
     log(f"{tag}: {steps} train steps of ({loader.batch_size}, {shape[0]}, 3), "
-        f"binary, {recipe} Adam, rot z; launches "
+        f"{'binary' if binary else 'FP'}, {recipe} {type(state.opt).__name__}, "
+        f"rot z; launches "
         f"{ {n: c for n, c in launches.items() if c} }; loss {out['loss']:.6f}")
     log(f"{tag}: step time (CUDA events, ms) median of {len(timed)} "
         f"{median:.3f}, all {[round(t, 3) for t in timed]}; warm-up "
@@ -1815,12 +1863,13 @@ def train_run(tag, apply, weights, recipe, loader, gen, counters, per_step,
 
 def train_loss(with_label):
     """The trainers' loss: label smoothing for classification, none for
-    part segmentation (the CLIs' ``--smoothing`` defaults)."""
+    part segmentation (the CLIs' ``--smoothing`` defaults); the T-Net term
+    for a model that returns (logits, trans_feat) (``model_loss``)."""
     import functools
 
-    from svnet_tpu_torch.train.losses import cal_loss
+    from svnet_tpu_torch.train.losses import model_loss
 
-    return functools.partial(cal_loss, smoothing=not with_label)
+    return functools.partial(model_loss, smoothing=not with_label)
 
 
 def recal_and_eval(tag, apply, state, model, loader, gen, counters,
@@ -1866,7 +1915,7 @@ def recal_and_eval(tag, apply, state, model, loader, gen, counters,
 
 
 def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed,
-                  with_label=False, distiller=None, alpha=0.5):
+                  with_label=False, distiller=None, alpha=0.5, binary=True):
     """One train step through the kernels (``make_apply(False)``) against
     the same step through the plain twin (``make_apply(True)``), from the
     same weights and batch (with a KD ``distiller``: its term at ``alpha``,
@@ -1881,7 +1930,7 @@ def step_vs_plain(tag, make_apply, weights, recipe, batch, dev, seed,
 
     res = []
     for oracle in (False, True):
-        state = create_state(weights, binary=True, lr=1e-3, epochs=1,
+        state = create_state(weights, binary=binary, lr=1e-3, epochs=1,
                              steps_per_epoch=1, recipe=recipe, device=dev)
         step = make_train_step(make_apply(oracle), train_loss(with_label),
                                rot="z", with_label=with_label,
@@ -2005,9 +2054,10 @@ def compare_edge_gather(rep, b, n, k, c, gen, dev, time_it=True, names=None):
         f"plain {t[1]} ms, torch.gather {t[2]} ms, bound {fwd_cost}; "
         f"backward kernel {t[3]} ms, plain {t[4]} ms, index_add_ {t[5]} ms, "
         f"bound {bwd_cost}")
-    if names is not None:
+    if names is not None:  # names[1] None: the path runs no backward here
         rep.add(names[0], 0.0, t[0], t[1], fwd_cost, t[2])
-        rep.add(names[1], 0.0, t[3], t[4], bwd_cost, t[5])
+        if names[1] is not None:
+            rep.add(names[1], 0.0, t[3], t[4], bwd_cost, t[5])
         return g, idx
     # the kernels line times each pass at its main path's shapes: the
     # forward at C=3 (phase 9 gathers the points) and at the joint widths
@@ -2149,8 +2199,8 @@ def phase11(dev, gen, counters, loader, log_card):
     return launches, median
 
 
-def pseg_loader(dev):
-    """1 + TRAIN_STEPS batches of seeded surface clouds (B_TRAIN, N_PSEG)
+def pseg_loader(dev, steps=TRAIN_STEPS + 1):
+    """``steps`` batches of seeded surface clouds (B_TRAIN, N_PSEG)
     with random categories and, per point, random part ids inside the
     category's range; each item's points and ids shuffled together."""
     import numpy as np
@@ -2159,7 +2209,7 @@ def pseg_loader(dev):
     from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM
     from svnet_tpu_torch.utils.synth import surface_clouds
 
-    m = (TRAIN_STEPS + 1) * B_TRAIN
+    m = steps * B_TRAIN
     rng = np.random.default_rng(SEED + 22)
     cat = rng.integers(0, 16, m)
     seg = np.stack([INDEX_START[c] + rng.integers(0, SEG_NUM[c], N_PSEG)
@@ -2172,7 +2222,7 @@ def pseg_loader(dev):
 
 def phase_pseg_train(tag, apply_of, model, weights, recipe, per_step,
                      recal_want, eval_want, loader, dev, gen, counters, card,
-                     seed, with_label=True, state_out=None):
+                     seed, with_label=True, state_out=None, binary=True):
     """Part-segmentation training (classification with ``with_label``
     False): 1 + TRAIN_STEPS steps through train_epoch with the per-step
     launches ``per_step``, one BN re-estimation and one eval batch (the
@@ -2184,7 +2234,7 @@ def phase_pseg_train(tag, apply_of, model, weights, recipe, per_step,
 
     launches, median, peak, state = train_run(
         tag, apply_of(False), weights, recipe, loader, gen, counters, per_step,
-        card, with_label=with_label)
+        card, with_label=with_label, binary=binary)
     recal, evals = recal_and_eval(tag, apply_of(False), state, model, loader,
                                   gen, counters, with_label=with_label)
     if recal != {n: recal_want.get(n, 0) for n in recal} or \
@@ -2195,7 +2245,7 @@ def phase_pseg_train(tag, apply_of, model, weights, recipe, per_step,
     del state
     torch.cuda.empty_cache()
     step_vs_plain(f"{tag} oracle", apply_of, weights, recipe, next(iter(loader)),
-                  dev, seed, with_label=with_label)
+                  dev, seed, with_label=with_label, binary=binary)
     torch.cuda.empty_cache()
     return launches, median, peak
 
@@ -4443,14 +4493,16 @@ CERT_LEGS = ([["--engine-mode", "exact"], ["--engine-mode", "fast"],
                 for reuse in ("conv2", "spatial")])
 
 
-def float64_witness(task, tree, model, engine, width, k, loader, dev):
+def float64_witness(task, tree, model, engine, width, k, loader, dev, bar=True,
+                    tag="phase 27"):
     """The binary weights in float64, where no binarization sign lies
     within rounding of 0: the exact plain engine (``dtype=torch.float64``)
     against the eager model (``oracle``: B4 and B7 take float32) on the
     same unrotated batches, top-1
-    agreement >= 0.99 (per cloud at cls, per point at partseg); the eager
-    model's float32 against its float64 printed beside it, the share of
-    top-1 that float32 rounding alone moves."""
+    agreement >= 0.99 where ``bar`` (per cloud at cls, per point at
+    partseg); the eager model's float32 against its float64 printed beside
+    it, the share of top-1 that float32 rounding alone moves. Returns the
+    two agreements."""
     import torch
 
     from svnet_tpu_torch.utils.convert import load_tree
@@ -4475,15 +4527,16 @@ def float64_witness(task, tree, model, engine, width, k, loader, dev):
                            == want).sum())
             total += want.numel()
     agree64, agree32 = same64 / total, same32 / total
-    log(f"phase 27 {task}: binary weights in float64, the plain engine against "
+    log(f"{tag} {task}: binary weights in float64, the plain engine against "
         f"the eager model: top-1 agreement {agree64:.6f} over {total} "
         f"predictions; the eager model's float32 against its float64: "
         f"{agree32:.6f} ({time.perf_counter() - t0:.1f} s)")
-    if agree64 < 0.99:
-        raise AssertionError(f"phase 27 {task}: the float64 plain engine agrees "
+    if bar and agree64 < 0.99:
+        raise AssertionError(f"{tag} {task}: the float64 plain engine agrees "
                              f"with the float64 eager model on {agree64} < 0.99")
     del eng64, eager
     torch.cuda.empty_cache()
+    return agree64, agree32
 
 
 def phase27(trees, fp_trees, sets, dev, counters, card):
@@ -4587,6 +4640,314 @@ def phase27(trees, fp_trees, sets, dev, counters, card):
             log(line + f" | {card}")
             out[f"{task} {' '.join(leg)}"] = secs
     return out
+
+
+# The VN and original models' kNN rounds at their main path's shapes:
+# (entry tag, (B, N, k), ((C, the gather's backward runs), ...)). B4 ranks
+# and B7 gathers each round's input: the points (C = 3; no gradient), the
+# flattened 3V vectors of VN-DGCNN (x1, x2: 21 vectors, 63; x3: 42, 126),
+# the original DGCNN's features (64, 64, 128; partseg: the points through
+# Transform_Net's 3 x 3 first, which carry its gradient).
+ZOO_ROUNDS = (
+    ("VN-DGCNN cls", (B_TRAIN, N, K), ((3, False), (63, True), (63, True),
+                                       (126, True))),
+    ("DGCNN cls", (B_TRAIN, N, K), ((3, False), (64, True), (64, True),
+                                    (128, True))),
+    ("VN-PointNet cls", (B_TRAIN, N, K), ((3, False),)),
+    ("VN-DGCNN pseg", (B_TRAIN, N_PSEG, K_PSEG), ((3, False), (63, True),
+                                                  (63, True))),
+    ("DGCNN pseg", (B_TRAIN, N_PSEG, K_PSEG), ((3, False), (3, True),
+                                               (64, True), (64, True))),
+    ("VN-PointNet pseg", (B_TRAIN, N_PSEG, K_PSEG), ((3, False),)),
+)
+# phase 28's models: (tag, task, --model, --backbone, per-step launches)
+ZOO_MODELS = (
+    ("VN-PointNet cls", "cls", "vn", "pointnet", {"knn": 1, "edge_gather_fwd": 1}),
+    ("VN-DGCNN cls", "cls", "vn", "dgcnn", {"knn": 4, "edge_gather_fwd": 4,
+                                            "edge_gather_bwd": 3}),
+    ("PointNet cls", "cls", "original", "pointnet", {}),
+    ("DGCNN cls", "cls", "original", "dgcnn", {"knn": 4, "edge_gather_fwd": 4,
+                                               "edge_gather_bwd": 3}),
+    ("VN-PointNet pseg", "partseg", "vn", "pointnet", {"knn": 1,
+                                                       "edge_gather_fwd": 1}),
+    ("VN-DGCNN pseg", "partseg", "vn", "dgcnn", {"knn": 3, "edge_gather_fwd": 3,
+                                                 "edge_gather_bwd": 2}),
+    ("PointNet pseg", "partseg", "original", "pointnet", {}),
+    ("DGCNN pseg", "partseg", "original", "dgcnn", {"knn": 4, "edge_gather_fwd": 4,
+                                                    "edge_gather_bwd": 3}),
+)
+PSEG_ZOO_STEPS = 3  # 1 warm-up + 2 timed: the script's time
+LEARN_EPOCHS = 30  # phase 30 (b): 180 fused steps
+
+
+def phase2_zoo(rep, gen, dev):
+    """B4 and B7 at the VN and original models' widths (ZOO_ROUNDS): ids
+    and both passes bitwise their plain versions, each timed beside
+    cdist + topk, torch.gather and index_add_ (the kernels line's
+    "knn <model>", "edge_gather_fwd <model>", "edge_gather_bwd <model>");
+    C = 63 and 126 take B7's scalar copies, 64 and 128 its float4 ones."""
+    import torch
+
+    for tag, (b, n, k), rounds in ZOO_ROUNDS:
+        log(f"phase 2 zoo: {tag} at ({b}, {n}, {k}), C = {[c for c, _ in rounds]}")
+        for c, bwd in rounds:
+            x = cloud(b, n, gen, dev) if c == 3 else \
+                torch.randn(b, n, c, generator=gen).to(dev)
+            compare_knn(rep, f"{tag} B4 C={c}", x, k, True, name=f"knn {tag}")
+            compare_edge_gather(rep, b, n, k, c, gen, dev, names=(
+                f"edge_gather_fwd {tag}",
+                f"edge_gather_bwd {tag}" if bwd else None))
+        torch.cuda.empty_cache()
+
+
+def zoo_model(task, model, backbone, seed):
+    """A seeded VN or original model (``models.get_model``), VN pooling
+    mean (the CLI's default)."""
+    import torch
+
+    from svnet_tpu_torch.models import get_model
+
+    kw = {"k": K if task == "cls" else K_PSEG,
+          "generator": torch.Generator().manual_seed(seed),
+          ("num_classes" if task == "cls" else "num_part"):
+          CLASSES if task == "cls" else PARTS}
+    if model == "vn":
+        kw["pooling"] = "mean"
+    return get_model(task, backbone, model, **kw)
+
+
+def phase28(dev, gen, counters, loader, card):
+    """The zoo's training (ZOO_MODELS): each VN and original model through
+    train_epoch with the JAX trainer's recipe (--opt auto: PointNet's
+    Adam, DGCNN's SGD at lr x 100), rot z; cls at (B_TRAIN, N, K) on phase
+    5's clouds, 1 + TRAIN_STEPS steps; partseg at (B_TRAIN, N_PSEG,
+    K_PSEG), PSEG_ZOO_STEPS steps; each step's launches, a BN
+    re-estimation batch and an eval batch through the eager model; one
+    step against its oracle twin (loss and running statistics within 1e-4
+    relative); for cls an eval forward at (B_TRAIN, N, K) against the
+    eager oracle twin, top-1 >= 0.99. Returns {tag: (launches, median ms,
+    peak bytes)}."""
+    import torch
+
+    from svnet_tpu_torch.utils.convert import load_tree, module_tree
+
+    p_loader = pseg_loader(dev, PSEG_ZOO_STEPS)
+    out = {}
+    for i, (tag, task, model, backbone, per_step) in enumerate(ZOO_MODELS):
+        t0 = time.perf_counter()
+        m = zoo_model(task, model, backbone, SEED + 60 + i)
+        weights = module_tree(m)
+        cls = task == "cls"
+        recipe = ("pointnet_cls" if cls else "pointnet_partseg") \
+            if backbone == "pointnet" else "dgcnn"
+        fwd_only = {n: c for n, c in per_step.items() if n != "edge_gather_bwd"}
+        out[tag] = phase_pseg_train(
+            f"phase 28 {tag}", lambda oracle, m=m: m.make_train_apply(oracle),
+            m, weights, recipe, per_step, fwd_only, fwd_only,
+            loader if cls else p_loader, dev, gen, counters, card, SEED + 70 + i,
+            with_label=not cls, binary=False)
+        if cls:
+            load_tree(m, weights)
+            twin = zoo_model(task, model, backbone, 0).to(dev).eval()
+            load_tree(twin, weights)
+            twin.oracle = True
+            x = cloud(B_TRAIN, N, gen, dev)
+            with torch.no_grad():
+                got = m.to(dev).eval()(x)
+                want = twin(x)
+            got, want = (o[0] if isinstance(o, tuple) else o for o in (got, want))
+            top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            log(f"phase 28 {tag}: eval forward ({B_TRAIN}, {N}, {K}) against the "
+                f"oracle twin: top-1 agreement {top1:.6f}, max |dlogit| "
+                f"{(got - want).abs().max().item():.3g}")
+            if top1 < 0.99:
+                raise AssertionError(f"phase 28 {tag}: top-1 agreement {top1} < 0.99")
+        log(f"phase 28 {tag}: {time.perf_counter() - t0:.1f} s")
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase29(dev, gen, counters, card, tmp):
+    """The datasets. ``--dataset scanobjectnn --subset hard`` through
+    ``loop.run_cls`` from memory (``ScanArrayDataset``: seeded 2,048-point
+    surface clouds, 15 classes, each item 1,024 of its points),
+    binary SV-DGCNN through the fused train forward at (B_TRAIN, N, K),
+    1 + TRAIN_STEPS steps, a BN re-estimation batch and the eager eval:
+    the launches, a 15-class head, a finite loss. Then ModelNet40_v2 with
+    ``uniform`` on seeded raw text clouds of 10,000 points: the items'
+    farthest-point samples on the card equal to those on the CPU. Returns
+    the knn launches of the run."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.cli.flags import build_parser
+    from svnet_tpu_torch.data import ModelNet40_v2, ScanArrayDataset
+    from svnet_tpu_torch.train.loop import read_weights, run_cls
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    steps, tests = TRAIN_STEPS + 1, 1
+    rng = np.random.default_rng(SEED + 80)
+    train = ScanArrayDataset(surface_clouds(SEED + 80, steps * B_TRAIN, 2048),
+                             rng.integers(0, 15, steps * B_TRAIN), N, train=True,
+                             seed=SEED)
+    test = ScanArrayDataset(surface_clouds(SEED + 81, tests * B_TRAIN, 2048),
+                            rng.integers(0, 15, tests * B_TRAIN), N, seed=SEED + 1)
+    args = build_parser().parse_args([
+        "--dataset", "scanobjectnn", "--subset", "hard", "--binary", "--epochs",
+        "1", "--bn-reestimate", "1", "--num-workers", "0", "--k", str(K),
+        "--batch-size", str(B_TRAIN), "--num-points", str(N), "--device", str(dev),
+        "--save-dir", f"{tmp}/scanobjectnn"])
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with echo_captured() as text:
+        acc = run_cls(args, datasets=(train, test))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    per_step = {"knn": 4, "sv_first_train_fwd": 1, "sv_first_train_bwd": 1,
+                "sv_round3_train_fwd": 3, "sv_round3_train_bwd": 3}
+    want = {n: steps * per_step.get(n, 0) for n in launches}
+    for n, c in (("knn", 4 + 4 * tests), ("sv_first_train_fwd", 1),
+                 ("sv_round3_train_fwd", 3), ("edge_gather_fwd", 4 * tests)):
+        want[n] += c  # the BN re-estimation batch, the eager eval
+    head = read_weights(f"{tmp}/scanobjectnn/save_models/model_best.ckpt",
+                        dev)["params"]["linear3"]["kernel"].shape
+    loss = float(re.findall(r"TRAIN: loss ([0-9.naif]+)", text.getvalue())[-1])
+    median = float(re.findall(r"median step ([0-9.]+) ms", text.getvalue())[-1])
+    log(f"phase 29: --dataset scanobjectnn --subset hard, run_cls from memory, "
+        f"{steps} binary fused steps of ({B_TRAIN}, {N}, {K}): head {tuple(head)}, "
+        f"train loss {loss:.6f}, test acc {acc:.6f}, step median {median:.3f} ms, "
+        f"launches { {n: c for n, c in launches.items() if c} } "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+    if launches != want or head[-1] != 15 or not np.isfinite(loss):
+        raise AssertionError(f"phase 29: launches {launches} != {want}, head "
+                             f"{tuple(head)}, loss {loss}")
+
+    root = Path(tmp) / "modelnet40_normal_resampled"
+    root.mkdir()
+    (root / "modelnet40_shape_names.txt").write_text("chair\nlamp\n")
+    ids = ["chair_0001", "lamp_0002", "chair_0003"]
+    (root / "modelnet40_train.txt").write_text("\n".join(ids) + "\n")
+    for i, name in enumerate(ids):
+        d = root / name.rsplit("_", 1)[0]
+        d.mkdir(exist_ok=True)
+        pts = surface_clouds(SEED + 90 + i, 1, 10000)[0] * rng.uniform(0.5, 2.0, 3)
+        np.savetxt(d / f"{name}.txt", np.concatenate([pts, pts], 1), delimiter=",",
+                   fmt="%.6f")
+    t0 = time.perf_counter()
+    card_set = ModelNet40_v2(str(root), N, "train", uniform=True, device=dev)
+    items = [card_set[i] for i in range(len(ids))]
+    t_card = time.perf_counter() - t0
+    cpu_set = ModelNet40_v2(str(root), N, "train", uniform=True, device="cpu")
+    for i, (pts, label) in enumerate(items):
+        want_pts, want_label = cpu_set[i]
+        if not np.array_equal(pts, want_pts) or label != want_label or \
+                pts.shape != (N, 3):
+            raise AssertionError(f"phase 29: ModelNet40_v2 item {i}: FPS on the "
+                                 "card differs from FPS on the CPU")
+    log(f"phase 29: ModelNet40_v2(uniform=True) on {len(ids)} raw clouds of 10,000 "
+        f"points: {N} farthest points each, the card's items equal to the CPU's "
+        f"({t_card:.2f} s on the card, first call included)")
+    return launches
+
+
+def phase30(dev, gen, counters, card):
+    """The learning check. (a) FP SV-PointNet cls on the three shapes of
+    tests/test_learning.py (``utils.synth.shape_clouds``) with its
+    numbers: N = 64, k = 8, B = 24, 40 clouds a class, 20 epochs, the
+    pointnet_cls recipe, so3 in training and test; the mean of the last 5
+    losses at least 0.2 below the first 5's, test accuracy >= 0.8. (b)
+    Binary SV-DGCNN cls at (B_TRAIN, N, K) through the fused train
+    forward on the same shapes at N = 1024 (64 clouds a class, 32 a class
+    in the test set: 3 whole batches; so3 in training and test),
+    LEARN_EPOCHS epochs of the dgcnn recipe's Adam,
+    BN re-estimation over 60 batches, then the eager eval: test accuracy
+    >= 0.6 (chance 1/3). With (b)'s weights, C25's two numbers, printed:
+    the float32 exact engine against the float32 eager model, and the
+    float64 plain engine against the float64 eager model
+    (``float64_witness``). Returns the seconds of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.data import ArrayDataset, Loader
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine
+    from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls
+    from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls
+    from svnet_tpu_torch.train import pointnet
+    from svnet_tpu_torch.train.fused import make_fused_train_apply
+    from svnet_tpu_torch.train.loop import bn_reestimate, eval_batches
+    from svnet_tpu_torch.train.steps import (
+        create_state, make_eval_step, make_recal_step, make_train_step)
+    from svnet_tpu_torch.utils.convert import load_tree, module_tree
+    from svnet_tpu_torch.utils.synth import shape_clouds
+
+    secs = []
+    for tag, n, k, b, per_class, test_per_class, epochs in (
+            ("a", 64, 8, 24, 40, 10, 20), ("b", N, K, B_TRAIN, 64, 32, LEARN_EPOCHS)):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        x_train, y_train = shape_clouds(rng, per_class, n)
+        x_test, y_test = shape_clouds(rng, test_per_class, n)
+        train = Loader(ArrayDataset(x_train, y_train), b, shuffle=True,
+                       drop_last=True, seed=SEED, device=dev)
+        test = Loader(ArrayDataset(x_test, y_test), b, shuffle=False, pad_last=True,
+                      device=dev)
+        binary = tag == "b"
+        if binary:
+            model = SVDGCNNCls(3, k, True, torch.Generator().manual_seed(SEED + 95))
+            apply, recipe = make_fused_train_apply(3, k, binary=True), "dgcnn"
+        else:
+            model = SVPointNetCls(3, k, False, torch.Generator().manual_seed(SEED + 95))
+            apply, recipe = pointnet.make_train_apply_cls(3, k, False), "pointnet_cls"
+        state = create_state(module_tree(model), binary=binary, lr=1e-3,
+                             epochs=epochs, steps_per_epoch=len(train),
+                             recipe=recipe, device=dev)
+        step = make_train_step(apply, train_loss(False), rot="so3")
+        g = torch.Generator().manual_seed(SEED + 96)
+        losses = []
+        for _ in range(epochs):
+            for batch in train:
+                losses.append(step(state, batch, g)[0])
+        losses = [float(v) for v in losses]
+        if binary:
+            state.batch_stats = bn_reestimate(make_recal_step(apply, "so3"), state,
+                                              train, g, 60)
+        model = model.to(dev).eval()
+        load_tree(model, state.tree())
+        _, y_true, y_pred, _ = eval_batches(
+            make_eval_step(model, train_loss(False), "so3"), test,
+            torch.Generator().manual_seed(SEED + 97))
+        acc = float((y_true == y_pred).mean())
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        secs.append(time.perf_counter() - t0)
+        log(f"phase 30 ({tag}): {'binary SV-DGCNN fused' if binary else 'FP SV-PointNet'}"
+            f" cls on 3 shapes, ({b}, {n}, {k}), {len(losses)} steps ({epochs} "
+            f"epochs), so3: loss first 5 {first:.6f}, last 5 {last:.6f}; test acc "
+            f"{acc:.6f} on {len(y_true)} clouds ({secs[-1]:.1f} s) | {card}")
+        if not binary and not (last < first - 0.2 and acc >= 0.8):
+            raise AssertionError(f"phase 30 (a): losses {first} -> {last}, acc {acc}")
+        if binary and acc < 0.6:
+            raise AssertionError(f"phase 30 (b): test acc {acc} < 0.6")
+
+    # C25 on (b)'s trained weights
+    tree = state.tree()
+    eng = SVDGCNNClsEngine(tree, 3, K, True, device=dev)
+    same = total = 0
+    with torch.no_grad():
+        for batch in test:
+            want = model(batch["points"]).argmax(-1)
+            same += int((eng(batch["points"]).argmax(-1) == want).sum())
+            total += want.numel()
+    agree64, agree32 = float64_witness("cls", tree, SVDGCNNCls, SVDGCNNClsEngine, 3,
+                                       K, test, dev, bar=False, tag="phase 30 C25")
+    log(f"phase 30 C25: trained binary weights, top-1 agreement of the float32 "
+        f"exact engine with the float32 eager model {same / total:.6f}; in float64 "
+        f"(plain engine against eager model) {agree64:.6f}; the eager model's "
+        f"float32 against its float64 {agree32:.6f} ({total} clouds) | {card}")
+    return secs
+
 
 
 def pseg_test_set():
@@ -4708,6 +5069,10 @@ def main() -> int:
                   dg, gen, dev)
     edge_feats = phase2_edge_modes(rep, dg["cls edge"]["kernel"],
                                    dg["cls edge"]["kernel_fp"], dg, gen, dev)
+    t_zoo2 = time.perf_counter()
+    phase2_zoo(rep, gen, dev)
+    t_zoo2 = time.perf_counter() - t_zoo2
+    log(f"phase 2 zoo: {t_zoo2:.1f} s")
 
     # phase 3
     counters = (kr.sv_round3_first, kr.sv_round3, kp.sv_point_block_cm, kk.knn,
@@ -4873,6 +5238,25 @@ def main() -> int:
                    dev, counters, card)
     t_recipe += time.perf_counter() - t0
 
+    # phases 28-30: the VN and original models' training, the datasets, the
+    # learning check
+    t_new = {}
+    t0 = time.perf_counter()
+    zoo = phase28(dev, gen, counters, loader, card)
+    t_new["28"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase29(dev, gen, counters, card, tmp)
+    t_new["29"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    learn_secs = phase30(dev, gen, counters, card)
+    t_new["30"] = time.perf_counter() - t0
+    for tag, _, rounds in ZOO_ROUNDS:
+        launches[f"knn {tag}"] = zoo[tag][0]["knn"]
+        launches[f"edge_gather_fwd {tag}"] = zoo[tag][0]["edge_gather_fwd"]
+        if any(bwd for _, bwd in rounds):
+            launches[f"edge_gather_bwd {tag}"] = zoo[tag][0]["edge_gather_bwd"]
+
     src_of = {"sv_round3_first": ("svnet_tpu_torch/csrc/sv_round3_first.cu",
                                   "svnet_tpu/ops/pallas/sv_round3.py:1462"),
               "sv_round3": ("svnet_tpu_torch/csrc/sv_round3.cu",
@@ -4977,6 +5361,11 @@ def main() -> int:
             src_of[f"{name} knob {task}"] = src_of[name]
     for name in ("edge_gather_fwd", "edge_gather_bwd"):
         src_of[f"{name} pseg unfused"] = src_of[name]
+    # the VN and original models' rounds: B4 and B7 at their widths
+    for tag, _, rounds in ZOO_ROUNDS:
+        for name in ("knn", "edge_gather_fwd") + (
+                ("edge_gather_bwd",) if any(bwd for _, bwd in rounds) else ()):
+            src_of[f"{name} {tag}"] = src_of[name]
     for name in rep.ms:
         if name.startswith("sv_round3_first cross"):
             src_of[name] = src_of["sv_round3_first"]
@@ -5019,6 +5408,13 @@ def main() -> int:
         f"{knob['cls'][2] / 2**30:.3f} GiB), partseg {knob['pseg'][1]:.3f} ms (peak "
         f"{knob['pseg'][2] / 2**30:.3f} GiB); KD step median {kd_ms:.3f} ms; "
         f"certification legs {sum(cert.values()):.1f} s in all")
+    log(f"phases 28-30: zoo train steps median (ms) / peak (GiB): "
+        + "; ".join(f"{tag} {med:.3f} / {peak / 2**30:.3f}"
+                    for tag, (_, med, peak) in zoo.items())
+        + f" | {card}")
+    log(f"phase 2 zoo {t_zoo2:.1f} s; phase 28 {t_new['28']:.1f} s, phase 29 "
+        f"{t_new['29']:.1f} s, phase 30 {t_new['30']:.1f} s ((a) "
+        f"{learn_secs[0]:.1f} s, (b) {learn_secs[1]:.1f} s)")
     total = time.perf_counter() - t_start
     log(f"chip_smoke: {total:.1f} s, the build included; the recipe's phases "
         f"(phase 2's knob and partseg gather shapes, phases 24-27) {t_recipe:.1f} s, "

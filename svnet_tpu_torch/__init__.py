@@ -12,6 +12,13 @@ against. The layout mirrors it module for module:
   nn/sv_train.py         train-mode SV layers on the flax weight trees
   models/sv_dgcnn.py     SV-DGCNN classifier, eager (the un-fused oracle)
   models/sv_pointnet.py  SV-PointNet classifier and part segmenter, eager
+  nn/scope.py            a model as one function of its flax-named weight
+                         tree (init, eval, train), ScopedModel
+  nn/vn_layers.py        Vector-Neuron layers on a Scope
+  models/vn_pointnet.py, vn_dgcnn.py, pointnet.py, dgcnn.py
+                         the VN and original families (cls and partseg),
+                         get_model (models/__init__.py)
+  ops/sampling.py        farthest-point sampling, ball query, grouping
   utils/convert.py       flax variables <-> this package's weight tree
   utils/synth.py         seeded deformed-sphere clouds
   ops/kernels/fold.py    host-side weight folding for the fused kernels
@@ -26,7 +33,8 @@ against. The layout mirrors it module for module:
                          dgcnn.py, pointnet.py: the flax-equivalent
                          SV-DGCNN and SV-PointNet paths), steps,
                          optimizer, loop
-  data/, cli/            ModelNet40 / in-memory datasets, Loader, the
+  data/, cli/            ModelNet40, ScanObjectNN, ModelNet40_v2, ShapeNetPart
+                         / in-memory datasets, Loader, the
                          CLIs, profile_train_step
 
 This package imports torch and never jax.

@@ -3,10 +3,11 @@ svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
 Every flag of the JAX surface parses; ``check_ported`` raises
 ``NotImplementedError`` for a flag whose feature the port does not have
-yet (other models, the mesh, profiling, NaN debugging, other datasets)
+yet (BiPointNet, the mesh, profiling, NaN debugging, other datasets)
 and ``ValueError`` for a ported flag that would not act where it is given
 (``check_acts``, ROADMAP C24), where the JAX CLI ignores it. The ported
-datasets are ModelNet40 for classification and ShapeNetPart for part
+models are SV, VN and the original families; the ported datasets are
+ModelNet40 and ScanObjectNN for classification and ShapeNetPart for part
 segmentation.
 """
 
@@ -15,8 +16,8 @@ from __future__ import annotations
 import argparse
 
 # flag -> value that means "off"; any other value is not ported yet
-_NOT_PORTED = {"model": "svnet", "profile_dir": None, "debug_nans": False,
-               "dp": 1, "tp": 1}
+_NOT_PORTED = {"profile_dir": None, "debug_nans": False, "dp": 1, "tp": 1}
+PORTED_MODELS = ("svnet", "vn", "original")
 # the serving knobs, which act through --fused eval's engines (and three of
 # them through --train-knobs): flag -> value that means "not given"
 SERVING_KNOBS = {"engine_mode": "exact", "approx_fold": 0,
@@ -24,8 +25,9 @@ SERVING_KNOBS = {"engine_mode": "exact", "approx_fold": 0,
                  "graph_reuse": "none", "reuse_k": 0, "morton_entry": False}
 # the ones knob-aware training reads (svnet_tpu/train/fused.py:39-59)
 TRAIN_KNOBS = ("graph_reuse", "reuse_k", "approx_gather_bits")
-# the dataset each task's port reads
-PORTED_DATASET = {"cls": "modelnet40", "partseg": "shapenetpart"}
+# the datasets each task's port reads
+PORTED_DATASETS = {"cls": ("modelnet40", "scanobjectnn"),
+                   "partseg": ("shapenetpart",)}
 
 
 def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.ArgumentParser:
@@ -41,12 +43,14 @@ def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.Argumen
     if task == "cls":
         p.add_argument("--dataset", type=str, default="modelnet40",
                        choices=["modelnet40", "scanobjectnn"])
-        p.add_argument("--subset", type=str, default="hard",
-                       choices=["easy", "hard"], help="only for scanobjectnn")
+        p.add_argument("--subset", type=str, default=None,
+                       choices=["easy", "hard"],
+                       help="only for scanobjectnn (default hard)")
     else:
         p.add_argument("--dataset", type=str, default="shapenetpart")
         p.add_argument("--class-choice", type=str, default=None)
-        p.add_argument("--subset", type=str, default="hard")
+        p.add_argument("--subset", type=str, default=None,
+                       help="only for scanobjectnn: acts on no part dataset")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--epochs", type=int, default=250 if task == "cls" else 200)
     p.add_argument("--lr", type=float, default=0.001)
@@ -136,14 +140,22 @@ def check_acts(args) -> None:
     reads (``_knob_acts``); ``--distill`` without ``--preload`` or with
     ``--test``; ``--preload`` without ``--distill``, or ``--distill``'s
     student init, beside ``--test`` or ``--resume-from``, which overwrite
-    what it loaded."""
+    what it loaded; ``--pooling max`` off ``--model vn``; ``--subset`` off
+    ScanObjectNN; ``--fused`` off the SV models, which alone have engines."""
     dgcnn = args.backbone == "dgcnn"
+    if args.pooling != "mean" and args.model != "vn":
+        raise ValueError(f"--pooling {args.pooling} acts on --model vn only")
+    if args.subset is not None and args.dataset != "scanobjectnn":
+        raise ValueError("--subset acts on --dataset scanobjectnn only")
+    if args.fused and args.model != "svnet":
+        raise ValueError("--fused evaluates through the SV models' engines: "
+                         f"--model {args.model} has none")
     if args.fused and args.test is None:
         raise ValueError("--fused evaluates a checkpoint: give it with --test")
     if args.fused and not dgcnn and args.task == "partseg":
         raise ValueError("--fused is ported for SV-DGCNN part segmentation "
                          "only (the JAX CLI evaluates SV-PointNet eagerly)")
-    if args.train_knobs and not (dgcnn and args.binary):
+    if args.train_knobs and not (dgcnn and args.binary and args.model == "svnet"):
         raise ValueError("--train-knobs acts on binary SV-DGCNN only")
     if args.train_knobs and args.graph_reuse == "none" and \
             args.approx_gather_bits != 8:
@@ -173,10 +185,16 @@ def check_acts(args) -> None:
 def check_ported(args) -> None:
     """Raise for every flag set to a feature the port does not have, and
     for a ported one that would not act (``check_acts``)."""
-    offs = {**_NOT_PORTED, "dataset": PORTED_DATASET[getattr(args, "task", "cls")]}
-    for name, off in offs.items():
+    for name, off in _NOT_PORTED.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
                 f"{_flag(name)}={getattr(args, name)!r} is not ported to "
                 "svnet_tpu_torch")
+    if args.model not in PORTED_MODELS:
+        raise NotImplementedError(
+            f"--model {args.model} is not ported to svnet_tpu_torch yet "
+            "(ROADMAP Queue A item 9)")
+    if args.dataset not in PORTED_DATASETS[getattr(args, "task", "cls")]:
+        raise NotImplementedError(
+            f"--dataset={args.dataset!r} is not ported to svnet_tpu_torch")
     check_acts(args)

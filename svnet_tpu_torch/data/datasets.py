@@ -4,12 +4,15 @@ arrays, items ``(points (n, 3) float32, label int)`` or, for part
 segmentation, ``(points, category int, seg (n,) int64)``. Batching, and
 the move to the device, is the Loader's.
 
-``ModelNet40`` and ``ShapeNetPart`` read the standard HDF5 packagings
-(``<data_dir>/modelnet40*hdf5_2048/*{partition}*.h5``,
-``<data_dir>/shapenet*hdf5*/*{partition}*.h5``); ``h5py`` is imported
-only when a file is read. ``ArrayDataset`` and ``PartArrayDataset`` serve
-clouds already in memory (synthetic or loaded by the caller) with the
-same item contracts.
+``ModelNet40``, ``ShapeNetPart`` and ``ScanObjectNNCls`` read the
+standard HDF5 packagings (``<data_dir>/modelnet40*hdf5_2048/*{partition}*.h5``,
+``<data_dir>/shapenet*hdf5*/*{partition}*.h5``,
+``<data_dir>/h5_files/main_split/<subset file>``); ``h5py`` is imported
+only when a file is read. ``ArrayDataset``, ``ScanArrayDataset`` and
+``PartArrayDataset`` serve clouds already in memory (synthetic or loaded
+by the caller) with the same item contracts. ``ModelNet40_v2`` reads the
+raw-text packaging, optionally sampled by farthest-point sampling on a
+device.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import glob
 import os
 
 import numpy as np
+import torch
 
+from svnet_tpu_torch import config
 from svnet_tpu_torch.data.augment import translate_pointcloud
+from svnet_tpu_torch.ops.sampling import farthest_point_sample
 from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM
 
 
@@ -32,6 +38,12 @@ def _h5py():
             "use ArrayDataset or PartArrayDataset for clouds already in "
             "memory") from e
     return h5py
+
+
+def pc_normalize(pc: np.ndarray) -> np.ndarray:
+    """Centred on the centroid, scaled into the unit sphere."""
+    pc = pc - pc.mean(axis=0)
+    return pc / np.max(np.sqrt((pc ** 2).sum(axis=1)))
 
 
 def load_data_cls(data_dir: str, partition: str):
@@ -158,3 +170,116 @@ class ShapeNetPart(PartArrayDataset):
                          shuffle=partition == "trainval", seed=seed)
         self.partition = partition
         self.class_choice = class_choice
+
+
+# ScanObjectNN's main split: (partition, subset) -> file
+SCANOBJECTNN_FILES = {
+    ("train", "easy"): "training_objectdataset.h5",
+    ("train", "hard"): "training_objectdataset_augmentedrot_scale75.h5",
+    ("test", "easy"): "test_objectdataset.h5",
+    ("test", "hard"): "test_objectdataset_augmentedrot_scale75.h5",
+}
+
+
+def load_data_scanobjectnn(data_dir: str, partition: str, subset: str):
+    """ScanObjectNN's clouds (M, 2048, 3) and labels of one partition and
+    subset ('easy': the object dataset; 'hard': augmentedrot_scale75)."""
+    try:
+        name = SCANOBJECTNN_FILES[(partition, subset)]
+    except KeyError:
+        raise ValueError(f"unrecognized partition/subset {partition!r}/"
+                         f"{subset!r}") from None
+    with _h5py().File(os.path.join(data_dir, "h5_files", "main_split", name),
+                      "r") as f:
+        return (np.array(f["data"]).astype("float32"),
+                np.array(f["label"]).astype("int64"))
+
+
+class ScanArrayDataset:
+    """Clouds (M, n, 3) and labels (M,) in memory, ScanObjectNN's item
+    draw: a fresh permutation of each cloud's points, its first
+    ``num_points`` taken, then (train) the translation. The draws come
+    from one numpy generator in this order, as the JAX package's do."""
+
+    num_classes = 15
+
+    def __init__(self, points: np.ndarray, labels: np.ndarray,
+                 num_points: int, train: bool = False, seed: int = 0):
+        self.points = np.asarray(points, dtype=np.float32)
+        self.labels = np.asarray(labels).reshape(-1)
+        self.num_points = num_points
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return self.points.shape[0]
+
+    def __getitem__(self, idx):
+        pt_idxs = self.rng.permutation(self.points.shape[1])[: self.num_points]
+        pointcloud = self.points[idx, pt_idxs].copy()
+        if self.train:
+            pointcloud = translate_pointcloud(pointcloud, self.rng)
+        return pointcloud, int(self.labels[idx])
+
+
+class ScanObjectNNCls(ScanArrayDataset):
+    """ScanObjectNN classification (15 classes) from its HDF5 files."""
+
+    def __init__(self, num_points: int, data_dir: str, partition: str = "train",
+                 subset: str = "easy", seed: int = 0):
+        data, label = load_data_scanobjectnn(data_dir, partition, subset)
+        super().__init__(data, label, num_points, partition == "train", seed)
+        self.partition, self.subset = partition, subset
+
+
+class ModelNet40_v2:
+    """ModelNet40's raw text clouds (``<data_dir>/<class>/<id>.txt``, rows
+    ``x,y,z[,nx,ny,nz]``; ``modelnet40_shape_names.txt`` and
+    ``modelnet40_{partition}.txt`` list the classes and ids), items
+    ``(points (num_points, 3 or 6), label)``: the first ``num_points``
+    rows, or with ``uniform`` that many by farthest-point sampling on
+    ``device`` (the card unless the caller asks for the CPU), the
+    coordinates through ``pc_normalize``; the first ``cache_size`` items
+    read are kept."""
+
+    num_classes = 40
+
+    def __init__(self, data_dir: str, num_points: int = 1024,
+                 partition: str = "train", uniform: bool = False,
+                 normal_channel: bool = False, cache_size: int = 15000,
+                 device="cuda"):
+        assert partition in ("train", "test")
+        self.root, self.npoints = data_dir, num_points
+        self.uniform, self.normal_channel = uniform, normal_channel
+        self.device = config.resolve_device(device) if uniform else None
+        with open(os.path.join(data_dir, "modelnet40_shape_names.txt")) as f:
+            self.cat = [line.rstrip() for line in f]
+        self.classes = dict(zip(self.cat, range(len(self.cat))))
+        with open(os.path.join(data_dir, f"modelnet40_{partition}.txt")) as f:
+            ids = [line.rstrip() for line in f]
+        names = ["_".join(x.split("_")[0:-1]) for x in ids]
+        self.datapath = [(name, os.path.join(data_dir, name, i) + ".txt")
+                         for name, i in zip(names, ids)]
+        self.cache_size = cache_size
+        self.cache: dict = {}
+
+    def __len__(self):
+        return len(self.datapath)
+
+    def __getitem__(self, index):
+        if index in self.cache:
+            return self.cache[index]
+        name, path = self.datapath[index]
+        pts = np.loadtxt(path, delimiter=",").astype(np.float32)
+        if self.uniform:
+            xyz = torch.from_numpy(pts[None, :, :3]).to(self.device)
+            pts = pts[farthest_point_sample(xyz, self.npoints)[0].cpu().numpy()]
+        else:
+            pts = pts[: self.npoints]
+        pts[:, 0:3] = pc_normalize(pts[:, 0:3])
+        if not self.normal_channel:
+            pts = pts[:, 0:3]
+        item = (pts, int(self.classes[name]))
+        if len(self.cache) < self.cache_size:
+            self.cache[index] = item
+        return item

@@ -1,3 +1,10 @@
+"""The model zoo: SV / VN / original x PointNet / DGCNN x cls / partseg,
+and ``get_model``, keyed on the CLI's ``--model`` flag (counterpart of
+svnet_tpu/models/__init__.py). BiPointNet is not ported yet (ROADMAP
+Queue A item 9)."""
+
+from svnet_tpu_torch.models.dgcnn import DGCNNCls, DGCNNPseg
+from svnet_tpu_torch.models.pointnet import PointNetCls, PointNetPseg
 from svnet_tpu_torch.models.sv_dgcnn import (  # noqa: F401
     SVDGCNNCls,
     SVDGCNNPseg,
@@ -9,3 +16,35 @@ from svnet_tpu_torch.models.sv_pointnet import (  # noqa: F401
     SVPointNetEncoder,
     SVPointNetPseg,
 )
+from svnet_tpu_torch.models.vn_dgcnn import VNDGCNNCls, VNDGCNNPseg
+from svnet_tpu_torch.models.vn_pointnet import VNPointNetCls, VNPointNetPseg
+
+_REGISTRY = {
+    "cls": {"svnet": {"pointnet": SVPointNetCls, "dgcnn": SVDGCNNCls},
+            "vn": {"pointnet": VNPointNetCls, "dgcnn": VNDGCNNCls},
+            "original": {"pointnet": PointNetCls, "dgcnn": DGCNNCls}},
+    "partseg": {"svnet": {"pointnet": SVPointNetPseg, "dgcnn": SVDGCNNPseg},
+                "vn": {"pointnet": VNPointNetPseg, "dgcnn": VNDGCNNPseg},
+                "original": {"pointnet": PointNetPseg, "dgcnn": DGCNNPseg}},
+}
+
+
+def get_model(task: str, backbone: str, model: str, **kwargs):
+    """The eager eval model of (task 'cls' | 'partseg', backbone
+    'pointnet' | 'dgcnn', model 'svnet' | 'vn' | 'original'), built with
+    ``kwargs`` (num_classes or num_part, k, generator; binary for svnet,
+    pooling for vn). 'bipointnet' raises ``NotImplementedError``."""
+    if model == "bipointnet":
+        raise NotImplementedError(
+            "--model bipointnet is not ported to svnet_tpu_torch yet "
+            "(ROADMAP Queue A item 9: nn/bipointnet_layers.py, "
+            "models/bipointnet.py)")
+    registry = _REGISTRY[task]
+    try:
+        cls = registry[model][backbone]
+    except KeyError:
+        raise ValueError(
+            f"no model {model!r} for task={task!r} backbone={backbone!r}; "
+            f"available: { {m: sorted(b) for m, b in registry.items()} }"
+        ) from None
+    return cls(**kwargs)

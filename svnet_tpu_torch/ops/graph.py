@@ -69,6 +69,27 @@ def get_graph_feature_cross(points: torch.Tensor, k: int,
     return torch.stack([nbr - ctr, ctr, _cross3(nbr, ctr)], dim=-1)
 
 
+def vn_graph_feature(v: torch.Tensor, k: int, idx: torch.Tensor | None = None,
+                     plain: bool = False) -> torch.Tensor:
+    """Vector-neuron edges ``[nbr - ctr, ctr]`` over a vector field
+    (B, N, 3, V) -> (B, N, k, 3, 2V), the kNN in the flattened 3V space."""
+    B, N = v.shape[:2]
+    idx = _ids(v.reshape(B, N, -1), k, idx, plain)
+    nbr = gather_neighbors(v, idx, plain)
+    ctr = v[:, :, None].expand_as(nbr)
+    return torch.cat([nbr - ctr, ctr], dim=-1)
+
+
+def scalar_graph_feature(x: torch.Tensor, k: int,
+                         idx: torch.Tensor | None = None,
+                         plain: bool = False) -> torch.Tensor:
+    """DGCNN's scalar edges ``[nbr - ctr, ctr]``: (B, N, C) -> (B, N, k, 2C)."""
+    idx = _ids(x, k, idx, plain)
+    nbr = gather_neighbors(x, idx, plain)
+    ctr = x[:, :, None].expand_as(nbr)
+    return torch.cat([nbr - ctr, ctr], dim=-1)
+
+
 def get_graph_feature_sv(x: SVPair, k: int, idx: torch.Tensor | None = None,
                          plain: bool = False) -> SVPair:
     """Edges over an (s, v) pair, kNN in the joint [s, flat(v)] space.

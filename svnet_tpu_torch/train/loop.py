@@ -1,10 +1,15 @@
 """Classification and part-segmentation training loops (counterpart of
-svnet_tpu/train/loop.py::run_cls and run_partseg, SV-DGCNN and
-SV-PointNet on ModelNet40 and ShapeNetPart, train path).
+svnet_tpu/train/loop.py::run_cls and run_partseg: the SV, VN and original
+families of PointNet and DGCNN on ModelNet40 or ScanObjectNN and on
+ShapeNetPart, train path).
 
 Epochs of train steps (SV-DGCNN: the fused train forward on the card, the
 un-fused one elsewhere, ``config.fused_train``; SV-PointNet: the
-flax-equivalent train forward of ``train/pointnet.py``); before each
+flax-equivalent train forward of ``train/pointnet.py``; the VN and
+original models: their one function of the weights, ``nn/scope.py``); the
+loss is ``model_loss`` (the T-Net regularizer for the original PointNet,
+whose model returns it; ROADMAP C26); the class count comes from
+``--dataset``; before each
 eval, BN re-estimation over ``--bn-reestimate`` train batches (60 by
 default for binary nets, whose running statistics lag the weight-sign
 flips); eval through the eager model with ``--rot-test``, or with
@@ -32,14 +37,13 @@ import torch
 
 from svnet_tpu_torch import config
 from svnet_tpu_torch.cli.flags import SERVING_KNOBS, check_ported
-from svnet_tpu_torch.data import Loader, ModelNet40, ShapeNetPart
+from svnet_tpu_torch.data import Loader, ModelNet40, ScanObjectNNCls, ShapeNetPart
 from svnet_tpu_torch.infer import (
     SVDGCNNClsEngine,
     SVDGCNNPsegEngine,
     SVPointNetClsEngine,
 )
-from svnet_tpu_torch.models.sv_dgcnn import SVDGCNNCls, SVDGCNNPseg
-from svnet_tpu_torch.models.sv_pointnet import SVPointNetCls, SVPointNetPseg
+from svnet_tpu_torch.models import get_model
 from svnet_tpu_torch.train import dgcnn, pointnet
 from svnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from svnet_tpu_torch.train.fused import (
@@ -47,7 +51,7 @@ from svnet_tpu_torch.train.fused import (
     make_fused_train_apply_pseg,
 )
 from svnet_tpu_torch.train.logs import configure_logging
-from svnet_tpu_torch.train.losses import cal_loss
+from svnet_tpu_torch.train.losses import model_loss
 from svnet_tpu_torch.train.metrics import accuracy, balanced_accuracy, shape_iou
 from svnet_tpu_torch.train.steps import (
     Distiller,
@@ -60,6 +64,7 @@ from svnet_tpu_torch.train.steps import (
 from svnet_tpu_torch.utils.convert import flatten, load_tree, module_tree, nest
 
 NUM_PARTS = 50  # ShapeNetPart's part labels
+NUM_CLASSES = {"modelnet40": 40, "scanobjectnn": 15}  # --dataset -> classes
 # config's knobs that the CLI sets (svnet_tpu/train/loop.py::
 # _apply_approx_knobs), each through ``config.set_<name>``
 _KNOBS = tuple(n for n in SERVING_KNOBS if n != "engine_mode") + ("train_knobs",)
@@ -87,32 +92,50 @@ def _weighted_loss(losses, counts) -> float:
     return float((torch.stack(losses).float().cpu() * w).sum() / w.sum())
 
 
+def out_width(args, task: str) -> int:
+    """The head's width: the classes of ``--dataset``, or the parts."""
+    return NUM_CLASSES[args.dataset] if task == "cls" else NUM_PARTS
+
+
 def eager_model(args, task: str, binary: bool, knobs=None):
-    """The seeded eager eval model of ``args.backbone`` for ``task``."""
-    gen = torch.Generator().manual_seed(args.seed)
-    if task == "cls":
-        if args.backbone == "pointnet":
-            return SVPointNetCls(40, args.k, binary, gen)
-        return SVDGCNNCls(40, args.k, binary, gen, knobs)
+    """The seeded eager eval model of ``args.model`` and ``args.backbone``
+    for ``task`` (svnet_tpu/train/loop.py::_build_cls_model,
+    _build_pseg_model: ``binary`` and the knobs for the SV models,
+    ``pooling`` for VN)."""
+    kw = {"k": args.k, "generator": torch.Generator().manual_seed(args.seed),
+          ("num_classes" if task == "cls" else "num_part"): out_width(args, task)}
+    if args.model == "svnet":
+        kw["binary"] = binary
+        if args.backbone == "dgcnn":
+            kw["knobs"] = knobs
+    elif args.model == "vn":
+        kw["pooling"] = args.pooling
+    return get_model(task, args.backbone, args.model, **kw)
+
+
+def optimizer_recipe(args, task: str) -> str:
+    """The optimizer recipe (svnet_tpu/train/loop.py::_recipe)."""
     if args.backbone == "pointnet":
-        return SVPointNetPseg(NUM_PARTS, args.k, binary, gen)
-    return SVDGCNNPseg(NUM_PARTS, args.k, binary, gen, knobs)
+        return "pointnet_cls" if task == "cls" else "pointnet_partseg"
+    return "dgcnn"
 
 
 def build_model(args, task: str, device, knobs=None, log_string=print):
     """(seeded eager eval model, train forward, optimizer recipe) of
-    ``args.backbone`` for ``task``: SV-PointNet's ``train/pointnet.py``;
+    ``args.model`` and ``args.backbone`` for ``task``: the VN and original
+    models' ``make_train_apply``; SV-PointNet's ``train/pointnet.py``;
     SV-DGCNN's fused forward where ``config.use_fused_train(device)``,
     else the un-fused ``train/dgcnn.py`` (svnet_tpu/train/loop.py:356-372,
     :778-795). ``knobs`` (``config.train_knob_state``) go to both the
     SV-DGCNN model and its train forward."""
     model = eager_model(args, task, args.binary, knobs)
     cls = task == "cls"
-    width = 40 if cls else NUM_PARTS
+    width = out_width(args, task)
+    if args.model != "svnet":
+        return model, model.make_train_apply(), optimizer_recipe(args, task)
     if args.backbone == "pointnet":
         make = pointnet.make_train_apply_cls if cls else pointnet.make_train_apply_pseg
-        return (model, make(width, args.k, args.binary),
-                "pointnet_cls" if cls else "pointnet_partseg")
+        return model, make(width, args.k, args.binary), optimizer_recipe(args, task)
     if config.use_fused_train(device):
         make = make_fused_train_apply if cls else make_fused_train_apply_pseg
         log_string("fused train forward enabled")
@@ -121,7 +144,7 @@ def build_model(args, task: str, device, knobs=None, log_string=print):
     if knobs is not None:
         log_string(f"knob-aware training: {knobs}")
     return model, make(width, args.k, binary=args.binary, dropout=args.dropout,
-                       knobs=knobs), "dgcnn"
+                       knobs=knobs), optimizer_recipe(args, task)
 
 
 def tree_shapes(tree: dict) -> dict:
@@ -201,12 +224,13 @@ def make_fused_eval_step(tree: dict, args, task: str, loss_fn, device):
     ``args.engine_mode``; the serving knobs are read from ``config`` (see
     ``knob_scope``) when the engine runs."""
     kw = dict(k=args.k, binary=args.binary, mode=args.engine_mode, device=device)
+    width = out_width(args, task)
     if task == "partseg":
-        eng = SVDGCNNPsegEngine(tree, NUM_PARTS, **kw)
+        eng = SVDGCNNPsegEngine(tree, width, **kw)
     elif args.backbone == "dgcnn":
-        eng = SVDGCNNClsEngine(tree, 40, **kw)
+        eng = SVDGCNNClsEngine(tree, width, **kw)
     else:
-        eng = SVPointNetClsEngine(tree, 40, **kw)
+        eng = SVPointNetClsEngine(tree, width, **kw)
     return make_eval_step(eng, loss_fn, rot_test=args.rot_test,
                           with_label=task == "partseg")
 
@@ -449,18 +473,28 @@ def _param_count(model) -> None:
     print(f"Number of Parameters: {n / 1e6:.6f}M")
 
 
+def cls_datasets(args):
+    """(train, test) of ``--dataset``: ModelNet40, or ScanObjectNN's
+    ``--subset`` (hard unless given)."""
+    if args.dataset == "scanobjectnn":
+        return [ScanObjectNNCls(args.num_points, args.data_dir, part,
+                                args.subset or "hard", seed)
+                for part, seed in (("train", args.seed), ("test", args.seed + 1))]
+    return [ModelNet40(args.num_points, args.data_dir, part, seed=seed)
+            for part, seed in (("train", args.seed), ("test", args.seed + 1))]
+
+
 def run_cls(args, datasets=None) -> Optional[float]:
-    """Classification trainer: ModelNet40 (or the caller's ``datasets``,
-    (train, test) of any kind the Loader takes), binary or FP SV-DGCNN or
-    SV-PointNet (``args.backbone``)."""
+    """Classification trainer: ModelNet40 or ScanObjectNN (``--dataset``;
+    or the caller's ``datasets``, (train, test) of any kind the Loader
+    takes, with ``--dataset``'s class count), the SV, VN or original model
+    (``args.model``) of ``args.backbone``."""
     with knob_scope(args):
         run = _Run(args, "cls")
         built = run.build()
         if args.checkinfo:
             return _param_count(built[0])
-        run.prepare(built, cal_loss, *(datasets or (
-            ModelNet40(args.num_points, args.data_dir, "train", seed=args.seed),
-            ModelNet40(args.num_points, args.data_dir, "test", seed=args.seed + 1))))
+        run.prepare(built, model_loss, *(datasets or cls_datasets(args)))
         start_epoch, best_acc = run.restore()
         if args.test is not None:
             return run.evaluate(eval_cls)[0]
@@ -492,7 +526,7 @@ def run_partseg(args, datasets=None) -> Optional[float]:
             ShapeNetPart(args.num_points, args.data_dir, part, args.class_choice,
                          seed) for part, seed in (("trainval", args.seed),
                                                   ("test", args.seed + 1))]
-        run.prepare(built, functools.partial(cal_loss, smoothing=args.smoothing),
+        run.prepare(built, functools.partial(model_loss, smoothing=args.smoothing),
                     *sets)
         start_epoch, best_iou = run.restore()
         if args.test is not None:

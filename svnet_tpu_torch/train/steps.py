@@ -8,7 +8,9 @@ the moments. The step updates both trees in place of the JAX step's new
 state, and leaves each parameter's gradient of the step in ``.grad``.
 Rotation augmentation draws from the step's explicit ``torch.Generator``.
 ``with_label=True`` (part segmentation) hands the batch's one-hot
-category ``label`` to the forward after the points.
+category ``label`` to the forward after the points. A model may return
+``(logits, trans_feat)`` (the original PointNet): the loss takes the
+pair, the predictions and the KD term the logits.
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ from svnet_tpu_torch import config
 from svnet_tpu_torch.ops.rotations import apply_rotation_aug
 from svnet_tpu_torch.train.optim import make_optimizer
 from svnet_tpu_torch.utils.convert import flatten
+
+
+def logits_of(outputs) -> torch.Tensor:
+    """The logits of a model's outputs: logits, or (logits, trans_feat)."""
+    return outputs[0] if isinstance(outputs, tuple) else outputs
 
 
 def tree_map(fn, tree: dict) -> dict:
@@ -86,7 +93,7 @@ class Distiller:
         """The KD term for the student's logits on ``inputs`` (the rotated
         points, and the one-hot label for part segmentation)."""
         with torch.no_grad():
-            teacher = self.model(*inputs)
+            teacher = logits_of(self.model(*inputs))
         T = self.T
         p_t = torch.softmax(teacher / T, dim=-1)
         log_p_s = torch.log_softmax(student_logits / T, dim=-1)
@@ -109,9 +116,10 @@ def make_train_step(apply, loss_fn, rot: str = "aligned",
         inputs = _inputs(batch, rot, generator, with_label)
         for group in state.opt.param_groups:
             group["lr"] = state.schedule(state.step)
-        logits, new_stats = apply(state.params, state.batch_stats, *inputs,
-                                  generator)
-        loss = loss_fn(logits, batch["target"])
+        outputs, new_stats = apply(state.params, state.batch_stats, *inputs,
+                                   generator)
+        loss = loss_fn(outputs, batch["target"])
+        logits = logits_of(outputs)
         if distiller is not None:
             loss = (1 - alpha) * loss + alpha * distiller.loss(logits, *inputs)
         state.opt.zero_grad(set_to_none=True)
@@ -150,7 +158,7 @@ def make_eval_step(model, loss_fn, rot_test: str = "so3",
 
     @torch.no_grad()
     def step(batch, generator):
-        logits = model(*_inputs(batch, rot_test, generator, with_label))
-        return loss_fn(logits, batch["target"]), logits.argmax(dim=-1)
+        outputs = model(*_inputs(batch, rot_test, generator, with_label))
+        return loss_fn(outputs, batch["target"]), logits_of(outputs).argmax(dim=-1)
 
     return step

@@ -3,7 +3,9 @@ svnet_tpu/utils/synth.py::surface_clouds): unit-sphere samples pushed by
 three random Gaussian bump fields, clustered like real surfaces. The same
 seed gives the same clouds as the JAX package's generator. Strand clouds
 (``strand_clouds``): elongated inputs on which the candidate window
-certifies at small N."""
+certifies at small N. Shape clouds (``shape_clouds``): the three classes
+of the JAX package's learning test (tests/test_learning.py), told apart
+by shape alone."""
 
 from __future__ import annotations
 
@@ -41,3 +43,20 @@ def strand_clouds(seed: int, B: int, N: int, C: int = 3,
     if C > 3:
         x[..., 3:] += 0.5 * np.sin(u[..., None] * np.arange(1, C - 2))
     return x.astype(np.float32)
+
+
+def shape_clouds(rng: np.random.Generator, n_per_class: int, N: int):
+    """(3 n_per_class, N, 3) float32 clouds and int64 labels, cycling a
+    sphere's surface (0), a cube's surface (1) and a thin disk (2), drawn
+    from ``rng`` in the order of tests/test_learning.py::_clouds."""
+    clouds, labels = [], []
+    for _ in range(n_per_class):
+        v = rng.standard_normal((N, 3))
+        clouds.append(v / np.linalg.norm(v, axis=1, keepdims=True))
+        u = rng.uniform(-1, 1, (N, 3))
+        ax = rng.integers(0, 3, N)
+        u[np.arange(N), ax] = rng.choice([-1.0, 1.0], N)
+        clouds.append(u)
+        clouds.append(rng.standard_normal((N, 3)) * np.array([1.0, 1.0, 0.02]))
+        labels += [0, 1, 2]
+    return np.stack(clouds).astype(np.float32), np.asarray(labels, dtype=np.int64)

@@ -11,7 +11,10 @@ neighbour sets must agree and at most 1 in 1,000 ids differ; outputs are
 held to f32 summation order on the centres whose neighbour sets agree.
 
 The engines against the JAX engines are in
-tests/test_torch_fast_engines.py.
+tests/test_torch_fast_engines.py; B1's and B2's cases (each a JAX kernel
+compiled in interpret mode) in tests/test_torch_fast_first{16,8}.py and
+tests/test_torch_fast_conv{16,8}.py, files of at most 6 tests (ROADMAP
+"Tier-1 verify").
 """
 
 import contextlib
@@ -179,12 +182,9 @@ FIRST_CASES = [(16, 256, 64, False, 10), (16, 256, 128, True, 10),
                (8, 200, None, True, 16), (8, 256, 128, False, 10)]
 
 
-@pytest.mark.parametrize("bits,n,t,cross,v_out", FIRST_CASES, ids=[
-    f"gb{b}-N{n}-T{t or n}-{'cross' if c else 'xyz'}-v{v}"
-    for b, n, t, c, v in FIRST_CASES])
-def test_round3_first_fast_matches_jax(bits, n, t, cross, v_out):
-    with _gather_bits(bits):
-        _first_case(n, t, cross, v_out)
+def first_ids(cases):
+    return [f"gb{b}-N{n}-T{t or n}-{'cross' if c else 'xyz'}-v{v}"
+            for b, n, t, c, v in cases]
 
 
 def _first_case(n, t, cross, v_out):
@@ -229,11 +229,8 @@ CONV_CASES = [(16, "conv2", 256, 64), (16, "conv4", 256, 128),
               (8, "conv2", 256, 128), (8, "conv4", 200, None)]
 
 
-@pytest.mark.parametrize("bits,name,n,t", CONV_CASES, ids=[
-    f"gb{b}-{name}-N{n}-T{t or n}" for b, name, n, t in CONV_CASES])
-def test_round3_fast_matches_jax(conv_weights, bits, name, n, t):
-    with _gather_bits(bits):
-        _conv_case(*conv_weights, name, n, t)
+def conv_ids(cases):
+    return [f"gb{b}-{name}-N{n}-T{t or n}" for b, name, n, t in cases]
 
 
 def _conv_case(binary, folded, name, n, t):

@@ -278,7 +278,7 @@ def test_entry_points_need_the_card_unless_asked():
 
 def test_partseg_flags():
     """The partseg surface's defaults; ``--dataset shapenetpart`` is ported
-    for partseg and not for cls; another dataset, --dp and --tp still
+    for partseg (and ``scanobjectnn`` for cls); another dataset, --dp and --tp still
     raise NotImplementedError; --preload is ported, and --distill without
     it and --fused on SV-PointNet partseg raise ValueError (C24)."""
     parser = flags.build_parser("partseg", "pointnet")
@@ -295,6 +295,5 @@ def test_partseg_flags():
     for argv in (["--distill"], ["--fused", "--test", "x"]):
         with pytest.raises(ValueError):
             flags.check_ported(parser.parse_args(argv))
-    with pytest.raises(NotImplementedError):
-        flags.check_ported(flags.build_parser().parse_args(
-            ["--dataset", "scanobjectnn"]))
+    flags.check_ported(flags.build_parser().parse_args(
+        ["--dataset", "scanobjectnn"]))

@@ -19,7 +19,10 @@ nonzero beta. Then both SV-DGCNN engines through the round2 trunk against
 the JAX engines, and the refusals.
 
 The engines against the JAX engines are in
-tests/test_torch_round2_modes_engines.py.
+tests/test_torch_round2_modes_engines.py; the rounds' cases (each a JAX
+kernel compiled in interpret mode) in tests/test_torch_round2_modes_first_
+{fast,approx}.py and tests/test_torch_round2_modes_{fast,approx}_{fp,binary}.py,
+files of at most 6 tests (ROADMAP "Tier-1 verify").
 """
 
 import functools
@@ -213,8 +216,8 @@ def cls_folded():
     return out
 
 
-@pytest.mark.parametrize("mode,n,t", CASES, ids=CASE_IDS)
-def test_round2_first_modes_match_jax(cls_folded, mode, n, t):
+def first_modes_case(cls_folded, mode, n, t):
+    """B10b's first round in ``mode`` against the Pallas kernel."""
     folded = cls_folded[False].folded_first
     pts = _rand(n + t, 1, n, 3)
     want = jr2.sv_round2_first(jnp.asarray(pts), _jnp_tree(folded), S_out=32,
@@ -224,9 +227,9 @@ def test_round2_first_modes_match_jax(cls_folded, mode, n, t):
     check_round(got, want, jax_ids(pts, K, t, mode))
 
 
-@pytest.mark.parametrize("binary", [False, True], ids=["fp", "binary"])
-@pytest.mark.parametrize("mode,n,t", CASES, ids=CASE_IDS)
-def test_round2_modes_match_jax(cls_folded, mode, n, t, binary):
+def modes_case(cls_folded, mode, n, t, binary):
+    """B10b's conv round (conv2 binary, conv3 FP) in ``mode`` against the
+    Pallas kernel."""
     eng = cls_folded[binary]
     name = "conv2" if binary else "conv3"
     S, V, S_out, V_out = ROUNDS[name]

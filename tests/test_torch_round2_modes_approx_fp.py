@@ -1,0 +1,22 @@
+"""B10b's FP conv3 round in approx mode against the Pallas
+kernel in interpret mode (the cases and bars of
+tests/test_torch_round2_modes.py)."""
+
+import pytest
+
+from test_torch_round2_modes import (  # noqa: F401
+    CASE_IDS,
+    CASES,
+    _one_torch_thread,
+    cls_folded,
+    modes_case,
+)
+
+IDS = [i for c, i in zip(CASES, CASE_IDS) if c[0] == "approx"]
+
+
+@pytest.mark.parametrize("binary", [False], ids=["fp"])
+@pytest.mark.parametrize("mode,n,t", [c for c in CASES if c[0] == "approx"],
+                         ids=IDS)
+def test_round2_modes_match_jax(cls_folded, mode, n, t, binary):  # noqa: F811
+    modes_case(cls_folded, mode, n, t, binary)
