@@ -305,6 +305,24 @@ and the script exits non-zero:
      trained weights ROADMAP C25's two numbers printed, no bar: the
      float32 exact engine against the float32 eager model, and the
      float64 plain engine against the float64 eager model
+ 31  BiPointNet and PointNet++ (no kernel lies on this path; no counted
+     kernel may launch in it): BiPointNet cls (32, 1024), partseg (32,
+     2048; 50 parts) and semseg (16, 4096, 9; 13 classes) through
+     train.loop.run_cls, run_partseg and run_semseg from memory, float32
+     with TF32 off, 1 warm-up + 10 steps and the eager eval, the median
+     step and the peak device memory printed; one train step of each (a
+     few clouds of the full N) on the card against the same step on the
+     CPU from the same tree, both float64: loss, logits and new running
+     statistics within 1e-8 relative; the float32 card eval of the
+     trained classifier against its float64 card eval, top-1 printed, no
+     bar (C25); the semseg learning check on seeded band rooms (13 height
+     bands; SEMSEG_LEARN: 300 steps of (16, 1024, 9)): the last 5 losses'
+     mean at least 0.2 under the first 5's, point accuracy >= 0.3 (chance
+     1/13); the PointNet++ stacks
+     at the widths of the SSG and MSG classifiers (and FP at the part
+     segmenter's) on (32, 1024) in float64, eval mode, on the card against
+     the CPU on 2 of the clouds: FPS, ball-query and 3-NN ids equal,
+     outputs within 1e-8
 
 Phase 2 also holds B4 and B7 at the VN and original models' widths
 (phase2_zoo, ZOO_ROUNDS): the kNN of each round and the gather of its
@@ -4950,6 +4968,301 @@ def phase30(dev, gen, counters, card):
 
 
 
+# phase 31: BiPointNet's three trainers, (task, --model's CLI, B, N, channels)
+BI_RUNS = (("cls", B_TRAIN, N, 3), ("partseg", B_PSEG, N_PSEG, 3),
+           ("semseg", 16, 4096, 9))
+BI_TWIN_B = 4  # clouds of the full N in the float64 card-against-CPU step
+SEMSEG_LEARN = (16, 1024, 300)  # the learning check: B, N, steps
+# PointNet++ at the widths of the SSG and MSG classifiers and of the part
+# segmenter's feature propagation (Qi et al., NeurIPS 2017)
+SSG = ((512, 0.2, 32, (64, 64, 128)), (128, 0.4, 64, (128, 128, 256)),
+       (None, None, None, (256, 512, 1024)))
+MSG = (512, (0.1, 0.2, 0.4), (16, 32, 128), ((32, 32, 64), (64, 64, 128),
+                                             (64, 96, 128)))
+FP_WIDTHS = ((256, 256), (256, 128), (128, 128, 128))
+
+
+def bi_datasets(task, b, n, steps):
+    """(train, test) in memory for ``task``: ``steps`` batches of seeded
+    surface clouds (cls: 40 classes; partseg: categories and their parts)
+    or band rooms (semseg), and one test batch."""
+    import numpy as np
+
+    from svnet_tpu_torch.data import (ArrayDataset, PartArrayDataset,
+                                      RoomArrayDataset)
+    from svnet_tpu_torch.train.metrics import INDEX_START, SEG_NUM
+    from svnet_tpu_torch.utils.synth import band_rooms, surface_clouds
+
+    rng = np.random.default_rng(SEED + 100)
+    out = []
+    for i, m in enumerate((steps * b, b)):
+        if task == "semseg":
+            rooms, labels = band_rooms(SEED + 100 + i, m, n)
+            out.append(RoomArrayDataset(rooms, labels, n, train=i == 0, seed=SEED))
+        elif task == "cls":
+            out.append(ArrayDataset(surface_clouds(SEED + 100 + i, m, n),
+                                    rng.integers(0, CLASSES, m), train=i == 0))
+        else:
+            cat = rng.integers(0, 16, m)
+            seg = np.stack([INDEX_START[k] + rng.integers(0, SEG_NUM[k], n)
+                            for k in cat])
+            out.append(PartArrayDataset(surface_clouds(SEED + 100 + i, m, n), cat,
+                                        seg, shuffle=i == 0))
+    return out
+
+
+def bi_args(task, b, n, dev, save):
+    """The CLI's arguments of ``task`` for BiPointNet (the JAX CLIs'
+    defaults but the batch, the points, one epoch and the device)."""
+    from svnet_tpu_torch.cli.flags import build_parser
+    from svnet_tpu_torch.cli.main_semseg import build_parser as semseg_parser
+
+    common = ["--epochs", "1", "--batch-size", str(b), "--num-points", str(n),
+              "--device", str(dev), "--save-dir", save]
+    if task == "semseg":
+        return semseg_parser().parse_args(common)
+    return build_parser(task, "pointnet").parse_args(
+        ["--model", "bipointnet", "--num-workers", "0", *common])
+
+
+def bi_step_twin(tag, model, batch, task, dev):
+    """One train step (forward in train mode, the loss and its gradients)
+    of ``model``'s function on the card and on the CPU from the same tree
+    and the first BI_TWIN_B clouds of ``batch``, both float64: loss,
+    logits and new running statistics within 1e-8 relative (the
+    gradients' relative error over all leaves printed: a bias before a
+    train-mode BatchNorm has a gradient of 0 up to rounding, so a leaf's
+    own relative error says nothing there)."""
+    import torch
+
+    from svnet_tpu_torch.train.losses import model_loss
+    from svnet_tpu_torch.train.steps import tree_map
+    from svnet_tpu_torch.utils.convert import flatten, module_tree
+
+    tree = module_tree(model)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.detach().to(d, torch.float64).clone()
+                          .requires_grad_(True), tree["params"])
+        stats = tree_map(lambda t: t.to(d, torch.float64), tree["batch_stats"])
+        inputs = [batch["points"][:BI_TWIN_B].to(d, torch.float64)]
+        if task == "partseg":
+            inputs.append(batch["label"][:BI_TWIN_B].to(d, torch.float64))
+        (logits, trans_feat), new = model.make_train_apply()(params, stats, *inputs)
+        loss = model_loss((logits, trans_feat), batch["target"][:BI_TWIN_B].to(d),
+                          task == "cls")
+        loss.backward()
+        res.append((loss.item(), logits.detach().cpu(),
+                    {p: v.cpu() for p, v in flatten(new).items()},
+                    {p: v.grad.cpu() for p, v in flatten(params).items()}))
+    (lk, xk, sk, gk), (lc, xc, sc, gc) = res
+
+    def rel(a, b):
+        return float((a - b).norm() / (b.norm() + 1e-300))
+
+    worst_st = max(rel(sk[p], v) for p, v in sc.items())
+    grads = rel(torch.cat([gk[p].flatten() for p in sorted(gc)]),
+                torch.cat([gc[p].flatten() for p in sorted(gc)]))
+    log(f"{tag}: one float64 train step of {BI_TWIN_B} clouds, card against CPU: "
+        f"loss {lk:.12f} vs {lc:.12f}; logits relative error {rel(xk, xc):.3g}; "
+        f"running stats worst {worst_st:.3g}; gradients {grads:.3g}")
+    if abs(lk - lc) > 1e-8 * abs(lc) or rel(xk, xc) > 1e-8 or worst_st > 1e-8:
+        raise AssertionError(f"{tag}: card and CPU float64 steps differ")
+
+
+def semseg_learning(dev, card):
+    """BiPointNet semseg on band rooms (SEMSEG_LEARN: B, N, steps; one
+    test batch), the dgcnn recipe's Adam over the steps, no rotation:
+    the last 5 losses' mean at least 0.2 under the first 5's, point
+    accuracy >= 0.3 (chance 1/13)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.data import Loader, RoomArrayDataset
+    from svnet_tpu_torch.models import BiPointNetSemseg
+    from svnet_tpu_torch.train.loop import eval_batches
+    from svnet_tpu_torch.train.losses import model_loss
+    from svnet_tpu_torch.train.steps import (create_state, make_eval_step,
+                                             make_train_step)
+    from svnet_tpu_torch.utils.convert import load_tree, module_tree
+    from svnet_tpu_torch.utils.synth import band_rooms
+
+    b, n, steps = SEMSEG_LEARN
+    t0 = time.perf_counter()
+    x, y = band_rooms(SEED + 110, 8 * b, n)
+    xt, yt = band_rooms(SEED + 111, b, n)
+    train = Loader(RoomArrayDataset(x, y, n, train=True, seed=SEED), b, shuffle=True,
+                   drop_last=True, seed=SEED, device=dev)
+    test = Loader(RoomArrayDataset(xt, yt, n), b, device=dev)
+    model = BiPointNetSemseg(generator=torch.Generator().manual_seed(SEED + 112))
+    model.init_on(next(iter(test))["points"].cpu(),
+                  generator=torch.Generator().manual_seed(SEED + 112))
+    apply = model.make_train_apply()
+    state = create_state(module_tree(model), binary=True, lr=1e-3,
+                         epochs=-(-steps // len(train)), steps_per_epoch=len(train),
+                         recipe="dgcnn", device=dev)
+    loss_fn = functools.partial(model_loss, smoothing=False)
+    step = make_train_step(apply, loss_fn, rot="aligned")
+    g = torch.Generator().manual_seed(SEED + 113)
+    losses = []
+    while len(losses) < steps:
+        for batch in train:
+            losses.append(step(state, batch, g)[0])
+            if len(losses) == steps:
+                break
+    losses = [float(v) for v in losses]
+    model = model.to(dev).eval()
+    load_tree(model, state.tree())
+    _, y_true, y_pred, _ = eval_batches(make_eval_step(model, loss_fn, "aligned"),
+                                        test, g)
+    acc = float((y_true == y_pred).mean())
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"phase 31 learning: BiPointNet semseg on band rooms ({b}, {n}, 9), {steps} "
+        f"steps: loss first 5 {first:.6f}, last 5 {last:.6f}; point acc {acc:.6f} "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+    if not (last < first - 0.2 and acc >= 0.3):
+        raise AssertionError(f"phase 31 learning: losses {first} -> {last}, acc {acc}")
+
+
+def pointnet2_stacks(dev, card):
+    """The PointNet++ stacks (SSG, MSG, FP_WIDTHS) on seeded surface clouds
+    (B_TRAIN, N) in float64, eval mode (running statistics bumped), on the
+    card for all clouds and on the CPU for the first 2: every FPS,
+    ball-query and 3-NN id equal, every output within 1e-8 relative.
+    Returns the card's seconds."""
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch.nn import pointnet2 as p2
+    from svnet_tpu_torch.nn.scope import Scope, init_tree
+    from svnet_tpu_torch.ops import sampling
+    from svnet_tpu_torch.train.steps import tree_map
+    from svnet_tpu_torch.utils.synth import surface_clouds
+
+    def stacks(s, xyz):
+        """(outputs, ids) of SSG -> FP and of the MSG layer."""
+        outs, ids, l_xyz, l_pts = [], [], [xyz], [None]
+        for i, (npoint, radius, nsample, mlp) in enumerate(SSG):
+            x, pts = l_xyz[-1], l_pts[-1]
+            if npoint is not None:
+                fps = sampling.farthest_point_sample(x, npoint)
+                ids += [fps, sampling.query_ball_point(
+                    radius, nsample, x, sampling.index_points(x, fps))]
+            new_xyz, new_pts = p2.set_abstraction(
+                s.child(f"sa{i}"), x, pts, npoint, radius, nsample, mlp,
+                group_all=npoint is None)
+            l_xyz.append(new_xyz)
+            l_pts.append(new_pts)
+            outs.append(new_pts)
+        up = l_pts[-1]
+        for j, mlp in enumerate(FP_WIDTHS):
+            lo = len(SSG) - 1 - j  # dense level
+            if l_xyz[lo + 1].shape[1] > 1:
+                ids.append(p2.three_nn(l_xyz[lo], l_xyz[lo + 1])[1])
+            up = p2.feature_propagation(s.child(f"fp{j}"), l_xyz[lo], l_xyz[lo + 1],
+                                        l_pts[lo], up, mlp)
+            outs.append(up)
+        npoint, radii, counts, mlps = MSG
+        new_xyz, msg = p2.set_abstraction_msg(s.child("msg"), xyz, None, npoint,
+                                              radii, counts, mlps)
+        centres = sampling.index_points(xyz, sampling.farthest_point_sample(xyz, npoint))
+        ids += [sampling.query_ball_point(r, k, xyz, centres)
+                for r, k in zip(radii, counts)]
+        return outs + [new_xyz, msg], ids
+
+    xyz = torch.from_numpy(surface_clouds(SEED + 120, B_TRAIN, N)).double()
+    tree = init_tree(stacks, (xyz[:2],), {}, torch.Generator().manual_seed(SEED + 121))
+    tree["batch_stats"] = tree_map(lambda v: v + 0.3 * v.abs() + 0.05,
+                                   tree["batch_stats"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got, got_ids = stacks(Scope(tree_map(lambda v: v.to(dev), tree)), xyz.to(dev))
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        want, want_ids = stacks(Scope(tree), xyz[:2])
+    for i, (g, w) in enumerate(zip(got_ids, want_ids)):
+        if not torch.equal(g[:2].cpu(), w):
+            raise AssertionError(f"phase 31 PointNet++: ids {i} differ, card and CPU")
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g[:2].cpu()
+        worst = max(worst, float((g - w).norm() / (w.norm() + 1e-300)))
+    log(f"phase 31 PointNet++: SSG {[m for *_, m in SSG]}, MSG {list(MSG[3])}, FP "
+        f"{list(FP_WIDTHS)} on ({B_TRAIN}, {N}) float64: {len(got_ids)} id tensors "
+        f"equal, outputs worst relative error {worst:.3g} (card {t_card:.2f} s) "
+        f"| {card}")
+    if worst > 1e-8:
+        raise AssertionError(f"phase 31 PointNet++: outputs off by {worst}")
+    return t_card
+
+
+def phase31(dev, counters, card, tmp):
+    """BiPointNet through its three trainers, its float64 twins, the
+    semseg learning check and the PointNet++ stacks (the module docstring,
+    phase 31). No counted kernel launches. Returns {task: (median ms,
+    peak bytes)}."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from svnet_tpu_torch import config
+    from svnet_tpu_torch.data import Loader
+    from svnet_tpu_torch.models import BiPointNetCls, BiPointNetPseg, BiPointNetSemseg
+    from svnet_tpu_torch.train import loop
+    from svnet_tpu_torch.utils.convert import load_tree
+
+    config.set_full_fp32()
+    models = {"cls": lambda: BiPointNetCls(CLASSES),
+              "partseg": lambda: BiPointNetPseg(PARTS), "semseg": BiPointNetSemseg}
+    out = {}
+    for task, b, n, c in BI_RUNS:
+        t0 = time.perf_counter()
+        train, test = bi_datasets(task, b, n, TRAIN_STEPS + 1)
+        args = bi_args(task, b, n, dev, f"{tmp}/bi_{task}")
+        run = {"cls": loop.run_cls, "partseg": loop.run_partseg,
+               "semseg": loop.run_semseg}[task]
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with echo_captured() as text:
+            metric = run(args, datasets=(train, test))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launched = {fn.__name__: fn.launches for fn in counters if fn.launches}
+        median = float(re.findall(r"median step ([0-9.]+) ms", text.getvalue())[-1])
+        loss = float(re.findall(r"TRAIN: loss ([0-9.naif]+)", text.getvalue())[-1])
+        log(f"phase 31 {task}: BiPointNet through loop.run_{task} from memory, "
+            f"({b}, {n}, {c}), {TRAIN_STEPS + 1} steps: train loss {loss:.6f}, test "
+            f"metric {metric:.6f}; step median {median:.3f} ms; peak device memory "
+            f"{peak / 2**30:.3f} GiB ({time.perf_counter() - t0:.1f} s) | {card}")
+        if launched or not np.isfinite(loss):
+            raise AssertionError(f"phase 31 {task}: kernels launched {launched}, "
+                                 f"loss {loss}")
+        out[task] = (median, peak)
+        # the float64 twin step, from the trained checkpoint's tree
+        model = models[task]()
+        load_tree(model, loop.read_weights(
+            f"{tmp}/bi_{task}/save_models/model_best.ckpt", "cpu"))
+        batch = next(iter(Loader(test, b, device=dev)))
+        bi_step_twin(f"phase 31 {task}", model, batch, task, dev)
+        if task == "cls":  # C25: float32 against float64 eval on the card
+            m32 = model.to(dev).eval()
+            with torch.no_grad():
+                top32 = m32(batch["points"])[0].argmax(-1)
+                top64 = m32.double()(batch["points"].double())[0].argmax(-1)
+            log(f"phase 31 C25: trained BiPointNet cls, float32 card eval against "
+                f"float64 card eval: top-1 agreement "
+                f"{float((top32 == top64).float().mean()):.6f} ({b} clouds) | {card}")
+        del model
+        torch.cuda.empty_cache()
+    semseg_learning(dev, card)
+    pointnet2_stacks(dev, card)
+    return out
+
+
 def pseg_test_set():
     """2 batches of seeded surface clouds (B_TRAIN, N_PSEG) with random
     categories and part ids inside each category's range, unshuffled."""
@@ -5251,6 +5564,11 @@ def main() -> int:
     t0 = time.perf_counter()
     learn_secs = phase30(dev, gen, counters, card)
     t_new["30"] = time.perf_counter() - t0
+    # phase 31: BiPointNet's trainers, PointNet++
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bi = phase31(dev, counters, card, tmp)
+    t_new["31"] = time.perf_counter() - t0
     for tag, _, rounds in ZOO_ROUNDS:
         launches[f"knn {tag}"] = zoo[tag][0]["knn"]
         launches[f"edge_gather_fwd {tag}"] = zoo[tag][0]["edge_gather_fwd"]
@@ -5412,6 +5730,10 @@ def main() -> int:
         + "; ".join(f"{tag} {med:.3f} / {peak / 2**30:.3f}"
                     for tag, (_, med, peak) in zoo.items())
         + f" | {card}")
+    log("phase 31: BiPointNet train steps median (ms) / peak (GiB): "
+        + "; ".join(f"{task} {med:.3f} / {peak / 2**30:.3f}"
+                    for task, (med, peak) in bi.items())
+        + f"; phase 31 took {t_new['31']:.1f} s | {card}")
     log(f"phase 2 zoo {t_zoo2:.1f} s; phase 28 {t_new['28']:.1f} s, phase 29 "
         f"{t_new['29']:.1f} s, phase 30 {t_new['30']:.1f} s ((a) "
         f"{learn_secs[0]:.1f} s, (b) {learn_secs[1]:.1f} s)")

@@ -3,12 +3,13 @@ svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
 Every flag of the JAX surface parses; ``check_ported`` raises
 ``NotImplementedError`` for a flag whose feature the port does not have
-yet (BiPointNet, the mesh, profiling, NaN debugging, other datasets)
-and ``ValueError`` for a ported flag that would not act where it is given
+yet (the mesh, profiling, NaN debugging, other datasets) and
+``ValueError`` for a ported flag that would not act where it is given
 (``check_acts``, ROADMAP C24), where the JAX CLI ignores it. The ported
-models are SV, VN and the original families; the ported datasets are
-ModelNet40 and ScanObjectNN for classification and ShapeNetPart for part
-segmentation.
+models are the SV, VN, original and BiPointNet families (BiPointNet on
+the PointNet backbone); the ported datasets are ModelNet40 and
+ScanObjectNN for classification, ShapeNetPart for part segmentation and
+S3DIS for semantic segmentation (``cli/main_semseg.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import argparse
 
 # flag -> value that means "off"; any other value is not ported yet
 _NOT_PORTED = {"profile_dir": None, "debug_nans": False, "dp": 1, "tp": 1}
-PORTED_MODELS = ("svnet", "vn", "original")
+PORTED_MODELS = ("svnet", "vn", "original", "bipointnet")
 # the serving knobs, which act through --fused eval's engines (and three of
 # them through --train-knobs): flag -> value that means "not given"
 SERVING_KNOBS = {"engine_mode": "exact", "approx_fold": 0,
@@ -27,7 +28,7 @@ SERVING_KNOBS = {"engine_mode": "exact", "approx_fold": 0,
 TRAIN_KNOBS = ("graph_reuse", "reuse_k", "approx_gather_bits")
 # the datasets each task's port reads
 PORTED_DATASETS = {"cls": ("modelnet40", "scanobjectnn"),
-                   "partseg": ("shapenetpart",)}
+                   "partseg": ("shapenetpart",), "semseg": ("s3dis",)}
 
 
 def build_parser(task: str = "cls", backbone: str = "dgcnn") -> argparse.ArgumentParser:
@@ -141,10 +142,15 @@ def check_acts(args) -> None:
     ``--test``; ``--preload`` without ``--distill``, or ``--distill``'s
     student init, beside ``--test`` or ``--resume-from``, which overwrite
     what it loaded; ``--pooling max`` off ``--model vn``; ``--subset`` off
-    ScanObjectNN; ``--fused`` off the SV models, which alone have engines."""
+    ScanObjectNN; ``--fused`` off the SV models, which alone have engines;
+    ``--binary`` on BiPointNet, which is binary whatever it says (its
+    semantic-segmentation CLI sets it, as JAX's does)."""
     dgcnn = args.backbone == "dgcnn"
     if args.pooling != "mean" and args.model != "vn":
         raise ValueError(f"--pooling {args.pooling} acts on --model vn only")
+    if args.binary and args.model == "bipointnet" and args.task != "semseg":
+        raise ValueError("--binary does not act on --model bipointnet: its "
+                         "linears are binary always")
     if args.subset is not None and args.dataset != "scanobjectnn":
         raise ValueError("--subset acts on --dataset scanobjectnn only")
     if args.fused and args.model != "svnet":
@@ -192,8 +198,7 @@ def check_ported(args) -> None:
                 "svnet_tpu_torch")
     if args.model not in PORTED_MODELS:
         raise NotImplementedError(
-            f"--model {args.model} is not ported to svnet_tpu_torch yet "
-            "(ROADMAP Queue A item 9)")
+            f"--model {args.model} is not ported to svnet_tpu_torch")
     if args.dataset not in PORTED_DATASETS[getattr(args, "task", "cls")]:
         raise NotImplementedError(
             f"--dataset={args.dataset!r} is not ported to svnet_tpu_torch")

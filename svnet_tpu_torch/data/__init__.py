@@ -3,6 +3,8 @@ from svnet_tpu_torch.data.datasets import (  # noqa: F401
     ModelNet40,
     ModelNet40_v2,
     PartArrayDataset,
+    RoomArrayDataset,
+    S3DIS,
     ScanArrayDataset,
     ScanObjectNNCls,
     ShapeNetPart,

@@ -1,18 +1,20 @@
-"""Classification and part-segmentation datasets (counterpart of
-svnet_tpu/data/datasets.py): indexable objects over in-memory numpy
-arrays, items ``(points (n, 3) float32, label int)`` or, for part
-segmentation, ``(points, category int, seg (n,) int64)``. Batching, and
-the move to the device, is the Loader's.
+"""Classification, part- and semantic-segmentation datasets (counterpart
+of svnet_tpu/data/datasets.py): indexable objects over in-memory numpy
+arrays, items ``(points (n, 3) float32, label int)``, for part
+segmentation ``(points, category int, seg (n,) int64)``, for semantic
+segmentation ``(points (n, 9), seg (n,) int64)``. Batching, and the move
+to the device, is the Loader's.
 
 ``ModelNet40``, ``ShapeNetPart`` and ``ScanObjectNNCls`` read the
 standard HDF5 packagings (``<data_dir>/modelnet40*hdf5_2048/*{partition}*.h5``,
 ``<data_dir>/shapenet*hdf5*/*{partition}*.h5``,
-``<data_dir>/h5_files/main_split/<subset file>``); ``h5py`` is imported
-only when a file is read. ``ArrayDataset``, ``ScanArrayDataset`` and
-``PartArrayDataset`` serve clouds already in memory (synthetic or loaded
-by the caller) with the same item contracts. ``ModelNet40_v2`` reads the
-raw-text packaging, optionally sampled by farthest-point sampling on a
-device.
+``<data_dir>/h5_files/main_split/<subset file>``), and ``S3DIS`` its
+rooms (``<data_dir>/indoor3d_sem_seg_hdf5_data``); ``h5py`` is imported
+only when a file is read. ``ArrayDataset``, ``ScanArrayDataset``,
+``PartArrayDataset`` and ``RoomArrayDataset`` serve clouds already in
+memory (synthetic or loaded by the caller) with the same item contracts.
+``ModelNet40_v2`` reads the raw-text packaging, optionally sampled by
+farthest-point sampling on a device.
 """
 
 from __future__ import annotations
@@ -283,3 +285,58 @@ class ModelNet40_v2:
         if len(self.cache) < self.cache_size:
             self.cache[index] = item
         return item
+
+
+class RoomArrayDataset:
+    """S3DIS rooms (M, n, 9) and per-point labels (M, n) in memory, items
+    ``(points (num_points, 9) float32, seg (num_points,) int64)``: each
+    room's first ``num_points`` points, and (train) a permutation of them
+    and their labels together, drawn from one numpy generator."""
+
+    num_classes = 13
+
+    def __init__(self, data: np.ndarray, seg: np.ndarray, num_points: int,
+                 train: bool = False, seed: int = 0):
+        self.data = np.asarray(data, dtype=np.float32)
+        self.seg = np.asarray(seg)
+        self.num_points = num_points
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, item):
+        pointcloud = self.data[item][: self.num_points]
+        seg = self.seg[item][: self.num_points]
+        if self.train:
+            idx = self.rng.permutation(pointcloud.shape[0])
+            pointcloud, seg = pointcloud[idx], seg[idx]
+        return pointcloud, seg.astype("int64")
+
+
+class S3DIS(RoomArrayDataset):
+    """S3DIS semantic segmentation from the HDF5 packaging
+    (``<data_dir>/indoor3d_sem_seg_hdf5_data/all_files.txt`` lists the
+    files, relative to ``data_dir``; ``room_filelist.txt`` names each
+    room): the rooms of ``Area_<test_area>`` are the test partition, the
+    others the train one."""
+
+    def __init__(self, num_points: int = 4096, data_dir: str = "data",
+                 partition: str = "train", test_area: str = "1", seed: int = 0):
+        h5py = _h5py()
+        d = os.path.join(data_dir, "indoor3d_sem_seg_hdf5_data")
+        with open(os.path.join(d, "all_files.txt")) as f:
+            all_files = [line.rstrip() for line in f]
+        with open(os.path.join(d, "room_filelist.txt")) as f:
+            rooms = [line.rstrip() for line in f]
+        data, seg = [], []
+        for fpath in all_files:
+            with h5py.File(os.path.join(data_dir, fpath), "r") as f:
+                data.append(f["data"][:])
+                seg.append(f["label"][:])
+        area = f"Area_{test_area}"
+        idx = [i for i, r in enumerate(rooms) if (area in r) != (partition == "train")]
+        super().__init__(np.concatenate(data)[idx], np.concatenate(seg)[idx],
+                         num_points, partition == "train", seed)
+        self.partition = partition

@@ -4,9 +4,11 @@ int64 tensors on ``device`` (the card unless the caller asks for the
 CPU), plus ``pad`` and ``size``. A part-segmentation dataset's batch
 (items ``(points, category, seg)``) also holds ``label``, the (B, 16)
 float32 one-hot of the category, and ``category`` (B,); its ``target`` is
-the per-point part ids ``seg`` (B, n). ``num_workers > 0`` assembles batches
-in one producer thread ahead of the consumer; the order and the random
-draws are the same either way."""
+the per-point part ids ``seg`` (B, n). A semantic-segmentation batch
+(items ``(points (n, 9), seg (n,))``) has ``points`` (B, n, 9) and the
+per-point ``target`` (B, n), and no ``label`` or ``category``.
+``num_workers > 0`` assembles batches in one producer thread ahead of the
+consumer; the order and the random draws are the same either way."""
 
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ class Loader:
 
     def _collate(self, items, pad):
         points = np.stack([it[0] for it in items]).astype("float32")
+        # a class per item, or (semantic segmentation) a label per point
         target = np.asarray([it[1] for it in items], dtype=np.int64)
         batch = {"points": points, "target": target, "pad": pad,
                  "size": len(items) - pad}

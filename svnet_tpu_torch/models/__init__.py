@@ -1,8 +1,15 @@
-"""The model zoo: SV / VN / original x PointNet / DGCNN x cls / partseg,
+"""The model zoo: SV / VN / original / BiPointNet x PointNet / DGCNN x
+cls / partseg (BiPointNet: PointNet only, and its semantic segmenter),
 and ``get_model``, keyed on the CLI's ``--model`` flag (counterpart of
-svnet_tpu/models/__init__.py). BiPointNet is not ported yet (ROADMAP
-Queue A item 9)."""
+svnet_tpu/models/__init__.py)."""
 
+from svnet_tpu_torch.models.bipointnet import (  # noqa: F401
+    BiPointNetCls,
+    BiPointNetLSREMax,
+    BiPointNetPartSegLSREMax,
+    BiPointNetPseg,
+    BiPointNetSemseg,
+)
 from svnet_tpu_torch.models.dgcnn import DGCNNCls, DGCNNPseg
 from svnet_tpu_torch.models.pointnet import PointNetCls, PointNetPseg
 from svnet_tpu_torch.models.sv_dgcnn import (  # noqa: F401
@@ -22,23 +29,21 @@ from svnet_tpu_torch.models.vn_pointnet import VNPointNetCls, VNPointNetPseg
 _REGISTRY = {
     "cls": {"svnet": {"pointnet": SVPointNetCls, "dgcnn": SVDGCNNCls},
             "vn": {"pointnet": VNPointNetCls, "dgcnn": VNDGCNNCls},
-            "original": {"pointnet": PointNetCls, "dgcnn": DGCNNCls}},
+            "original": {"pointnet": PointNetCls, "dgcnn": DGCNNCls},
+            "bipointnet": {"pointnet": BiPointNetCls}},
     "partseg": {"svnet": {"pointnet": SVPointNetPseg, "dgcnn": SVDGCNNPseg},
                 "vn": {"pointnet": VNPointNetPseg, "dgcnn": VNDGCNNPseg},
-                "original": {"pointnet": PointNetPseg, "dgcnn": DGCNNPseg}},
+                "original": {"pointnet": PointNetPseg, "dgcnn": DGCNNPseg},
+                "bipointnet": {"pointnet": BiPointNetPseg}},
 }
 
 
 def get_model(task: str, backbone: str, model: str, **kwargs):
     """The eager eval model of (task 'cls' | 'partseg', backbone
-    'pointnet' | 'dgcnn', model 'svnet' | 'vn' | 'original'), built with
-    ``kwargs`` (num_classes or num_part, k, generator; binary for svnet,
-    pooling for vn). 'bipointnet' raises ``NotImplementedError``."""
-    if model == "bipointnet":
-        raise NotImplementedError(
-            "--model bipointnet is not ported to svnet_tpu_torch yet "
-            "(ROADMAP Queue A item 9: nn/bipointnet_layers.py, "
-            "models/bipointnet.py)")
+    'pointnet' | 'dgcnn', model 'svnet' | 'vn' | 'original' |
+    'bipointnet'), built with ``kwargs`` (num_classes or num_part, k,
+    generator; binary for svnet, pooling for vn); a pair with no model
+    (BiPointNet on DGCNN) raises ``ValueError``."""
     registry = _REGISTRY[task]
     try:
         cls = registry[model][backbone]

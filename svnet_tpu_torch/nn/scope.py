@@ -8,7 +8,10 @@ the submodule ``name``, ``scope.param`` a parameter leaf. One function
 serves three modes:
 
 - init (``init_tree``): the leaves are drawn from a ``torch.Generator``
-  as they are first asked for, shaped from the inputs, on a tiny input;
+  as they are first asked for, shaped from the inputs, on a tiny input or
+  on the caller's batch (``ScopedModel.init_on``: a leaf drawn from the
+  data it sees, BiPointNet's LSR ``scale``), BatchNorm on its initial
+  running statistics, as flax ``init`` runs;
 - eval (``ScopedModel.forward``): BatchNorm reads the running statistics;
 - train (``ScopedModel.make_train_apply``): BatchNorm normalizes with the
   batch statistics and records the new running statistics (``BN_MOM`` of
@@ -28,7 +31,7 @@ from torch import nn
 
 from svnet_tpu_torch.config import BN_EPS
 from svnet_tpu_torch.nn import sv_train as svt
-from svnet_tpu_torch.utils.convert import nest
+from svnet_tpu_torch.utils.convert import load_tree, nest
 
 
 class Scope:
@@ -39,32 +42,42 @@ class Scope:
     def __init__(self, tree: dict, *, train: bool = False,
                  generator: torch.Generator | None = None, plain: bool = False,
                  init: torch.Generator | None = None, path: tuple = (),
-                 new: dict | None = None):
+                 new: dict | None = None, like: torch.Tensor | None = None):
         self.tree, self.train, self.generator = tree, train, generator
         self.plain, self.init, self.path = plain, init, path
         self.new = {} if new is None else new
+        self.like = like  # init: the drawn leaves take its device and dtype
 
     def child(self, name: str) -> "Scope":
         return Scope(self.tree, train=self.train, generator=self.generator,
                      plain=self.plain, init=self.init, path=self.path + (name,),
-                     new=self.new)
+                     new=self.new, like=self.like)
 
     def _node(self, root: dict) -> dict:
         for name in self.path:
             root = root.setdefault(name, {}) if self.init is not None else root[name]
         return root
 
+    def _leaf(self, value: torch.Tensor) -> torch.Tensor:
+        if self.like is None:
+            return value
+        return value.to(self.like.device, self.like.dtype)
+
     def param(self, name: str, shape: tuple, draw) -> torch.Tensor:
-        """The leaf ``name``; in init mode ``draw(shape, generator)`` first."""
+        """The leaf ``name``; in init mode ``draw(shape, generator)`` first
+        (a leaf already in the tree is kept)."""
         node = self._node(self.tree["params"])
         if self.init is not None and name not in node:
-            node[name] = draw(shape, self.init)
+            node[name] = self._leaf(draw(shape, self.init))
         return node[name]
 
-    def stat(self, name: str, fill: float, size: int) -> torch.Tensor:
+    def stat(self, name: str, fill: float, size: int | tuple) -> torch.Tensor:
+        """The running statistic ``name`` of ``size`` (a width or a shape),
+        ``fill`` at init."""
         node = self._node(self.tree["batch_stats"])
         if self.init is not None and name not in node:
-            node[name] = torch.full((size,), fill)
+            shape = size if isinstance(size, tuple) else (size,)
+            node[name] = self._leaf(torch.full(shape, float(fill)))
         return node[name]
 
     def record(self, stats: dict) -> None:
@@ -90,13 +103,18 @@ def linear(s: Scope, x: torch.Tensor, features: int,
     return y
 
 
-def batch_norm(s: Scope, x: torch.Tensor) -> torch.Tensor:
-    """svl.BatchNorm (flax ``nn.BatchNorm`` named ``bn`` under ``s``) over
-    the last axis, statistics over all leading axes."""
-    s = s.child("bn")
+def batch_norm(s: Scope, x: torch.Tensor, affine: bool = True,
+               name: str = "bn") -> torch.Tensor:
+    """svl.BatchNorm (flax ``nn.BatchNorm`` named ``name`` under ``s``,
+    momentum 0.9, epsilon 1e-5) over the last axis, statistics over all
+    leading axes. ``affine=False``: no ``scale`` or ``bias`` leaf
+    (``use_scale``/``use_bias`` False)."""
+    s = s.child(name)
     c = x.shape[-1]
-    p = {"scale": s.param("scale", (c,), lambda shape, g: torch.ones(shape)),
-         "bias": s.param("bias", (c,), lambda shape, g: torch.zeros(shape))}
+    p = {"scale": 1.0, "bias": 0.0}
+    if affine:
+        p = {"scale": s.param("scale", (c,), lambda shape, g: torch.ones(shape)),
+             "bias": s.param("bias", (c,), lambda shape, g: torch.zeros(shape))}
     st = {"mean": s.stat("mean", 0.0, c), "var": s.stat("var", 1.0, c)}
     if s.train:
         y, new = svt.bn_train(p, st, x)
@@ -115,13 +133,15 @@ def dropout(s: Scope, x: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 def init_tree(fn, inputs: tuple, config: dict,
-              generator: torch.Generator | None) -> dict:
-    """``fn``'s weight tree, drawn from ``generator`` on ``inputs``:
-    BatchNorm scale 1, bias 0, running mean 0, var 1."""
-    tree = {"params": {}, "batch_stats": {}}
+              generator: torch.Generator | None, tree: dict | None = None) -> dict:
+    """``fn``'s weight tree, drawn from ``generator`` on ``inputs`` (the
+    leaves on the first input's device and in its dtype): BatchNorm scale
+    1, bias 0, running mean 0, var 1. The leaves of a given ``tree`` are
+    kept and only the missing ones drawn."""
+    tree = {"params": {}, "batch_stats": {}} if tree is None else tree
     with torch.no_grad():
-        fn(Scope(tree, init=generator or torch.Generator().manual_seed(0)),
-           *inputs, **config)
+        fn(Scope(tree, init=generator or torch.Generator().manual_seed(0),
+                 like=inputs[0]), *inputs, **config)
     return tree
 
 
@@ -149,18 +169,29 @@ class ScopedModel(nn.Module):
 
     forward_fn = None
     with_label = False
+    in_channels = 3  # the width of a point (S3DIS rooms: 9)
+    data_init = False  # True: a leaf is drawn from the data (init_on)
     oracle = False  # True: the plain kNN and gather on any device
 
     def __init__(self, generator: torch.Generator | None = None, **config):
         super().__init__()
         self.config = config
         # the widths do not depend on N or k: a tiny cloud draws the tree
-        n = max(config.get("k", 1), 2)
-        inputs = (torch.linspace(0, 1, 3 * n).reshape(1, n, 3).expand(2, n, 3),)
+        n, c = max(config.get("k", 1), 2), self.in_channels
+        inputs = (torch.linspace(0, 1, c * n).reshape(1, n, c).expand(2, n, c),)
         if self.with_label:
             inputs += (torch.eye(16)[:2],)
         tree = init_tree(type(self).forward_fn, inputs, config, generator)
         _register(self, tree["params"], tree["batch_stats"])
+
+    def init_on(self, *inputs, generator: torch.Generator | None = None) -> None:
+        """Redraw the weights on the caller's batch (points[, label]), as
+        flax ``init`` on it: the same draws from ``generator`` (seed it as
+        the constructor's was), and the leaves drawn from the data
+        (``data_init`` models) from what each layer sees there. The
+        JAX trainers init on their first test batch."""
+        tree = init_tree(type(self).forward_fn, inputs, self.config, generator)
+        load_tree(self, tree)
 
     def forward(self, *inputs):
         tree = {"params": nest(dict(self.named_parameters())),

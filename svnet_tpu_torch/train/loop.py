@@ -1,15 +1,18 @@
-"""Classification and part-segmentation training loops (counterpart of
-svnet_tpu/train/loop.py::run_cls and run_partseg: the SV, VN and original
-families of PointNet and DGCNN on ModelNet40 or ScanObjectNN and on
-ShapeNetPart, train path).
+"""Classification, part- and semantic-segmentation training loops
+(counterpart of svnet_tpu/train/loop.py::run_cls, run_partseg and
+run_semseg: the SV, VN, original and BiPointNet families of PointNet and
+DGCNN on ModelNet40 or ScanObjectNN and on ShapeNetPart, BiPointNet's
+semantic segmenter on S3DIS, train path).
 
 Epochs of train steps (SV-DGCNN: the fused train forward on the card, the
 un-fused one elsewhere, ``config.fused_train``; SV-PointNet: the
-flax-equivalent train forward of ``train/pointnet.py``; the VN and
-original models: their one function of the weights, ``nn/scope.py``); the
-loss is ``model_loss`` (the T-Net regularizer for the original PointNet,
-whose model returns it; ROADMAP C26); the class count comes from
-``--dataset``; before each
+flax-equivalent train forward of ``train/pointnet.py``; the VN, original
+and BiPointNet models: their one function of the weights,
+``nn/scope.py``, BiPointNet's weights drawn on the first test batch, as
+JAX's ``model.init`` on it); the loss is ``model_loss`` (the T-Net
+regularizer for the original PointNet and BiPointNet, whose models
+return it; ROADMAP C26); the class count comes from ``--dataset``; before
+each
 eval, BN re-estimation over ``--bn-reestimate`` train batches (60 by
 default for binary nets, whose running statistics lag the weight-sign
 flips); eval through the eager model with ``--rot-test``, or with
@@ -37,13 +40,19 @@ import torch
 
 from svnet_tpu_torch import config
 from svnet_tpu_torch.cli.flags import SERVING_KNOBS, check_ported
-from svnet_tpu_torch.data import Loader, ModelNet40, ScanObjectNNCls, ShapeNetPart
+from svnet_tpu_torch.data import (
+    S3DIS,
+    Loader,
+    ModelNet40,
+    ScanObjectNNCls,
+    ShapeNetPart,
+)
 from svnet_tpu_torch.infer import (
     SVDGCNNClsEngine,
     SVDGCNNPsegEngine,
     SVPointNetClsEngine,
 )
-from svnet_tpu_torch.models import get_model
+from svnet_tpu_torch.models import BiPointNetSemseg, get_model
 from svnet_tpu_torch.train import dgcnn, pointnet
 from svnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from svnet_tpu_torch.train.fused import (
@@ -64,6 +73,7 @@ from svnet_tpu_torch.train.steps import (
 from svnet_tpu_torch.utils.convert import flatten, load_tree, module_tree, nest
 
 NUM_PARTS = 50  # ShapeNetPart's part labels
+NUM_SEMSEG = 13  # S3DIS's classes
 NUM_CLASSES = {"modelnet40": 40, "scanobjectnn": 15}  # --dataset -> classes
 # config's knobs that the CLI sets (svnet_tpu/train/loop.py::
 # _apply_approx_knobs), each through ``config.set_<name>``
@@ -122,8 +132,8 @@ def optimizer_recipe(args, task: str) -> str:
 
 def build_model(args, task: str, device, knobs=None, log_string=print):
     """(seeded eager eval model, train forward, optimizer recipe) of
-    ``args.model`` and ``args.backbone`` for ``task``: the VN and original
-    models' ``make_train_apply``; SV-PointNet's ``train/pointnet.py``;
+    ``args.model`` and ``args.backbone`` for ``task``: the VN, original
+    and BiPointNet models' ``make_train_apply``; SV-PointNet's ``train/pointnet.py``;
     SV-DGCNN's fused forward where ``config.use_fused_train(device)``,
     else the un-fused ``train/dgcnn.py`` (svnet_tpu/train/loop.py:356-372,
     :778-795). ``knobs`` (``config.train_knob_state``) go to both the
@@ -334,6 +344,26 @@ def eval_cls(eval_step, loader, generator, log_string=print):
     return acc, avg, loss
 
 
+def semseg_miou(pred: np.ndarray, seg: np.ndarray) -> float:
+    """The mean over the classes present in ``seg`` of each class's IoU
+    (a union of 0 reads 1.0)."""
+    ious = []
+    for c in np.unique(seg):
+        inter = np.logical_and(pred == c, seg == c).sum()
+        union = np.logical_or(pred == c, seg == c).sum()
+        ious.append(inter / union if union else 1.0)
+    return float(np.mean(ious))
+
+
+def eval_semseg(eval_step, loader, generator, log_string=print):
+    """Semantic segmentation: the point accuracy, ``semseg_miou`` and the
+    loss."""
+    loss, seg, pred, _ = eval_batches(eval_step, loader, generator)
+    acc, miou = float((pred == seg).mean()), semseg_miou(pred, seg)
+    log_string(f"TEST: loss {loss:.6f}, point acc {acc:.6f}, mIoU {miou:.6f}")
+    return acc, miou, loss
+
+
 def eval_pseg(eval_step, loader, generator, log_string=print):
     """Part segmentation: the mean over shapes of ``shape_iou``, the point
     accuracy and the loss."""
@@ -367,7 +397,6 @@ class _Run:
         the preloaded ones), the teacher, and the steps."""
         args = self.args
         model, apply, recipe = built
-        weights = module_tree(model)
         self.model = model.to(self.dev).eval()
         self.loss_fn = loss_fn
         with_label = self.task == "partseg"
@@ -377,6 +406,13 @@ class _Run:
         self.test_loader = Loader(test_set, args.batch_size, shuffle=False,
                                   pad_last=True, device=self.dev)
         self.log(f"trainloader: {len(train_set)}, test_loader: {len(test_set)}")
+        if getattr(model, "data_init", False):
+            # the JAX trainers' model.init on the first test batch
+            batch = next(iter(self.test_loader))
+            inputs = (batch["points"], batch["label"]) if with_label \
+                else (batch["points"],)
+            model.init_on(*inputs, generator=torch.Generator().manual_seed(args.seed))
+        weights = module_tree(model)
         self.state = create_state(
             weights, binary=args.binary, lr=args.lr, epochs=args.epochs,
             steps_per_epoch=len(self.train_loader), momentum=args.momentum,
@@ -542,3 +578,39 @@ def run_partseg(args, datasets=None) -> Optional[float]:
                 f"iou {test_iou:.6f}, acc {test_acc:.6f} | Train: loss "
                 f"{tr['loss']:.6f} | {time.strftime('%Y-%m-%d-%H-%M-%S')}")
         return best_iou
+
+
+def run_semseg(args, datasets=None) -> Optional[float]:
+    """Semantic-segmentation trainer: S3DIS's rooms (``--test-area`` is the
+    test partition) or the caller's ``datasets``, BiPointNet_SEMSEG of 13
+    classes, the loss ``cal_loss`` (``--smoothing``) plus 0.001 times the
+    T-Net regularizer, the dgcnn recipe's Adam (``args.binary``, set by
+    the CLI); ``--rot``/``--rot-test`` aligned only. Training returns the
+    best point accuracy, ``--test`` the mIoU."""
+    args.task = "semseg"
+    if args.rot != "aligned" or args.rot_test != "aligned":
+        # whole-room rotation of S3DIS's 9 features is not meaningful
+        raise ValueError("semseg supports --rot/--rot-test aligned only")
+    with knob_scope(args):
+        run = _Run(args, "semseg")
+        model = BiPointNetSemseg(NUM_SEMSEG,
+                                 generator=torch.Generator().manual_seed(args.seed))
+        sets = datasets or [
+            S3DIS(args.num_points, args.data_dir, part, args.test_area, seed)
+            for part, seed in (("train", args.seed), ("test", args.seed + 1))]
+        run.prepare((model, model.make_train_apply(), "dgcnn"),
+                    functools.partial(model_loss, smoothing=args.smoothing), *sets)
+        start_epoch, best_acc = run.restore()
+        if args.test is not None:
+            return run.evaluate(eval_semseg)[1]
+        for epoch in range(start_epoch, args.epochs):
+            tr = run.train(epoch)
+            acc, miou, test_loss = run.evaluate(eval_semseg)
+            is_best = acc >= best_acc
+            best_acc = max(best_acc, acc)
+            run.save(epoch, is_best, best_acc)
+            run.epoch_log(
+                f"EPOCH {epoch:03d}/{args.epochs:03d} | Test: loss {test_loss:.6f}, "
+                f"acc {acc:.6f}, miou {miou:.6f} | Train: loss {tr['loss']:.6f} | "
+                f"{time.strftime('%Y-%m-%d-%H-%M-%S')}")
+        return best_acc

@@ -5,7 +5,8 @@ seed gives the same clouds as the JAX package's generator. Strand clouds
 (``strand_clouds``): elongated inputs on which the candidate window
 certifies at small N. Shape clouds (``shape_clouds``): the three classes
 of the JAX package's learning test (tests/test_learning.py), told apart
-by shape alone."""
+by shape alone. Band rooms (``band_rooms``): S3DIS-shaped rooms of 9
+channels whose 13 labels are height bands."""
 
 from __future__ import annotations
 
@@ -60,3 +61,16 @@ def shape_clouds(rng: np.random.Generator, n_per_class: int, N: int):
         clouds.append(rng.standard_normal((N, 3)) * np.array([1.0, 1.0, 0.02]))
         labels += [0, 1, 2]
     return np.stack(clouds).astype(np.float32), np.asarray(labels, dtype=np.int64)
+
+
+def band_rooms(seed: int, M: int, N: int):
+    """(M, N, 9) float32 rooms in S3DIS's channel layout (xyz in a 4 x 4
+    x 3 box, rgb in [0, 1], xyz over the box's size) and (M, N) int64
+    labels: 13 bands of equal height, 0 at the floor."""
+    rng = np.random.default_rng(seed)
+    box = np.array([4.0, 4.0, 3.0])
+    xyz = rng.uniform(0.0, 1.0, (M, N, 3)) * box
+    rgb = rng.uniform(0.0, 1.0, (M, N, 3))
+    rooms = np.concatenate([xyz, rgb, xyz / box], axis=-1).astype(np.float32)
+    labels = np.minimum((xyz[..., 2] / box[2] * 13).astype(np.int64), 12)
+    return rooms, labels

@@ -313,13 +313,16 @@ def test_entry_points_need_the_card_unless_asked():
 
 def test_pointnet_flags():
     """``build_parser("cls", "pointnet")``: the JAX surface's defaults and
-    model choices; ``check_ported`` raises for the models the port lacks."""
+    model choices; every model of it is ported (``--model bipointnet``
+    passes ``check_ported``; ``--binary`` beside it raises, C24)."""
     parser = flags.build_parser("cls", "pointnet")
     args = parser.parse_args([])
     assert (args.backbone, args.k, args.num_points, args.device) == (
         "pointnet", 20, 1024, "cuda")
-    with pytest.raises(NotImplementedError):
-        flags.check_ported(parser.parse_args(["--model", "bipointnet"]))
+    for model in ("original", "vn", "svnet", "bipointnet"):
+        flags.check_ported(parser.parse_args(["--model", model]))
+    with pytest.raises(ValueError):
+        flags.check_ported(parser.parse_args(["--model", "bipointnet", "--binary"]))
 
 
 def test_cli_trains_one_epoch_on_cpu(tmp_path):

@@ -95,9 +95,11 @@ def test_modelnet40_v2_matches_jax(tmp_path):
 def test_zoo_flags():
     """``--model vn|original`` on both backbones and both tasks and
     ``--dataset scanobjectnn`` (with ``--subset``) are ported;
-    ``--model bipointnet`` raises NotImplementedError (flags and
-    ``get_model``); C24: ``--pooling max`` off VN, ``--subset`` off
-    ScanObjectNN and ``--fused`` off the SV models raise ValueError."""
+    ``--model bipointnet`` on the PointNet backbone builds (``get_model``:
+    the exported LSR ema-max classes) and passes ``check_ported``, and
+    ``get_model`` raises ValueError for it on DGCNN, as JAX's does; C24:
+    ``--pooling max`` off VN, ``--subset`` off ScanObjectNN, ``--fused``
+    off the SV models and ``--binary`` on BiPointNet raise ValueError."""
     for task in ("cls", "partseg"):
         for backbone in ("pointnet", "dgcnn"):
             parser = flags.build_parser(task, backbone)
@@ -117,11 +119,17 @@ def test_zoo_flags():
     flags.check_ported(parser.parse_args(["--dataset", "scanobjectnn", "--subset",
                                           "easy"]))
     for task in ("cls", "partseg"):
-        with pytest.raises(NotImplementedError):
-            flags.check_ported(flags.build_parser(task, "pointnet").parse_args(
-                ["--model", "bipointnet"]))
-        with pytest.raises(NotImplementedError):
-            get_model(task, "pointnet", "bipointnet")
+        parser = flags.build_parser(task, "pointnet")
+        flags.check_ported(parser.parse_args(["--model", "bipointnet"]))
+        for argv in (["--binary"], ["--pooling", "max"], ["--test", "x", "--fused"]):
+            with pytest.raises(ValueError):
+                flags.check_ported(parser.parse_args(["--model", "bipointnet", *argv]))
+        width = {"cls": {"num_classes": 40}, "partseg": {"num_part": 50}}[task]
+        model = get_model(task, "pointnet", "bipointnet", k=4, **width)
+        assert model.config == {**width, "k": 4, "linear": "BiLinearLSR",
+                                "pool": "ema-max", "affine": True}
+        with pytest.raises(ValueError):
+            get_model(task, "dgcnn", "bipointnet")
     with pytest.raises(ValueError):
         get_model("cls", "dgcnn", "bipointnet_x")
 
