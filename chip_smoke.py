@@ -439,6 +439,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4501,16 +4502,6 @@ def phase26(dev, gen, counters, loader, card, tmp):
     return s1 + "model_best.ckpt", fp_best, test_set, median
 
 
-# tools/certify_serving.sh's legs (--reuse-k R is k / 2; fold 512 at partseg)
-CERT_LEGS = ([["--engine-mode", "exact"], ["--engine-mode", "fast"],
-              ["--engine-mode", "approx"],
-              ["--engine-mode", "approx", "--approx-gather-bits", "8"]]
-             + [["--engine-mode", "approx"] + bits + ["--graph-reuse", reuse] + rk
-                for bits, rk in (([], []), (["--approx-gather-bits", "8"], []),
-                                 (["--approx-gather-bits", "8"], ["--reuse-k", "R"]))
-                for reuse in ("conv2", "spatial")])
-
-
 def float64_witness(task, tree, model, engine, width, k, loader, dev, bar=True,
                     tag="phase 27"):
     """The binary weights in float64, where no binarization sign lies
@@ -4574,10 +4565,12 @@ def phase27(trees, fp_trees, sets, dev, counters, card):
     the >= 0.99 bar against the eager eval is held on the FP weights
     (``fp_trees``: phase 26's FP teacher, a seeded FP part segmenter),
     where the two agree to 1e-8, and on the binary weights in float64
-    (``float64_witness``), where no sign flips."""
+    (``float64_witness``), where no sign flips. The legs are
+    ``cli/certify_serving.py``'s ``CERT_LEGS``."""
     import numpy as np
     import torch
 
+    from svnet_tpu_torch.cli.certify_serving import CERT_LEGS
     from svnet_tpu_torch.cli.flags import build_parser, check_ported
     from svnet_tpu_torch.data import Loader
     from svnet_tpu_torch.infer import SVDGCNNClsEngine, SVDGCNNPsegEngine
@@ -5280,6 +5273,172 @@ def pseg_test_set():
     return PartArrayDataset(surface_clouds(SEED + 42, m, N_PSEG), cat, seg)
 
 
+# phase 32's configurations: (tag, engine key, batch, points, the config
+# knobs the engine is exported and served under)
+P32_CONFIGS = (
+    ("SV-DGCNN cls exact", "cls", B, N, {}),
+    ("SV-DGCNN cls serving pick", "pick", B, N,
+     {"approx_fold": 256, "approx_gather_bits": 8, "graph_reuse": "spatial"}),
+    ("SV-DGCNN partseg exact", "pseg", B_PSEG, N_PSEG, {}),
+    ("SV-PointNet cls exact", "pn cls", B, N, {}),
+    ("SV-PointNet partseg exact", "pn pseg", B_PSEG, N_PSEG, {}),
+    ("SV-DGCNN cls round2", "round2", 16, N, {}),
+    ("SV-DGCNN cls edge", "edge", 16, N, {}),
+)
+P32_REQUESTS = 3
+
+
+@contextlib.contextmanager
+def config_knobs(knobs: dict):
+    """``config``'s serving knobs set through their setters, restored
+    after."""
+    from svnet_tpu_torch import config
+
+    was = {name: getattr(config, name) for name in knobs}
+    try:
+        for name, value in knobs.items():
+            getattr(config, "set_" + name)(value)
+        yield
+    finally:
+        for name, value in was.items():
+            setattr(config, name, value)
+
+
+def phase32(engines, gen, dev, counters, card, ckpt, tmp):
+    """AOT export (serve.py) on the card: each of ``P32_CONFIGS``' engines
+    (phase 3's, 7's, 8's and 12's seeded weights, the serving pick on
+    phase 3's, the round2 and edge trunks at B = 16) exported with
+    ``export_engine`` under its knobs, loaded with ``load_engine`` and run,
+    outside the knobs, on the requests the live engine answers under them:
+    the logits ``torch.equal``, the launches per request the live
+    engine's, the graph calling the trunk's ``svnet::`` ops. Printed: the
+    artifact's bytes, the export and load seconds, and the median request
+    (CUDA events) of both, as a record. Then once: a second process that
+    imports only ``svnet_tpu_torch.serve`` loads the classifier's artifact
+    from a file and answers a request, equal to this process's logits;
+    ``python -m svnet_tpu_torch.serve`` turns phase 26's checkpoint into an
+    artifact whose logits equal the live engine's; ``analyze_model`` of
+    binary SV-DGCNN cls at N = 1024, k = 20 (on the CPU). Returns the
+    phase's seconds."""
+    import io
+
+    import torch
+
+    from svnet_tpu_torch.infer import SVDGCNNClsEngine
+    from svnet_tpu_torch.serve import export_program, load_engine
+    from svnet_tpu_torch.train.loop import read_weights
+    from svnet_tpu_torch.utils.analysis import analyze_model
+
+    t_phase = time.perf_counter()
+    names = [fn.__name__ for fn in counters]
+
+    def timed(fn, args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        before = [c.launches for c in counters]
+        e0.record()
+        out = fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        per = {n: c.launches - b for n, c, b in zip(names, counters, before)
+               if c.launches != b}
+        return out, e0.elapsed_time(e1), per
+
+    first = None
+    for tag, key, b, n, knobs in P32_CONFIGS:
+        eng = engines[key]
+        pseg = "pseg" in key
+        reqs = [(cloud(b, n, gen, dev),) + ((labels(b, gen, dev),) if pseg else ())
+                for _ in range(P32_REQUESTS)]
+        with config_knobs(knobs):
+            eng(*reqs[0])  # warm-up
+            live = [timed(eng, r) for r in reqs]
+            t0 = time.perf_counter()
+            ep = export_program(eng, *reqs[0])
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            blob = buf.getvalue()
+            t_export = time.perf_counter() - t0
+        ops = sorted({str(nd.target).split(".")[1] for nd in ep.graph.nodes
+                      if nd.op == "call_function"
+                      and str(nd.target).startswith("svnet.")})
+        t0 = time.perf_counter()
+        call = load_engine(blob)
+        t_load = time.perf_counter() - t0
+        call(*reqs[0])  # warm-up: the first call packs W1's signs
+        loaded = [timed(call, r) for r in reqs]
+        for i, ((want, _, want_per), (got, _, got_per)) in enumerate(zip(live, loaded)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase 32 {tag}: request {i}: the loaded "
+                                     "artifact's logits differ from the live "
+                                     f"engine's (max |d| "
+                                     f"{(got - want).abs().max().item():.3g})")
+            if got_per != want_per or not want_per:
+                raise AssertionError(f"phase 32 {tag}: request {i}: launches "
+                                     f"{got_per} != the live engine's {want_per}")
+        # the pre-pass runs inside a selecting round's op, and a reuse round
+        # also counts on sv_round3's launches
+        inside = {"neg_min"} | ({"sv_round3"} if "sv_round3_reuse" in ops else set())
+        missing = set(want_per) - set(ops) - inside
+        if missing:
+            raise AssertionError(f"phase 32 {tag}: the graph calls {ops}, not "
+                                 f"the launched kernels {sorted(missing)}")
+        med = [sorted(t for _, t, _ in runs)[len(runs) // 2] for runs in (live, loaded)]
+        log(f"phase 32 {tag}: ({b}, {n}, 3), {len(blob)} bytes, export "
+            f"{t_export:.2f} s, load {t_load:.2f} s, graph ops {ops}, launches "
+            f"per request {want_per} both; median request live {med[0]:.3f} ms, "
+            f"loaded {med[1]:.3f} ms | {card}")
+        if first is None:
+            first = (blob, reqs[0][0], live[0][0])
+
+    # a second process: only svnet_tpu_torch.serve, the artifact from a file
+    blob, pts, want = first
+    art = Path(tmp) / "engine.pt2"
+    art.write_bytes(blob)
+    torch.save(pts.cpu(), Path(tmp) / "points.pt")
+    code = ("import sys, torch\n"
+            "from svnet_tpu_torch.serve import load_engine\n"
+            "d = sys.argv[1]\n"
+            "call = load_engine(open(d + '/engine.pt2', 'rb').read())\n"
+            "out = call(torch.load(d + '/points.pt').cuda())\n"
+            "torch.save(out.cpu(), d + '/logits.pt')\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, str(tmp)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 32: the second process failed:\n{r.stderr[-3000:]}")
+    other = torch.load(Path(tmp) / "logits.pt")
+    if not torch.equal(other, want.cpu()):
+        raise AssertionError("phase 32: the second process's logits differ")
+    log(f"phase 32: a second process loaded the cls artifact from a file and "
+        f"answered, logits equal ({time.perf_counter() - t0:.1f} s)")
+
+    # the CLI on phase 26's checkpoint
+    out = Path(tmp) / "cli.pt2"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "svnet_tpu_torch.serve", "--ckpt",
+                        str(ckpt), "--out", str(out), "--batch", "16",
+                        "--num-points", str(N), "--k", str(K), "--mode", "exact"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 32: the serve CLI failed:\n{r.stderr[-3000:]}")
+    pts = cloud(16, N, gen, dev)
+    live = SVDGCNNClsEngine(read_weights(str(ckpt), dev), CLASSES, K, True,
+                            device=dev)(pts)
+    if not torch.equal(load_engine(out.read_bytes())(pts), live):
+        raise AssertionError("phase 32: the CLI's artifact differs from the "
+                             "live engine on phase 26's checkpoint")
+    log(f"phase 32: {r.stdout.strip()}; its logits equal the live engine's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    res = analyze_model("cls", "dgcnn", "svnet", binary=True, num_points=N, k=K)
+    log(f"phase 32: analyze_model SV-DGCNN cls binary N={N} k={K} (CPU trace, "
+        f"{time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{name} {value:.6f}" for name, value in res.items()))
+    return time.perf_counter() - t_phase
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5536,9 +5695,11 @@ def main() -> int:
     for task in ("cls", "pseg"):
         for name in ("sv_round3_train_fwd", "sv_round3_train_bwd"):
             launches[f"{name} knob {task}"] = knob[task][0][name]
+    keep = tempfile.mkdtemp()  # phase 26's stage-1 checkpoint for phase 32
     with tempfile.TemporaryDirectory() as tmp:
         s1_ckpt, fp_ckpt, cls_test, kd_ms = phase26(dev, gen, counters, loader,
                                                     card, tmp)
+        shutil.copy(s1_ckpt, Path(keep) / "stage1.ckpt")
         from svnet_tpu_torch.models.sv_dgcnn import init_params_pseg
         from svnet_tpu_torch.train.loop import read_weights
 
@@ -5569,6 +5730,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         bi = phase31(dev, counters, card, tmp)
     t_new["31"] = time.perf_counter() - t0
+    # phase 32: AOT export of the serving engines
+    engines = {"cls": eng, "pseg": dg["pseg round3"]["kernel"],
+               "pn cls": pn["cls"]["kernel"], "pn pseg": pn["pseg"]["kernel"],
+               "round2": dg["cls round2"]["kernel"], "edge": dg["cls edge"]["kernel"],
+               "pick": SVDGCNNClsEngine(w_bin, CLASSES, K, True, mode="approx",
+                                        device=dev)}
+    try:
+        t_new["32"] = phase32(engines, gen, dev, counters, card,
+                              Path(keep) / "stage1.ckpt", keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     for tag, _, rounds in ZOO_ROUNDS:
         launches[f"knn {tag}"] = zoo[tag][0]["knn"]
         launches[f"edge_gather_fwd {tag}"] = zoo[tag][0]["edge_gather_fwd"]
@@ -5734,6 +5906,7 @@ def main() -> int:
         + "; ".join(f"{task} {med:.3f} / {peak / 2**30:.3f}"
                     for task, (med, peak) in bi.items())
         + f"; phase 31 took {t_new['31']:.1f} s | {card}")
+    log(f"phase 32 took {t_new['32']:.1f} s")
     log(f"phase 2 zoo {t_zoo2:.1f} s; phase 28 {t_new['28']:.1f} s, phase 29 "
         f"{t_new['29']:.1f} s, phase 30 {t_new['30']:.1f} s ((a) "
         f"{learn_secs[0]:.1f} s, (b) {learn_secs[1]:.1f} s)")

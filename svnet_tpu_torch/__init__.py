@@ -19,7 +19,8 @@ against. The layout mirrors it module for module:
                          the VN and original families (cls and partseg),
                          get_model (models/__init__.py)
   ops/sampling.py        farthest-point sampling, ball query, grouping
-  utils/convert.py       flax variables <-> this package's weight tree
+  utils/convert.py       flax variables and reference .pth checkpoints ->
+                         this package's weight tree
   utils/synth.py         seeded deformed-sphere clouds
   ops/kernels/fold.py    host-side weight folding for the fused kernels
   ops/kernels/_build.py  nvcc build + ctypes binding of csrc/*.cu
@@ -27,15 +28,18 @@ against. The layout mirrors it module for module:
                          serving kernels + plain versions
   ops/kernels/knn.py, sv_first_train.py, sv_round3_train.py,
   edge_gather.py         training kernels + plain versions, autograd
-  infer.py               SVDGCNNClsEngine (round3 path), SVPointNetClsEngine,
-                         SVPointNetPsegEngine (exact mode)
+  ops/kernels/library.py the serving kernels as svnet:: custom ops
+  infer.py               the SV-DGCNN and SV-PointNet engines (cls and
+                         partseg, every trunk and mode)
+  serve.py               export_engine / load_engine (torch.export)
+  utils/analysis.py      Params / MACs / ADDs / BOPs from the aten graph
   train/                 train forwards (fused.py: SV-DGCNN on B5/B6;
                          dgcnn.py, pointnet.py: the flax-equivalent
                          SV-DGCNN and SV-PointNet paths), steps,
                          optimizer, loop
   data/, cli/            ModelNet40, ScanObjectNN, ModelNet40_v2, ShapeNetPart
                          / in-memory datasets, Loader, the
-                         CLIs, profile_train_step
+                         CLIs, profile_train_step, certify_serving
 
 This package imports torch and never jax.
 """

@@ -3,7 +3,7 @@ svnet_tpu/cli/flags.py::build_parser(task, backbone)) plus ``--device``.
 
 Every flag of the JAX surface parses; ``check_ported`` raises
 ``NotImplementedError`` for a flag whose feature the port does not have
-yet (the mesh, profiling, NaN debugging, other datasets) and
+yet (the mesh, other datasets) and
 ``ValueError`` for a ported flag that would not act where it is given
 (``check_acts``, ROADMAP C24), where the JAX CLI ignores it. The ported
 models are the SV, VN, original and BiPointNet families (BiPointNet on
@@ -17,7 +17,7 @@ from __future__ import annotations
 import argparse
 
 # flag -> value that means "off"; any other value is not ported yet
-_NOT_PORTED = {"profile_dir": None, "debug_nans": False, "dp": 1, "tp": 1}
+_NOT_PORTED = {"dp": 1, "tp": 1}
 PORTED_MODELS = ("svnet", "vn", "original", "bipointnet")
 # the serving knobs, which act through --fused eval's engines (and three of
 # them through --train-knobs): flag -> value that means "not given"
@@ -144,8 +144,18 @@ def check_acts(args) -> None:
     what it loaded; ``--pooling max`` off ``--model vn``; ``--subset`` off
     ScanObjectNN; ``--fused`` off the SV models, which alone have engines;
     ``--binary`` on BiPointNet, which is binary whatever it says (its
-    semantic-segmentation CLI sets it, as JAX's does)."""
+    semantic-segmentation CLI sets it, as JAX's does); ``--profile-dir``
+    off classification training and ``--debug-nans`` off classification
+    and part-segmentation training, where JAX's loop reads neither."""
     dgcnn = args.backbone == "dgcnn"
+    task = getattr(args, "task", "cls")
+    if args.profile_dir is not None and (task != "cls" or args.test is not None):
+        raise ValueError("--profile-dir traces a train step of the "
+                         "classification trainer only (JAX reads it there)")
+    if args.debug_nans and (task not in ("cls", "partseg")
+                            or args.test is not None):
+        raise ValueError("--debug-nans checks the train steps of the "
+                         "classification and part-segmentation trainers only")
     if args.pooling != "mean" and args.model != "vn":
         raise ValueError(f"--pooling {args.pooling} acts on --model vn only")
     if args.binary and args.model == "bipointnet" and args.task != "semseg":

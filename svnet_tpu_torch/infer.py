@@ -37,6 +37,9 @@ The SV-PointNet engines run row-major (B, N, C) after the first round:
 The SE gates, token path and heads run as plain tensor code on the host
 side of the kernels, as in the JAX engines. On a CUDA device every fused
 stage launches its kernel; on the CPU the kernels' plain versions run.
+Each kernel is called through its ``svnet::`` custom op
+(ops/kernels/library.py), so that ``torch.export`` traces an engine whole
+(serve.py); ``oracle=True`` calls the plain versions directly.
 
 ``mode="fast"`` (the JAX engines' default) changes the first round and
 the conv rounds (B1, B2: packed distance keys per key tile, the gather
@@ -90,7 +93,7 @@ from svnet_tpu_torch.config import BN_EPS, EPS
 from svnet_tpu_torch.nn.sv_layers import binary_matmul
 from svnet_tpu_torch.models.sv_dgcnn import PSEG_DIMS
 from svnet_tpu_torch.ops import morton
-from svnet_tpu_torch.ops.kernels import quant
+from svnet_tpu_torch.ops.kernels import library, quant
 from svnet_tpu_torch.ops.kernels.fold import (
     fold_first_params,
     fold_point_like_params,
@@ -100,40 +103,25 @@ from svnet_tpu_torch.ops.kernels.fold import (
     head8_rows,
     head_perm,
 )
-from svnet_tpu_torch.ops.kernels.sv_block_point import (
-    sv_block_point,
-    sv_block_point_plain,
-)
+from svnet_tpu_torch.ops.kernels.sv_block_point import sv_block_point_plain
 from svnet_tpu_torch.ops.kernels.sv_point import (
-    sv_point_block,
-    sv_point_block_cm,
     sv_point_block_cm_plain,
     sv_point_block_plain,
 )
 from svnet_tpu_torch.ops.kernels.sv_edge import (
     svblock_gate,
-    sv_edge_block,
     sv_edge_block_plain,
 )
-from svnet_tpu_torch.ops.kernels.sv_edge_first import (
-    sv_edge_first_block,
-    sv_edge_first_block_plain,
-)
+from svnet_tpu_torch.ops.kernels.sv_edge_first import sv_edge_first_block_plain
 from svnet_tpu_torch.ops.kernels.sv_round import (
-    sv_round,
-    sv_round_first,
     sv_round_first_plain,
     sv_round_plain,
 )
 from svnet_tpu_torch.ops.kernels.sv_round2 import (
-    sv_round2,
-    sv_round2_first,
     sv_round2_first_plain,
     sv_round2_plain,
 )
 from svnet_tpu_torch.ops.kernels.sv_round3 import (
-    sv_round3,
-    sv_round3_first,
     sv_round3_first_plain,
     sv_round3_plain,
 )
@@ -204,9 +192,9 @@ def _edge_trunk(oracle: bool):
     with ``oracle``); the first round gated here from its s_mean, a conv
     round's gate computed from the ids (``svblock_gate``) and applied
     inside the block."""
-    knn = ops.knn_plain if oracle else ops.knn
-    first = (sv_edge_first_block, sv_edge_first_block_plain)[oracle]
-    block = (sv_edge_block, sv_edge_block_plain)[oracle]
+    knn = ops.knn_plain if oracle else library.knn
+    first = (library.sv_edge_first_block, sv_edge_first_block_plain)[oracle]
+    block = (library.sv_edge_block, sv_edge_block_plain)[oracle]
 
     def first_round(points, folded, **kw):
         return first(points, knn(points, kw["k"]), folded, **kw)
@@ -217,24 +205,25 @@ def _edge_trunk(oracle: bool):
         return block(joint, idx, gate, folded, S=S, k=k, **kw)
 
     return (_host_gated(first_round), conv_round,
-            (sv_point_block, sv_point_block_plain)[oracle])
+            (library.sv_point_block, sv_point_block_plain)[oracle])
 
 
 # trunk -> build(oracle) -> (first round, conv round, point block); a round
 # is (x, folded, p, **dims) -> (s, gated v[, ids]); round3's rounds return
 # their ids (B, k, N), and its conv round takes ``wins_in``
 TRUNKS = {
-    "round3": _gated_trunk((functools.partial(sv_round3_first, emit_wins=True),
+    "round3": _gated_trunk((functools.partial(library.sv_round3_first,
+                                              emit_wins=True),
                             sv_round3_first_plain),
-                           (_with_ids(sv_round3), sv_round3_plain),
-                           (sv_point_block_cm, sv_point_block_cm_plain),
+                           (_with_ids(library.sv_round3), sv_round3_plain),
+                           (library.sv_point_block_cm, sv_point_block_cm_plain),
                            rm=False),
-    "round2": _gated_trunk((sv_round2_first, sv_round2_first_plain),
-                           (sv_round2, sv_round2_plain),
-                           (sv_point_block, sv_point_block_plain)),
-    "round": _gated_trunk((sv_round_first, sv_round_first_plain),
-                          (sv_round, sv_round_plain),
-                          (sv_point_block, sv_point_block_plain)),
+    "round2": _gated_trunk((library.sv_round2_first, sv_round2_first_plain),
+                           (library.sv_round2, sv_round2_plain),
+                           (library.sv_point_block, sv_point_block_plain)),
+    "round": _gated_trunk((library.sv_round_first, sv_round_first_plain),
+                          (library.sv_round, sv_round_plain),
+                          (library.sv_point_block, sv_point_block_plain)),
     "edge": _edge_trunk,
 }
 
@@ -687,8 +676,9 @@ class _PointNetEngine:
                  k: int, binary: bool, mode: str, device, oracle: bool):
         self.mode = config.check_mode(mode)
         self._first = functools.partial(
-            sv_round3_first_plain if oracle else sv_round3_first, mode=mode)
-        self._block = sv_block_point_plain if oracle else sv_block_point
+            sv_round3_first_plain if oracle else library.sv_round3_first,
+            mode=mode)
+        self._block = sv_block_point_plain if oracle else library.sv_block_point
         self.device = config.resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls: TF32 would flip binarization signs (C7)

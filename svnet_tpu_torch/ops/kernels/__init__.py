@@ -1,2 +1,3 @@
 """Hand-written Hopper kernels (csrc/*.cu) behind PyTorch wrappers, each
-with its plain PyTorch version, and the host-side weight folding."""
+with its plain PyTorch version, the host-side weight folding, and the
+serving wrappers as ``svnet::`` custom ops (library.py)."""

@@ -16,6 +16,7 @@ import torch
 
 from svnet_tpu_torch.ops.kernels import quant
 
+
 def channel_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_c a[..., c] * b[..., c], one channel at a time in order, each
     product and sum rounded on its own."""
@@ -23,6 +24,32 @@ def channel_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for c in range(1, a.shape[-1]):
         acc += a[..., c] * b[..., c]
     return acc
+
+
+@torch.library.custom_op("svnet::pair_inner", mutates_args=())
+def pair_inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``channel_sum`` of a and b broadcast against each other, as one op
+    (``svnet::pair_inner``): a traced graph then holds the kNN's inner
+    products as one node, which the complexity analyzer
+    (utils/analysis.py) counts as the product it is."""
+    a, b = torch.broadcast_tensors(a, b)
+    return channel_sum(a, b)
+
+
+@pair_inner.register_fake
+def _(a, b):
+    return a.new_empty(torch.broadcast_shapes(a.shape, b.shape)[:-1])
+
+
+def _pair_inner_bwd(ctx, g):
+    a, b = ctx.saved_tensors
+    g = g[..., None]
+    return (g * b).sum_to_size(a.shape), (g * a).sum_to_size(b.shape)
+
+
+pair_inner.register_autograd(
+    _pair_inner_bwd,
+    setup_context=lambda ctx, inputs, output: ctx.save_for_backward(*inputs))
 
 
 def pairwise_neg_sqdist(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
@@ -34,11 +61,12 @@ def pairwise_neg_sqdist(x: torch.Tensor, y: torch.Tensor | None = None) -> torch
     kernels' on any device and every self-distance is exactly 0; a matmul
     would sum in a library-chosen order and flip near-tied ranks.
     """
-    if y is None:
-        y = x
     xx = channel_sum(x, x)
-    yy = channel_sum(y, y)
-    inner = channel_sum(x[:, :, None, :], y[:, None, :, :])
+    if y is None:
+        y, yy = x, xx
+    else:
+        yy = channel_sum(y, y)
+    inner = pair_inner(x[:, :, None, :], y[:, None, :, :])
     return 2.0 * inner - xx[:, :, None] - yy[:, None, :]
 
 

@@ -18,8 +18,11 @@ default for binary nets, whose running statistics lag the weight-sign
 flips); eval through the eager model with ``--rot-test``, or with
 ``--test --fused`` through the serving engine in ``--engine-mode`` and
 the serving knobs; checkpoints with the reference's file management.
-``--preload`` starts the student from a checkpoint (its own tree, or an
-FP teacher's overlapping leaves); with ``--distill`` it is the teacher of
+``--profile-dir`` (classification) traces one train step with
+``torch.profiler``; ``--debug-nans`` (classification and part
+segmentation) checks each train step for NaNs. ``--preload`` starts the
+student from a checkpoint (its own tree, or an FP teacher's overlapping
+leaves); with ``--distill`` it is the teacher of
 a KD term. ``--train-knobs`` (binary SV-DGCNN) trains and evaluates in
 the serving knobs' world. The CLI's knobs are set in ``config`` for the
 run's length only (``knob_scope``), and the training knobs are resolved
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import time
 from typing import Optional
 
@@ -245,17 +249,70 @@ def make_fused_eval_step(tree: dict, args, task: str, loss_fn, device):
                           with_label=task == "partseg")
 
 
+def profiled_step(train_step, state, batch, generator, profile_dir: str,
+                  cuda: bool, log_string=print):
+    """``--profile-dir``: one train step under ``torch.profiler`` (CPU
+    activity, and CUDA on the card), its trace written into
+    ``profile_dir`` as a Chrome trace (svnet_tpu/train/loop.py:440-446
+    traces with jax.profiler); the step trains as any other."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = train_step(state, batch, generator)
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "train_step.json"))
+    log_string(f"profiler trace written to {profile_dir}")
+    return out
+
+
+def nan_checked(train_step):
+    """``--debug-nans`` (JAX's ``jax_debug_nans``): the train step, then
+    one check of its loss, gradients and updated weights (one device sync a
+    step); a NaN raises ``FloatingPointError`` naming the first leaf that
+    holds one."""
+
+    def step(state, batch, generator):
+        loss, preds = train_step(state, batch, generator)
+        params = flatten(state.params)
+        leaves = [("loss", loss)]
+        leaves += [(f"gradient of {n}", p.grad) for n, p in params.items()]
+        leaves += [(f"params {n}", p) for n, p in params.items()]
+        leaves += [(f"batch_stats {n}", t)
+                   for n, t in flatten(state.batch_stats).items()]
+        leaves = [(n, t.detach()) for n, t in leaves if t is not None]
+        if bool(torch.stack([torch.isnan(t).any() for _, t in leaves]).any()):
+            first = next(n for n, t in leaves if bool(torch.isnan(t).any()))
+            raise FloatingPointError(
+                f"--debug-nans: NaN in {first} after train step {state.step}")
+        return loss, preds
+
+    return step
+
+
 def train_epoch(state, train_step, loader, generator, log_string=print,
-                epoch: int = 0, epochs: int = 1) -> dict:
+                epoch: int = 0, epochs: int = 1,
+                profile_dir: Optional[str] = None) -> dict:
     """One pass of train steps over ``loader``. Returns the epoch's
     loss, accuracy (per point, for part segmentation), balanced accuracy
     (classification only), wall seconds and the time of each step in ms
-    (CUDA events on the card, the host clock on the CPU)."""
+    (CUDA events on the card, the host clock on the CPU). With
+    ``profile_dir``, step index 2 runs under the profiler
+    (``profiled_step``) and, as in JAX's loop, enters neither the metrics
+    nor the step times; ``profiled`` says whether it ran."""
     t0 = time.time()
     cuda = loader.device.type == "cuda"
     true, pred, losses, counts, marks = [], [], [], [], []
     print_freq = max(len(loader) // 10, 1)
+    profiled = False
     for i, batch in enumerate(loader):
+        if profile_dir and i == 2:
+            profiled_step(train_step, state, batch, generator, profile_dir,
+                          cuda, log_string)
+            profiled = True
+            continue
         if cuda:
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
@@ -282,7 +339,8 @@ def train_epoch(state, train_step, loader, generator, log_string=print,
     y_true = torch.cat(true).cpu().numpy()
     y_pred = torch.cat(pred).cpu().numpy()
     out = {"loss": _weighted_loss(losses, counts), "acc": accuracy(y_true, y_pred),
-           "seconds": time.time() - t0, "step_ms": step_ms}
+           "seconds": time.time() - t0, "step_ms": step_ms,
+           "profiled": profiled}
     median = f"{out['seconds']:.1f}s, median step {float(np.median(step_ms)):.3f} ms"
     if y_true.ndim > 1:
         log_string(f"TRAIN: loss {out['loss']:.6f}, point acc {out['acc']:.6f} "
@@ -422,6 +480,9 @@ class _Run:
                                           with_label=with_label,
                                           distiller=distiller,
                                           alpha=args.kd_alpha)
+        if args.debug_nans:
+            self.train_step = nan_checked(self.train_step)
+        self.profile_dir = args.profile_dir
         self.eval_step = make_eval_step(self.model, loss_fn, rot_test=args.rot_test,
                                         with_label=with_label)
         self.recal_n = resolve_recal_n(args)
@@ -480,7 +541,10 @@ class _Run:
 
     def train(self, epoch: int) -> dict:
         tr = train_epoch(self.state, self.train_step, self.train_loader,
-                         self.generator, self.log, epoch, self.args.epochs)
+                         self.generator, self.log, epoch, self.args.epochs,
+                         self.profile_dir)
+        if tr["profiled"]:  # one trace a run, as JAX's
+            self.profile_dir = None
         if self.recal_step is not None:
             self.state.batch_stats = bn_reestimate(
                 self.recal_step, self.state, self.train_loader, self.generator,

@@ -253,15 +253,16 @@ def test_entry_points_need_the_card_unless_asked():
 def test_unported_flags_raise():
     """The features still missing raise NotImplementedError; KD, --fused
     eval and the knobs are ported (tests/test_torch_recipe.py,
-    tests/test_torch_knobs.py), and so are --model vn|original and
-    --dataset scanobjectnn (tests/test_torch_zoo_data.py)."""
+    tests/test_torch_knobs.py), and so are --model vn|original,
+    --dataset scanobjectnn (tests/test_torch_zoo_data.py), --profile-dir
+    and --debug-nans (tests/test_torch_profile_flag.py)."""
     parser = flags.build_parser()
-    for argv in (["--dp", "2"], ["--tp", "2"], ["--profile-dir", "p"],
-                 ["--debug-nans"]):
+    for argv in (["--dp", "2"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
             flags.check_ported(parser.parse_args(argv))
     for argv in (["--distill", "--preload", "x"], ["--model", "vn"],
-                 ["--dataset", "scanobjectnn"]):
+                 ["--dataset", "scanobjectnn"], ["--profile-dir", "p"],
+                 ["--debug-nans"]):
         flags.check_ported(parser.parse_args(argv))
 
 
